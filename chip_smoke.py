@@ -67,6 +67,13 @@ def bound(n_bytes, n_flop):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def taps_in_bounds(s, k):
+    """Taps of a size-``k`` centred filter that fall inside an axis of
+    length ``s`` (zero padding), summed over the ``s`` output positions."""
+    r = k // 2
+    return sum(min(p + r, s - 1) - max(p - r, 0) + 1 for p in range(s))
+
+
 def max_err(got, ref):
     d = (got - ref).abs()
     return float(d.max()), float((d / ref.abs().clamp_min(1e-3)).max())
@@ -167,11 +174,12 @@ def main() -> int:
               f"bound {b_ms:.4f} ms ({b_by})"
               + (f" library {library_ms:.4f} ms" if library_ms is not None
                  else ""), flush=True)
-        k = kernels.setdefault(kname, dict(err=0.0, ms=0.0, plain=0.0,
-                                           tb=0.0, to=0.0, bound=0.0,
-                                           lib=None))
+        k = kernels.setdefault(kname, dict(err=0.0, calls=0, ms=0.0,
+                                           plain=0.0, tb=0.0, to=0.0,
+                                           bound=0.0, lib=None))
         k["err"] = max(k["err"], err[0])
         if weight:
+            k["calls"] += weight
             k["ms"] += weight * ms
             k["plain"] += weight * plain_ms
             k["bound"] += weight * b_ms
@@ -237,9 +245,11 @@ def main() -> int:
             torch.cuda.synchronize()
             require_close(f"K4f L{i}", out1, ref1, atol=1e-4, rtol=1e-4)
             n_bytes = 4 * (2 * vox + sum(w.numel() for w in ws))
-            # grouped conv MACs, then per branch value: stats (2), normalize
-            # (2), GELU (4), branch sum (1); residual add (1)
-            n_flop = (2 * vox * cg * sum(k ** 3 for k in (1, 3, 5))
+            # grouped conv MACs over the taps inside the volume (those in
+            # the zero padding need no work), then per branch value: stats
+            # (2), normalize (2), GELU (4), branch sum (1); residual add (1)
+            n_flop = (2 * tiles * c * cg * sum(taps_in_bounds(s, k) ** 3
+                                               for k in (1, 3, 5))
                       + 9 * 3 * vox + vox)
             record("jlc_stage1", f"L{i}", weight, n_bytes, n_flop,
                    max_err(out1, ref1),
@@ -291,6 +301,12 @@ def main() -> int:
     if not fwd_err <= 1e-4 * scale:
         raise AssertionError(f"GPU forward differs from the CPU forward: "
                              f"max abs err {fwd_err:.3e} on scale {scale:.3e}")
+    # the per-shape weights of phase 3 build the per-forward sums below:
+    # they must add up to the launches one forward really made
+    weights = {n: k["calls"] for n, k in kernels.items()}
+    if weights != per_forward:
+        raise AssertionError(f"phase-3 calls per forward {weights} differ "
+                             f"from the forward's launches {per_forward}")
     print(f"[4] AutoPET-II eval forward (1,96,96,96,2): max abs err vs CPU "
           f"{fwd_err:.3e} on output scale {scale:.3e} (tol 1e-4 x scale) | "
           f"GPU {fwd_ms:.3f} ms/forward (CPU {cpu_s:.2f} s) | launches per "

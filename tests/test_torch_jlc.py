@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from torch_port_helpers import cf, cl, dense, dhwio, normal, randomize_
+from veloxseg_torch.interop.jax_params import state_dict_from_jax
 from veloxseg_torch.nn.conv_blocks import JLC
 from veloxseg_torch.ops import fused_jlc as port
 from veloxseg_tpu.interop.torch_import import convert_state_dict
@@ -51,9 +52,9 @@ def test_plain_stages_match_pallas_block(c, groups, expansion):
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
 
 
-# the three-branch block of every repo config, and the reference's
-# single-kernel form (bare conv, no IN/GELU in stage 1)
-@pytest.mark.parametrize("kernel_sizes", [(1, 3, 5), (3,)])
+# the three-branch block of every repo config, and two branches with no
+# 1×1 tap (K4f shares each input load between the branches that hold it)
+@pytest.mark.parametrize("kernel_sizes", [(1, 3, 5), (3, 5)])
 def test_jlc_module_matches_jax_module(kernel_sizes):
     c, groups, expansion = 16, 4, 3
     blk = _block(c, groups, expansion, seed=5, kernel_sizes=kernel_sizes)
@@ -68,6 +69,20 @@ def test_jlc_module_matches_jax_module(kernel_sizes):
     ref = np.asarray(jax.jit(lambda p, v: jblk.apply({"params": p}, v, True))(
         params, jnp.asarray(x)))
     np.testing.assert_allclose(got, ref, rtol=2e-4, atol=2e-4)
+
+
+def test_single_kernel_jlc_is_refused():
+    # the reference's single-kernel form (a bare conv, no IN/GELU) is in no
+    # repo config and is not ported: building or importing it raises
+    with pytest.raises(ValueError, match="single-kernel"):
+        JLC(16, (3,), 4, 3)
+    params = {"encoder": {
+        "conv_down1": {"GroupedConv3d_0": {"kernel": np.zeros(
+            (3, 3, 3, 2, 8), np.float32)}},
+        "conv_layer1": {"JLC_0": {"GroupedConv3d_0": {"kernel": np.zeros(
+            (3, 3, 3, 2, 8), np.float32)}}}}}
+    with pytest.raises(KeyError, match="single-kernel"):
+        state_dict_from_jax(params)
 
 
 def test_cpu_tensors_take_plain_versions_without_counting():

@@ -57,6 +57,34 @@ def test_blended_output_matches_jax(size, mode):
                                atol=1e-4)
 
 
+ROI = (16, 16, 16)
+# a fixed ramp over the position inside the tile, per output channel
+_RAMP = (np.linspace(0.0, 1.0, ROI[0])[:, None, None, None]
+         + 2.0 * np.linspace(0.0, 1.0, ROI[1])[None, :, None, None]
+         - np.linspace(0.0, 1.0, ROI[2])[None, None, :, None]
+         ) * np.array([1.0, -0.5, 0.25])
+RAMP = _RAMP.astype(np.float32)
+
+
+# The linear map alone blends back to itself whatever the weights are. The
+# ramp makes overlapping tiles disagree, so the blend weights (constant or
+# gaussian, their sigma and clip) decide the result.
+@pytest.mark.parametrize("size", [(37, 21, 19), (11, 21, 9)])
+@pytest.mark.parametrize("mode", ["constant", "gaussian"])
+def test_position_dependent_blend_matches_jax(size, mode):
+    x = normal((1, *size, 2), seed=3)
+    got = port.sliding_window_inference(
+        torch.from_numpy(x), ROI,
+        lambda t: _torch_linear(t) + torch.from_numpy(RAMP), sw_batch_size=3,
+        overlap=0.25, mode=mode, device="cpu")
+    ref = jsw.sliding_window_inference(
+        jnp.asarray(x), ROI, 3, lambda t: _jax_linear(t) + jnp.asarray(RAMP),
+        overlap=0.25, mode=mode)
+    # fp32 weighted sums of up to 8 tiles, then one division
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")

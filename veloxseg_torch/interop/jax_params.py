@@ -17,7 +17,8 @@ Weight-layout transforms (JAX → reference):
 
 The teachers' ``rc_decoder_*`` subtrees are skipped: the port's eval model
 has no reconstruction decoders yet. Any other path that cannot be placed
-raises, so nothing is dropped silently.
+raises, so nothing is dropped silently; so does a single-kernel JLC block,
+which the port does not build.
 """
 
 from __future__ import annotations
@@ -53,13 +54,12 @@ def _identity(w: np.ndarray) -> np.ndarray:
     return w
 
 
-def _jlc_key(prefix: str, rest: str, multi: bool):
+def _jlc_key(prefix: str, rest: str):
     m = re.fullmatch(r"GroupedConv3d_(\d+)/(kernel|bias)", rest)
     if m:
         s, kind = m.groups()
-        sub = f"spatial_convs.{s}.0" if multi else f"spatial_convs.{s}"
-        return (f"{prefix}.{sub}." + ("weight" if kind == "kernel"
-                                      else "bias"),
+        return (f"{prefix}.spatial_convs.{s}.0."
+                + ("weight" if kind == "kernel" else "bias"),
                 _conv3d if kind == "kernel" else _identity)
     m = re.fullmatch(r"Dense_([01])/(kernel|bias)", rest)
     if m:
@@ -71,7 +71,7 @@ def _jlc_key(prefix: str, rest: str, multi: bool):
     return None
 
 
-def _map_path(path: str, multi: Dict[str, bool], patch: int):
+def _map_path(path: str, patch: int):
     """One flax param path ('a/b/c') → (reference key, transform)."""
     wb = {"kernel": "weight", "bias": "bias", "scale": "weight"}
     ea = "encoder/encoder_attn/"
@@ -134,9 +134,7 @@ def _map_path(path: str, multi: Dict[str, bool], patch: int):
                 _conv3d if m[2] == "kernel" else _identity)
     m = re.fullmatch(r"encoder/conv_layer(\d+)/JLC_(\d+)/(.+)", path)
     if m:
-        owner = f"encoder/conv_layer{m[1]}/JLC_{m[2]}"
-        return _jlc_key(f"encoder.encoder_conv.layer{m[1]}.{m[2]}", m[3],
-                        multi[owner])
+        return _jlc_key(f"encoder.encoder_conv.layer{m[1]}.{m[2]}", m[3])
     m = re.fullmatch(r"encoder/attn2conv_(\d+)/(kernel|bias)", path)
     if m:
         return (f"encoder.attn2conv_{m[1]}.0.{wb[m[2]]}",
@@ -147,8 +145,7 @@ def _map_path(path: str, multi: Dict[str, bool], patch: int):
                 _upconv if m[2] == "kernel" else _identity)
     m = re.fullmatch(r"decoder/layer(\d+)/JLC_(\d+)/(.+)", path)
     if m:
-        owner = f"decoder/layer{m[1]}/JLC_{m[2]}"
-        return _jlc_key(f"decoder.layer{m[1]}.{m[2]}", m[3], multi[owner])
+        return _jlc_key(f"decoder.layer{m[1]}.{m[2]}", m[3])
     m = re.fullmatch(r"decoder/out_conv1/(kernel|bias)", path)
     if m:
         return (f"decoder.out_conv1.0.{wb[m[1]]}",
@@ -171,19 +168,21 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if down1 is None:
         raise KeyError("params hold no encoder/conv_down1 kernel")
     patch = (down1.shape[0] + 1) // 2
-    # a JLC block is multi-branch iff it owns more than one spatial conv
+    # the port's JLC has several branches (a lone conv has no IN/GELU)
     branches: Dict[str, int] = {}
     for path, _ in flat:
         m = re.fullmatch(r"(.+/JLC_\d+)/GroupedConv3d_\d+/kernel", path)
         if m:
             branches[m[1]] = branches.get(m[1], 0) + 1
-    multi = {k: n > 1 for k, n in branches.items()}
+    single = sorted(k for k, n in branches.items() if n < 2)
+    if single:
+        raise KeyError(f"single-kernel JLC blocks are not ported: {single}")
 
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat:
         if path.startswith("rc_decoder_"):
             continue
-        mapped = _map_path(path, multi, patch)
+        mapped = _map_path(path, patch)
         if mapped is None:
             raise KeyError(f"unmapped JAX param path: {path}")
         key, tf = mapped

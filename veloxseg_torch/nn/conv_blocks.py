@@ -6,12 +6,13 @@ Reference semantics (``model/components/conv_blocks.py``), channels-first:
 - ``UpConv``: ConvTranspose(kernel 2, stride 2) + InstanceNorm, with the
   reference ``(I, O, 2, 2, 2)`` weight and its tied ``(O,)`` bias.
 - ``JLC``: residual sum of parallel grouped convs (k ∈ kernel_sizes, each
-  +IN+GELU when there are several), then a residual 1×1 channel MLP
-  (IN → expand → GELU → project → dropout). Stage 1 with several branches
-  (every repo config) runs as kernel K4f and stage 2 as K5f
+  +IN+GELU), then a residual 1×1 channel MLP (IN → expand → GELU →
+  project → dropout). Stage 1 runs as kernel K4f and stage 2 as K5f
   (``ops/fused_jlc.py``); the submodules only hold the parameters, under
   the reference's state-dict keys. The conv path always uses GELU, as the
-  JAX package's encoder and decoders do.
+  JAX package's encoder and decoders do. Every repo config has several
+  branches; the reference's single-kernel form (a bare conv, no IN/GELU)
+  is not ported.
 """
 
 from __future__ import annotations
@@ -54,37 +55,35 @@ class UpConv(nn.Module):
 class JLC(nn.Module):
     """One JLC block (multi-kernel grouped spatial mix + channel MLP), GELU.
 
-    Keys: ``spatial_convs.{s}.0`` (several branches: Sequential(conv, IN,
-    GELU)) or ``spatial_convs.{s}`` (one bare conv), and ``channel_conv.1``
-    / ``channel_conv.3`` (expand / project), as in the reference.
+    Keys: ``spatial_convs.{s}.0`` (Sequential(conv, IN, GELU)) and
+    ``channel_conv.1`` / ``channel_conv.3`` (expand / project), as in the
+    reference.
     """
 
     def __init__(self, channels: int, kernel_sizes: Sequence[int] = (1, 3, 5),
                  groups: int = 1, expansion_factor: int = 4):
         super().__init__()
+        if len(kernel_sizes) < 2:
+            raise ValueError(f"JLC takes several kernel sizes; the "
+                             f"single-kernel form {tuple(kernel_sizes)} is "
+                             f"not ported")
         self.groups = groups
-        self.multi = len(kernel_sizes) > 1
-        convs = []
-        for k in kernel_sizes:
-            conv = GroupedConv3d(channels, channels, k, groups=groups)
-            convs.append(nn.Sequential(conv, InstanceNorm(), get_act("gelu"))
-                         if self.multi else conv)
-        self.spatial_convs = nn.ModuleList(convs)
+        self.spatial_convs = nn.ModuleList(
+            nn.Sequential(GroupedConv3d(channels, channels, k, groups=groups),
+                          InstanceNorm(), get_act("gelu"))
+            for k in kernel_sizes)
         hidden = channels * expansion_factor
         self.channel_conv = nn.Sequential(
             InstanceNorm(), Conv1x1(channels, hidden), get_act("gelu"),
             Conv1x1(hidden, channels), nn.Dropout(0.0))
 
     def _convs(self):
-        return [m[0] if self.multi else m for m in self.spatial_convs]
+        return [m[0] for m in self.spatial_convs]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.multi:
-            convs = self._convs()
-            out = fused_jlc.jlc_stage1(x, [c.weight for c in convs],
-                                       [c.bias for c in convs], self.groups)
-        else:   # one bare conv: no IN, no GELU (reference single-kernel JLC)
-            out = x + self.spatial_convs[0](x)
+        convs = self._convs()
+        out = fused_jlc.jlc_stage1(x, [c.weight for c in convs],
+                                   [c.bias for c in convs], self.groups)
         expand, project = self.channel_conv[1], self.channel_conv[3]
         return fused_jlc.jlc_stage2(out, expand.weight, expand.bias,
                                     project.weight, project.bias)
