@@ -1,6 +1,7 @@
 """The port stands alone: ``veloxseg_torch`` and ``chip_smoke.py`` load
-nothing of JAX, Flax or ``veloxseg_tpu``, and the entry points refuse to
-run quietly on the CPU when CUDA is absent."""
+nothing of JAX, Flax or ``veloxseg_tpu`` (the eval forward and a train
+step run with those imports blocked), and the entry points refuse to run
+quietly on the CPU when CUDA is absent."""
 
 import os
 import subprocess
@@ -34,6 +35,19 @@ _ISOLATED = textwrap.dedent("""
     with torch.no_grad():
         y = model(torch.randn(1, 32, 32, 32, 2))
     assert y.shape == (1, 32, 32, 32, 2) and bool(torch.isfinite(y).all())
+    from veloxseg_torch.train.loss import CompositeLoss
+    from veloxseg_torch.train.optim import build_optimizer
+    from veloxseg_torch.train.train_state import (create_train_state,
+                                                  train_step_fn)
+    state = create_train_state(model, build_optimizer(
+        "adamw", {{"lr": 2.5e-4, "weight_decay": 0.01}}, model.parameters()))
+    step = train_step_fn(CompositeLoss({{
+        "deep_Loss_weight": [1, 1, 1, 1], "RC_Loss_weight": 0.5,
+        "Feature_Loss_weight": 2.0}}, cfg), device="cpu")
+    x = torch.randn(1, 32, 32, 32, 2)
+    _, aux = step(state, x, (x[..., 0] > 0).long(),
+                  torch.Generator().manual_seed(0))
+    assert bool(torch.isfinite(aux["loss"]))
     bad = sorted(n for n, m in sys.modules.items() if m is not None and
                  n.split(".")[0] in ("jax", "jaxlib", "flax", "veloxseg_tpu"))
     assert not bad, bad
@@ -42,7 +56,9 @@ _ISOLATED = textwrap.dedent("""
 
 
 def _run(code, cwd=ROOT, args=()):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    # two intra-op threads, as torch_port_helpers sets in the test workers:
+    # one per core would crowd the other workers' wall-clock tests
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="2")
     return subprocess.run([sys.executable, *args, "-c", code] if code
                           else [sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -52,7 +68,7 @@ def test_port_imports_nothing_of_jax():
     r = _run(_ISOLATED.format(root=ROOT))
     assert r.returncode == 0, r.stderr[-3000:]
     assert "ISOLATED" in r.stdout
-    assert int(r.stdout.split("ISOLATED")[1].split()[0]) >= 20
+    assert int(r.stdout.split("ISOLATED")[1].split()[0]) >= 26
 
 
 def test_entry_points_default_to_cuda():
@@ -64,6 +80,12 @@ def test_entry_points_default_to_cuda():
         build_veloxseg(VeloxSegConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         build_veloxseg(VeloxSegConfig(), device="cuda")
+    from veloxseg_torch.train.loss import CompositeLoss
+    from veloxseg_torch.train.train_state import train_step_fn
+    loss = CompositeLoss({"deep_Loss_weight": [1], "RC_Loss_weight": 0.5,
+                          "Feature_Loss_weight": 2.0}, VeloxSegConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_step_fn(loss)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -58,11 +58,23 @@ def test_state_dict_round_trip():
 
 
 def test_round_trip_skips_teachers_and_raises_on_unknown():
+    # the name dates from the eval-only port, which skipped the teachers;
+    # their rc_decoder_* subtrees now map to rc_decoders.{m}.*, and any
+    # path that cannot be placed raises
     model, _ = _port(TINY, seed=4)
-    params = convert_state_dict(model.state_dict())
-    params["rc_decoder_0"] = {"out_conv": {"kernel": np.zeros((3, 3, 3, 8, 64),
-                                                               np.float32)}}
-    assert set(state_dict_from_jax(params)) == set(model.state_dict())
+    sd = model.state_dict()
+    params = convert_state_dict(sd)
+    teachers = {k for k in sd if k.startswith("rc_decoders.")}
+    assert teachers and set(params) >= {"rc_decoder_0", "rc_decoder_1"}
+    back = state_dict_from_jax(params)
+    assert set(back) == set(sd)
+    for k in teachers:
+        assert torch.equal(back[k], sd[k]), k
+    params["rc_decoder_0"]["mystery"] = {"kernel": np.zeros((2, 2),
+                                                           np.float32)}
+    with pytest.raises(KeyError):
+        state_dict_from_jax(params)
+    del params["rc_decoder_0"]["mystery"]
     params["encoder"]["mystery"] = {"kernel": np.zeros((2, 2), np.float32)}
     with pytest.raises(KeyError):
         state_dict_from_jax(params)

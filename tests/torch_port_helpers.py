@@ -14,6 +14,11 @@ import torch
 
 from veloxseg_torch.core.config import VeloxSegConfig as TorchConfig
 
+# The suite runs in several xdist workers on one host: PyTorch's default
+# of one intra-op thread per core in every worker oversubscribes the cores
+# many times over and slows the JAX tests that share them.
+torch.set_num_threads(min(torch.get_num_threads(), 2))
+
 TINY = dict(
     input_size=(32, 32, 32),
     patch_size=4,

@@ -1,4 +1,5 @@
-// K4f: JLC stage 1 forward, fp32, channels-first (B, C, D, H, W).
+// K4f and K4b: JLC stage 1 forward and backward, fp32, channels-first
+// (B, C, D, H, W).
 //
 //   out1 = x + sum_k GELU(InstanceNorm(gconv_k(x)))     k in kernel_sizes
 //
@@ -30,6 +31,18 @@
 // by (1), read by (2) and again by (3), three times the bytes of x. A later
 // version can keep a whole (b, c) plane of each branch in shared memory
 // (24^3 fp32 is 55 KB) and drop the scratch.
+//
+// K4b replaces veloxseg_tpu/ops/fused_jlc.py:_k1_bwd_kernel (135-170),
+// called through _k1_bwd (277-294). Given g, the cotangent of out1, it
+// recomputes the branch convs (jlc_branch_conv, into the same scratch)
+// and their statistics (plane_stats_kernel, the same fixed-order sums, so
+// the forward's values), then one block per (branch, b, c) plane:
+//   dn = g · GELU'(ŷ),   dy = rstd · (dn − mean(dn) − ŷ · mean(dn · ŷ)),
+// the two means reduced in double in a fixed order (block_sum2), dy
+// written over the branch output in place. dy is the cotangent at each
+// branch's conv output; the conv's own input and weight gradients run on
+// cuDNN in the wrapper, as the TPU version runs them on XLA. Bound: the
+// recomputed convolution (as K4f), then ~2 reads of the scratch and g.
 #include "common.cuh"
 
 constexpr int kConvThreads = 256;
@@ -141,15 +154,41 @@ __global__ void jlc_stage1_apply(const float* __restrict__ x,
   }
 }
 
-// x: (B, C, D, H, W); w0..w2: (C, C/groups, k, k, k) for the nb branches
-// (unused pointers may be null); scratch: nb·B·C·S floats; mean, rstd:
-// nb·B·C floats each; out: like x.
-extern "C" int vs_jlc_stage1(const float* x, const float* w0, const float* w1,
-                             const float* w2, float* scratch, float* mean,
-                             float* rstd, float* out, int B, int C, int D,
-                             int H, int W, int groups, int nb, int k0, int k1,
-                             int k2, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+// K4b's last launch: one block per (branch, b, c) plane of the scratch.
+__global__ void __launch_bounds__(kStatsThreads)
+jlc_stage1_bwd_planes(float* __restrict__ y, const float* __restrict__ g,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ rstd, int64_t planes,
+                      int64_t S) {
+  const int64_t pj = blockIdx.x;              // branch-major plane index
+  float* yp = y + pj * S;
+  const float* gp = g + (pj % planes) * S;
+  const float m = mean[pj], r = rstd[pj];
+  double s1 = 0.0, s2 = 0.0;
+  for (int64_t i = threadIdx.x; i < S; i += blockDim.x) {
+    const float yh = (yp[i] - m) * r;
+    const float dn = gp[i] * gelu_grad(yh);
+    s1 += dn;
+    s2 += static_cast<double>(dn) * yh;
+  }
+  block_sum2(s1, s2);
+  const float mdn = static_cast<float>(s1 / static_cast<double>(S));
+  const float mdny = static_cast<float>(s2 / static_cast<double>(S));
+  for (int64_t i = threadIdx.x; i < S; i += blockDim.x) {
+    const float yh = (yp[i] - m) * r;
+    const float dn = gp[i] * gelu_grad(yh);
+    yp[i] = r * (dn - mdn - yh * mdny);
+  }
+}
+
+// The branch convolution of all nb branches into scratch (nb, B, C, S),
+// then their per-plane statistics: the part K4f and K4b share.
+static cudaError_t conv_and_stats(const float* x, const float* w0,
+                                  const float* w1, const float* w2,
+                                  float* scratch, float* mean, float* rstd,
+                                  int B, int C, int D, int H, int W,
+                                  int groups, int nb, int k0, int k1, int k2,
+                                  cudaStream_t stream) {
   const int ks[kMaxBranches] = {k0, k1, k2};
   const float* wp[kMaxBranches] = {w0, w1, w2};
   if (nb < 1 || nb > kMaxBranches || groups < 1 || C % groups) {
@@ -170,7 +209,6 @@ extern "C" int vs_jlc_stage1(const float* x, const float* w0, const float* w1,
     }
   }
   const int64_t S = (int64_t)D * H * W;
-  if (S == 0 || B == 0) return cudaSuccess;
   const size_t smem = (size_t)total * sizeof(float4);
   cudaError_t err = allow_smem(jlc_branch_conv, smem);
   if (err != cudaSuccess) return err;
@@ -184,7 +222,22 @@ extern "C" int vs_jlc_stage1(const float* x, const float* w0, const float* w1,
 
   plane_stats_kernel<<<nb * B * C, kStatsThreads, 0, stream>>>(
       scratch, S, 1e-5f, mean, rstd);
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// x: (B, C, D, H, W); w0..w2: (C, C/groups, k, k, k) for the nb branches
+// (unused pointers may be null); scratch: nb·B·C·S floats; mean, rstd:
+// nb·B·C floats each; out: like x.
+extern "C" int vs_jlc_stage1(const float* x, const float* w0, const float* w1,
+                             const float* w2, float* scratch, float* mean,
+                             float* rstd, float* out, int B, int C, int D,
+                             int H, int W, int groups, int nb, int k0, int k1,
+                             int k2, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int64_t S = (int64_t)D * H * W;
+  if (S == 0 || B == 0) return cudaSuccess;
+  cudaError_t err = conv_and_stats(x, w0, w1, w2, scratch, mean, rstd, B, C,
+                                   D, H, W, groups, nb, k0, k1, k2, stream);
   if (err != cudaSuccess) return err;
 
   const int64_t planes = (int64_t)B * C;
@@ -195,5 +248,25 @@ extern "C" int vs_jlc_stage1(const float* x, const float* w0, const float* w1,
                                          : 65536 * 8);
   jlc_stage1_apply<<<blocks, threads, 0, stream>>>(x, scratch, mean, rstd, out,
                                                    nb, planes, S);
+  return cudaGetLastError();
+}
+
+// K4b. x, g: (B, C, D, H, W); w0..w2 as for vs_jlc_stage1; dy: nb·B·C·S
+// floats, the cotangent at each branch's conv output (branch-major, used
+// as the recompute scratch first); mean, rstd: nb·B·C floats each.
+extern "C" int vs_jlc_stage1_bwd(const float* x, const float* w0,
+                                 const float* w1, const float* w2,
+                                 const float* g, float* dy, float* mean,
+                                 float* rstd, int B, int C, int D, int H,
+                                 int W, int groups, int nb, int k0, int k1,
+                                 int k2, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int64_t S = (int64_t)D * H * W;
+  if (S == 0 || B == 0) return cudaSuccess;
+  cudaError_t err = conv_and_stats(x, w0, w1, w2, dy, mean, rstd, B, C, D, H,
+                                   W, groups, nb, k0, k1, k2, stream);
+  if (err != cudaSuccess) return err;
+  jlc_stage1_bwd_planes<<<nb * B * C, kStatsThreads, 0, stream>>>(
+      dy, g, mean, rstd, (int64_t)B * C, S);
   return cudaGetLastError();
 }

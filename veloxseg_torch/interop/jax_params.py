@@ -2,9 +2,11 @@
 
 The exact inverse of ``veloxseg_tpu/interop/torch_import.py``
 (``_map_key`` and the weight transforms at ``:40-72``), so weights carry
-across in both directions unchanged. It needs neither JAX nor the JAX
-package: ``params`` is the flax params tree as nested dicts of numpy
-arrays (``jax.device_get(variables["params"])``).
+across in both directions unchanged, the teachers' ``rc_decoder_*``
+subtrees included. It needs neither JAX nor the JAX package: ``params``
+is the flax params tree as nested dicts of numpy arrays
+(``jax.device_get(variables["params"])``). A tree of gradients has the
+same paths and maps the same way.
 
 Weight-layout transforms (JAX → reference):
 
@@ -15,10 +17,8 @@ Weight-layout transforms (JAX → reference):
   read off the level-1 DownConv kernel (``2p − 1`` wide);
 - LayerNorm ``scale`` → ``weight``.
 
-The teachers' ``rc_decoder_*`` subtrees are skipped: the port's eval model
-has no reconstruction decoders yet. Any other path that cannot be placed
-raises, so nothing is dropped silently; so does a single-kernel JLC block,
-which the port does not build.
+Any path that cannot be placed raises, so nothing is dropped silently; so
+does a single-kernel JLC block, which the port does not build.
 """
 
 from __future__ import annotations
@@ -154,6 +154,30 @@ def _map_path(path: str, patch: int):
     if m:
         return (f"decoder.out_conv{m[1]}.{wb[m[2]]}",
                 _dense if m[2] == "kernel" else _identity)
+    m = re.fullmatch(r"rc_decoder_(\d+)/(.+)", path)
+    if m:
+        return _rc_key(f"rc_decoders.{m[1]}", m[2])
+    return None
+
+
+def _rc_key(prefix: str, rest: str):
+    """One teacher's paths (``torch_import.py:238-264``, inverted)."""
+    wb = {"kernel": "weight", "bias": "bias"}
+    m = re.fullmatch(r"enc2rc_(\d+)/(kernel|bias)", rest)
+    if m:
+        return (f"{prefix}.enc2rc_{m[1]}.0.{wb[m[2]]}",
+                _dense if m[2] == "kernel" else _identity)
+    m = re.fullmatch(r"up(\d+)/Dense_0/(kernel|bias)", rest)
+    if m:
+        return (f"{prefix}.layer_up{m[1]}.up.{wb[m[2]]}",
+                _upconv if m[2] == "kernel" else _identity)
+    m = re.fullmatch(r"layer(\d+)/JLC_(\d+)/(.+)", rest)
+    if m:
+        return _jlc_key(f"{prefix}.layer{m[1]}.{m[2]}", m[3])
+    m = re.fullmatch(r"out_conv/(kernel|bias)", rest)
+    if m:
+        return (f"{prefix}.out_conv.0.{wb[m[1]]}",
+                _conv3d if m[1] == "kernel" else _identity)
     return None
 
 
@@ -180,11 +204,9 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     out: Dict[str, torch.Tensor] = {}
     for path, arr in flat:
-        if path.startswith("rc_decoder_"):
-            continue
         mapped = _map_path(path, patch)
         if mapped is None:
             raise KeyError(f"unmapped JAX param path: {path}")
         key, tf = mapped
-        out[key] = torch.from_numpy(np.ascontiguousarray(tf(arr)))
+        out[key] = torch.from_numpy(np.array(tf(arr), np.float32))
     return out

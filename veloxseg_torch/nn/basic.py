@@ -1,6 +1,11 @@
-"""Basic building blocks: seeded init, activations, FFN, convolutions.
+"""Basic building blocks: seeded init, activations, dropout, DropPath, FFN,
+convolutions.
 
-All modules take channels-first tensors ``(B, C, D, H, W)``.
+All modules take channels-first tensors ``(B, C, D, H, W)``. Dropout and
+DropPath draw their masks from an explicit ``torch.Generator`` (on the
+tensor's device) that the caller passes down through the forward, as the
+JAX package draws them from its ``dropout`` rng stream; no global RNG is
+read. They are the identity in eval mode or at rate 0.
 """
 
 from __future__ import annotations
@@ -41,6 +46,37 @@ def get_act(name: str) -> nn.Module:
     return table[name]()
 
 
+def _need_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    if generator is None:
+        raise ValueError("training with a non-zero dropout rate needs a "
+                         "torch.Generator passed down through the forward")
+    return generator
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Element-wise dropout: keep with prob 1 − rate, scale by 1/keep
+    (``flax.linen.Dropout``)."""
+    if rate == 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=_need_generator(generator),
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth (``veloxseg_tpu/nn/basic.py:38-51``)."""
+    if rate == 0.0 or not training:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=_need_generator(generator),
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 def GroupedConv3d(in_ch: int, out_ch: int, kernel_size: int, groups: int = 1,
                   stride: int = 1, padding: Optional[int] = None,
                   bias: bool = True) -> nn.Conv3d:
@@ -62,15 +98,21 @@ def Conv1x1(in_ch: int, out_ch: int, bias: bool = True) -> nn.Conv3d:
 
 
 class FFN(nn.Module):
-    """1×1-conv feed-forward: expand → act → project; dropout is the
-    identity in eval (``model/components/attention_utils.py:45-71``)."""
+    """1×1-conv feed-forward: expand → act → dropout → project → dropout
+    (``model/components/attention_utils.py:45-71``; the PWA block's FFN,
+    ``veloxseg_tpu/nn/pwa.py:513-519``)."""
 
     def __init__(self, channels: int, expansion_ratio: int = 4,
-                 act: str = "GELU"):
+                 act: str = "GELU", dropout: float = 0.0):
         super().__init__()
         self.linear1 = Conv1x1(channels, channels * expansion_ratio)
         self.act = get_act(act)
         self.linear2 = Conv1x1(channels * expansion_ratio, channels)
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(self.act(self.linear1(x)))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        z = dropout(self.act(self.linear1(x)), self.dropout, self.training,
+                    generator)
+        return dropout(self.linear2(z), self.dropout, self.training,
+                       generator)

@@ -7,23 +7,27 @@ Reference semantics (``model/components/conv_blocks.py``), channels-first:
   reference ``(I, O, 2, 2, 2)`` weight and its tied ``(O,)`` bias.
 - ``JLC``: residual sum of parallel grouped convs (k ∈ kernel_sizes, each
   +IN+GELU), then a residual 1×1 channel MLP (IN → expand → GELU →
-  project → dropout). Stage 1 runs as kernel K4f and stage 2 as K5f
-  (``ops/fused_jlc.py``); the submodules only hold the parameters, under
-  the reference's state-dict keys. The conv path always uses GELU, as the
-  JAX package's encoder and decoders do. Every repo config has several
-  branches; the reference's single-kernel form (a bare conv, no IN/GELU)
-  is not ported.
+  project → dropout). Stage 1 always runs through the stage-1 kernels
+  (K4f forward, K4b backward); stage 2 through K5f/K5b while its dropout
+  is inactive (eval, or rate 0), else as library ops with the dropout
+  before the residual, under the JAX package's gate
+  (``veloxseg_tpu/nn/conv_blocks.py:246-247, 276-285``). The submodules
+  only hold the parameters, under the reference's state-dict keys. The
+  conv path always uses GELU, as the JAX package's encoder and decoders
+  do. Every repo config has several branches; the reference's
+  single-kernel form (a bare conv, no IN/GELU) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fused_jlc
-from .basic import Conv1x1, GroupedConv3d, get_act
+from .basic import Conv1x1, GroupedConv3d, dropout, get_act
 from .norms import InstanceNorm, instance_norm
 
 
@@ -61,7 +65,8 @@ class JLC(nn.Module):
     """
 
     def __init__(self, channels: int, kernel_sizes: Sequence[int] = (1, 3, 5),
-                 groups: int = 1, expansion_factor: int = 4):
+                 groups: int = 1, expansion_factor: int = 4,
+                 dropout: float = 0.0):
         super().__init__()
         if len(kernel_sizes) < 2:
             raise ValueError(f"JLC takes several kernel sizes; the "
@@ -75,18 +80,23 @@ class JLC(nn.Module):
         hidden = channels * expansion_factor
         self.channel_conv = nn.Sequential(
             InstanceNorm(), Conv1x1(channels, hidden), get_act("gelu"),
-            Conv1x1(hidden, channels), nn.Dropout(0.0))
+            Conv1x1(hidden, channels), nn.Dropout(dropout))
+        self.dropout = dropout
 
     def _convs(self):
         return [m[0] for m in self.spatial_convs]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         convs = self._convs()
         out = fused_jlc.jlc_stage1(x, [c.weight for c in convs],
                                    [c.bias for c in convs], self.groups)
         expand, project = self.channel_conv[1], self.channel_conv[3]
-        return fused_jlc.jlc_stage2(out, expand.weight, expand.bias,
-                                    project.weight, project.bias)
+        if not self.training or self.dropout == 0.0:
+            return fused_jlc.jlc_stage2(out, expand.weight, expand.bias,
+                                        project.weight, project.bias)
+        z = F.gelu(expand(self.channel_conv[0](out)))
+        return out + dropout(project(z), self.dropout, True, generator)
 
 
 class JLCLayer(nn.Sequential):
@@ -94,7 +104,13 @@ class JLCLayer(nn.Sequential):
 
     def __init__(self, channels: int, depth: int = 1,
                  kernel_sizes: Sequence[int] = (1, 3, 5), groups: int = 1,
-                 expansion_factor: int = 4):
+                 expansion_factor: int = 4, dropout: float = 0.0):
         super().__init__(*[
-            JLC(channels, kernel_sizes, groups, expansion_factor)
+            JLC(channels, kernel_sizes, groups, expansion_factor, dropout)
             for _ in range(depth)])
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for blk in self:
+            x = blk(x, generator)
+        return x

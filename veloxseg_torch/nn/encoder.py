@@ -4,13 +4,14 @@ Channels-first throughout."""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..core.config import VeloxSegConfig
-from .basic import Conv1x1
+from .basic import Conv1x1, dropout
 from .conv_blocks import DownConv, JLCLayer
 from .norms import InstanceNorm
 from .patch import PatchEmbed
@@ -32,15 +33,21 @@ class ConvEncoder(nn.Module):
                 cin, ci, patch_size=cfg.patch_size if i == 0 else 2))
             setattr(self, f"layer{i + 1}", JLCLayer(
                 ci, cfg.conv_depths[i], cfg.kernel_sizes,
-                ci // cfg.min_dim_group[i], cfg.conv_expansion_factor[i]))
+                ci // cfg.min_dim_group[i], cfg.conv_expansion_factor[i],
+                cfg.conv_drop))
 
 
 class TransformerEncoder(nn.Module):
-    """Per-modality PWA pyramid (``model/Encoder.py:88-204``)."""
+    """Per-modality PWA pyramid (``model/Encoder.py:88-204``): patch
+    embedding, dropout at ``proj_drop``, then the stages with the
+    stochastic-depth rates spread linearly over all blocks
+    (``veloxseg_tpu/nn/encoder.py:139-144``)."""
 
     def __init__(self, cfg: VeloxSegConfig):
         super().__init__()
         m_count = cfg.num_modalities
+        self.proj_drop = cfg.proj_drop
+        dpr = np.linspace(0.0, cfg.drop_path, sum(cfg.depths)).tolist()
         self.patch_embeds = nn.ModuleList(
             PatchEmbed(c, cfg.attn_base_ch, cfg.patch_size, cfg.patch_norm)
             for c in cfg.in_ch)
@@ -60,16 +67,23 @@ class TransformerEncoder(nn.Module):
                 ffn_expansion_ratio=cfg.ffn_expansion_ratio[i],
                 act_layer=cfg.act_layer,
                 qkv_bias=cfg.qkv_bias,
-                do_downsample=i < n - 1))
+                do_downsample=i < n - 1,
+                attn_drop=cfg.attn_drop,
+                proj_drop=cfg.proj_drop,
+                drop_path=tuple(dpr[sum(cfg.depths[:i]):
+                                    sum(cfg.depths[:i + 1])])))
             size = tuple(s // 2 for s in size)
         self.layers = nn.ModuleList(layers)
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
+    def forward(self, xs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> List[List[torch.Tensor]]:
         """Per-level lists of per-modality features, finest first."""
-        xs = [pe(x) for pe, x in zip(self.patch_embeds, xs)]
+        xs = [dropout(pe(x), self.proj_drop, self.training, generator)
+              for pe, x in zip(self.patch_embeds, xs)]
         feats = []
         for stage in self.layers:
-            xs, down = stage(xs)
+            xs, down = stage(xs, generator)
             feats.append(xs)
             if down is not None:
                 xs = down
@@ -79,9 +93,9 @@ class TransformerEncoder(nn.Module):
 class Encoder(nn.Module):
     """Fused dual-stream encoder (``model/Encoder.py:207-367``).
 
-    Returns the fused conv features, finest first. The attention pyramid
-    feeds the mixers; eval does not return it (the teachers that read it
-    train only)."""
+    Returns ``(attn_feats, encs)``: the per-level lists of per-modality
+    attention features (the teachers' input in training; eval ignores
+    them) and the fused conv features, finest first."""
 
     def __init__(self, cfg: VeloxSegConfig):
         super().__init__()
@@ -95,9 +109,11 @@ class Encoder(nn.Module):
             setattr(self, f"attn2conv_{i + 1}", nn.Sequential(
                 Conv1x1(cfg.num_modalities * ca, ci), InstanceNorm()))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[List[List[torch.Tensor]], List[torch.Tensor]]:
         xs = list(torch.split(x, self.in_ch, dim=1))
-        attn_feats = self.encoder_attn(xs)
+        attn_feats = self.encoder_attn(xs, generator)
         conv = self.encoder_conv
         encs = []
         h = x
@@ -105,6 +121,6 @@ class Encoder(nn.Module):
             mixer = getattr(self, f"attn2conv_{i + 1}")
             mixed = mixer(torch.cat(attn_feats[i], dim=1))
             h = getattr(conv, f"down{i + 1}")(h) + mixed
-            h = getattr(conv, f"layer{i + 1}")(h)
+            h = getattr(conv, f"layer{i + 1}")(h, generator)
             encs.append(h)
-        return encs
+        return attn_feats, encs

@@ -1,4 +1,4 @@
-"""Paired Window Attention (PWA), eval forward, channels-first.
+"""Paired Window Attention (PWA), channels-first.
 
 Reference behavior (``model/components/PWA.py``): each level runs attention
 over a pyramid of (big, small) window pairs. Voxels are grouped into big
@@ -8,24 +8,28 @@ all modalities concatenated (joint cross-modal attention); tokens are
 scattered back to voxels by align-corners trilinear upsampling, and the
 per-pair outputs are concatenated along channels.
 
-Attention itself is kernel K1 (``ops/pwa_attention.py``), in the JAX
-package's ``(B, h, N, C, L)`` token layout.
+Attention runs in the JAX package's ``(B, h, N, C, L)`` token layout
+(``ops/pwa_attention.py``): kernel K1 in eval; in train mode K2 (forward
+K2f, backward K2b) with the counter-hash weight dropout at ``attn_drop``
+and a per-call seed drawn from the step's generator
+(``veloxseg_tpu/nn/pwa.py:362-374``). Train mode also applies the
+projection dropout, the FFN dropouts and DropPath on both residuals.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..core.windows import WindowLayout, compute_window_layout
-from ..ops.pwa_attention import window_attention
+from ..ops.pwa_attention import window_attention, window_attention_train
 from ..ops.resize import interp_matrix
-from .basic import FFN, Conv1x1
+from .basic import FFN, Conv1x1, drop_path, dropout
 from .norms import LayerNorm
 from .patch import PatchMerging
 
@@ -156,16 +160,20 @@ class MultiModalPWA(nn.Module):
     Per modality: LayerNorm → 1×1 q/k/v projections (JL down-projection to
     ``channels_qk``/``channels_v``); tokens of all modalities concatenate
     along the token axis inside each window; attention (K1); per-modality
-    scatter → 1×1 mix → residual. ``num_heads == 0`` bypasses attention.
+    scatter → 1×1 mix → dropout → residual. ``num_heads == 0`` bypasses
+    attention.
     """
 
     def __init__(self, input_size: Sequence[int], in_channels: Sequence[int],
                  min_big_window: Sequence[int] = (3, 3, 3),
                  min_small_window: Sequence[int] = (1, 1, 1),
                  scale_factor: int = 2, num_heads: int = 1,
-                 min_dim_head: int = 4, qkv_bias: bool = True):
+                 min_dim_head: int = 4, qkv_bias: bool = True,
+                 attn_drop: float = 0.1, proj_drop: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.num_modalities = len(in_channels)
         if num_heads == 0:
             return
@@ -183,7 +191,9 @@ class MultiModalPWA(nn.Module):
         self.position_embedding = RelativePositionBias(lay.tokens_per_axis,
                                                        num_heads)
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, xs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
         if self.num_heads == 0:
             return list(xs)
         lay = self.layout
@@ -212,8 +222,22 @@ class MultiModalPWA(nn.Module):
         # the same per-window bias on every (modality_i, modality_j) block
         # (``PWA.py:316-320``): the bias tiled M×M
         bias = self.position_embedding().repeat(1, m_count, m_count)
-        attn = window_attention(q, k, v, bias.contiguous(),
-                                1.0 / math.sqrt(lay.dim_qk))
+        scale = 1.0 / math.sqrt(lay.dim_qk)
+        if self.training:
+            # a fresh int32 seed per call (unused at rate 0); batch offset
+            # 0 on one device
+            seed = torch.zeros(2, dtype=torch.int32, device=q.device)
+            if self.attn_drop > 0.0:
+                if generator is None:
+                    raise ValueError("train-mode attention needs a "
+                                     "torch.Generator for its dropout seed")
+                seed[0] = torch.randint(
+                    0, 2 ** 31 - 1, (1,), generator=generator,
+                    device=generator.device, dtype=torch.int32)[0]
+            attn = window_attention_train(q, k, v, bias.contiguous(), seed,
+                                          scale, float(self.attn_drop))
+        else:
+            attn = window_attention(q, k, v, bias.contiguous(), scale)
 
         _, hh, n, _, ml = attn.shape
         l = ml // m_count
@@ -221,7 +245,8 @@ class MultiModalPWA(nn.Module):
         am = am.permute(4, 0, 1, 2, 3, 5).reshape(m_count * b, hh, n,
                                                   lay.dim_v, l)
         am = window_scatter(am, lay, lay.dim_v, spatial)
-        return [xs[m] + self.mix_channels[m](am[m * b:(m + 1) * b])
+        return [xs[m] + dropout(self.mix_channels[m](am[m * b:(m + 1) * b]),
+                                self.proj_drop, self.training, generator)
                 for m in range(m_count)]
 
 
@@ -230,24 +255,33 @@ class PWABlock(nn.Module):
 
     Keeps the reference's double residual (``PWA.py:382-439``): the
     attention output already holds ``x + proj(attn)`` and the block adds
-    ``x`` again."""
+    ``x`` again. In train mode DropPath (per sample, at ``drop_path``)
+    scales both residual branches (``veloxseg_tpu/nn/pwa.py:479-480,
+    520``) and the FFN drops at ``proj_drop``."""
 
     def __init__(self, input_size, in_channels, min_big_window,
                  min_small_window, scale_factor=2, num_heads=1,
                  min_dim_head=4, ffn_expansion_ratio=4, act_layer="GELU",
-                 qkv_bias=True):
+                 qkv_bias=True, attn_drop=0.1, proj_drop=0.1, drop_path=0.0):
         super().__init__()
         self.attn = MultiModalPWA(input_size, in_channels, min_big_window,
                                   min_small_window, scale_factor, num_heads,
-                                  min_dim_head, qkv_bias)
-        self.ffns = nn.ModuleList(FFN(c, ffn_expansion_ratio, act_layer)
-                                  for c in in_channels)
+                                  min_dim_head, qkv_bias, attn_drop,
+                                  proj_drop)
+        self.ffns = nn.ModuleList(
+            FFN(c, ffn_expansion_ratio, act_layer, proj_drop)
+            for c in in_channels)
         self.norms = nn.ModuleList(LayerNorm(c) for c in in_channels)
+        self.drop_path = drop_path
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-        attns = self.attn(xs)
-        ys = [x + a for x, a in zip(xs, attns)]
-        return [y + ffn(norm(y))
+    def forward(self, xs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        def dp(t):
+            return drop_path(t, self.drop_path, self.training, generator)
+        attns = self.attn(xs, generator)
+        ys = [x + dp(a) for x, a in zip(xs, attns)]
+        return [y + dp(ffn(norm(y), generator))
                 for y, ffn, norm in zip(ys, self.ffns, self.norms)]
 
 
@@ -259,19 +293,24 @@ class TransformerStage(nn.Module):
                  min_big_window=(3, 3, 3), min_small_window=(1, 1, 1),
                  scale_factor=2, num_heads=1, min_dim_head=4,
                  ffn_expansion_ratio=4, act_layer="GELU", qkv_bias=True,
-                 do_downsample=True):
+                 do_downsample=True, attn_drop=0.1, proj_drop=0.1,
+                 drop_path: Union[float, Sequence[float]] = 0.0):
         super().__init__()
+        if not isinstance(drop_path, (tuple, list)):
+            drop_path = (drop_path,) * depth
         self.blocks = nn.ModuleList(
             PWABlock(input_size, in_channels, min_big_window,
                      min_small_window, scale_factor, num_heads, min_dim_head,
-                     ffn_expansion_ratio, act_layer, qkv_bias)
-            for _ in range(depth))
+                     ffn_expansion_ratio, act_layer, qkv_bias, attn_drop,
+                     proj_drop, drop_path[i])
+            for i in range(depth))
         self.downs = (nn.ModuleList(PatchMerging(c) for c in in_channels)
                       if do_downsample else None)
 
-    def forward(self, xs: Sequence[torch.Tensor]):
+    def forward(self, xs: Sequence[torch.Tensor],
+                generator: Optional[torch.Generator] = None):
         for blk in self.blocks:
-            xs = blk(xs)
+            xs = blk(xs, generator)
         down = None
         if self.downs is not None:
             down = [d(x) for d, x in zip(self.downs, xs)]

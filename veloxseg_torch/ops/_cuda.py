@@ -28,18 +28,26 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pwa_attention", "jlc_stage1", "jlc_stage2")
+SOURCES = ("pwa_attention", "pwa_attention_bwd", "jlc_stage1", "jlc_stage2")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
 # argtypes of each exported function (pointers, ints, floats, stream last)
 SIGNATURES = {
-    "pwa_attention": {"vs_pwa_attention": [_P] * 5 + [_I] * 6 + [_F, _P]},
-    "jlc_stage1": {"vs_jlc_stage1": [_P] * 8 + [_I] * 10 + [_P]},
-    "jlc_stage2": {"vs_jlc_stage2": [_P] * 8 + [_I] * 4 + [_P]},
+    "pwa_attention": {
+        "vs_pwa_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
+        "vs_pwa_attention_train": [_P] * 6 + [_I] * 6 + [_F, _U, _F, _P]},
+    "pwa_attention_bwd": {
+        "vs_pwa_attention_train_bwd": [_P] * 11 + [_I] * 7
+        + [_F, _U, _F, _P]},
+    "jlc_stage1": {"vs_jlc_stage1": [_P] * 8 + [_I] * 10 + [_P],
+                   "vs_jlc_stage1_bwd": [_P] * 8 + [_I] * 10 + [_P]},
+    "jlc_stage2": {"vs_jlc_stage2": [_P] * 8 + [_I] * 4 + [_P],
+                   "vs_jlc_stage2_bwd": [_P] * 14 + [_I] * 5 + [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -114,6 +122,13 @@ def check(handle: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         text = handle.vs_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what}: CUDA error {err} ({text})")
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card (132 on an H100 SXM): the
+    backward kernels size their grids of deterministic partial sums by
+    it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(device: torch.device) -> int:

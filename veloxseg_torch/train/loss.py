@@ -1,0 +1,87 @@
+"""Composite training loss (``veloxseg_tpu/train/loss.py:59-200``).
+
+``total = Σ_deep w_i·(CE + Dice) + rc_w·MSE(recon, input)
++ feat_w·mean_m MSE(gram_student, gram_teacher_m)``, with MONAI
+``DiceLoss(include_background=False, to_onehot_y=True, softmax=True)``
+semantics (smooth 1e-5 in numerator and denominator). Channels-last
+logits ``(B, *spatial, C)``, integer labels ``(B, *spatial)``; every
+reduction in fp32. Only the unblocked heads are ported: the JAX package's
+``blocked_scale`` is a TPU layout.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from ..core.config import VeloxSegConfig
+from ..utils.runtime import (normalized_deep_loss_weights,
+                             veloxseg_output_layout)
+
+
+SMOOTH = 1e-5          # MONAI DiceLoss's smooth_nr and smooth_dr
+
+
+def fused_ce_dice_loss(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> torch.Tensor:
+    """Softmax cross-entropy (mean over voxels) plus MONAI Dice without the
+    background class, sharing one log-sum-exp, per class as the JAX package
+    computes it."""
+    n_classes = logits.shape[-1]
+    xs = [logits[..., c].float() for c in range(n_classes)]
+    m = xs[0]
+    for xc in xs[1:]:
+        m = torch.maximum(m, xc)
+    exps = [torch.exp(xc - m) for xc in xs]
+    sumexp = sum(exps)
+    lse = m + torch.log(sumexp)
+    ce = torch.mean(sum(torch.where(labels == c, lse - xc, 0.0)
+                        for c, xc in enumerate(xs)))
+    axes = tuple(range(1, labels.dim()))
+    dice_sum = 0.0
+    for c in range(1, n_classes):
+        probs_c = exps[c] / sumexp
+        mask_c = labels == c
+        inter = torch.where(mask_c, probs_c, 0.0).sum(dim=axes)
+        denom = probs_c.sum(dim=axes) + mask_c.float().sum(dim=axes)
+        dice_sum = dice_sum + torch.mean(
+            1.0 - (2.0 * inter + SMOOTH) / (denom + SMOOTH))
+    return ce + dice_sum / (n_classes - 1)
+
+
+class CompositeLoss:
+    """The reference ``Loss`` (``utils/loss.py:10-86``) for VeloxSeg: one
+    teacher Gram per modality of ``model_config``."""
+
+    def __init__(self, config, model_config: VeloxSegConfig):
+        self.num_modal = model_config.num_modalities
+        self.deep_loss_weight = [float(w) for w in
+                                 config["deep_Loss_weight"]]
+        self.rc_loss_weight = config.get("RC_Loss_weight")
+        self.feature_loss_weight = config.get("Feature_Loss_weight")
+
+    def deep_seg_loss(self, outputs: Sequence[torch.Tensor],
+                      labels: torch.Tensor) -> torch.Tensor:
+        weights = normalized_deep_loss_weights(self.deep_loss_weight,
+                                               len(outputs))
+        loss = 0.0
+        for w, out in zip(weights, outputs):
+            loss = loss + w * fused_ce_dice_loss(out, labels)
+        return loss
+
+    def __call__(self, output: List[torch.Tensor], labels: torch.Tensor,
+                 sr_labels: torch.Tensor) -> torch.Tensor:
+        layout = veloxseg_output_layout(len(output), self.num_modal)
+        s0, s1 = layout["seg"]
+        seg = self.deep_seg_loss(output[s0:s1], labels)
+        rc = torch.mean(torch.square(
+            output[layout["reconstruction"]].float() - sr_labels.float()))
+        student = output[layout["decoder_gram"]].float()
+        feat = 0.0
+        for t in layout["teacher_grams"]:
+            feat = feat + torch.mean(torch.square(student
+                                                  - output[t].float()))
+        feat = feat / self.num_modal
+        return (seg + self.rc_loss_weight * rc
+                + self.feature_loss_weight * feat)
