@@ -1,7 +1,8 @@
 """The port stands alone: ``veloxseg_torch`` and ``chip_smoke.py`` load
-nothing of JAX, Flax or ``veloxseg_tpu`` (the eval forward and a train
-step run with those imports blocked), and the entry points refuse to run
-quietly on the CPU when CUDA is absent."""
+nothing of JAX, Flax or ``veloxseg_tpu`` (the eval forward, a train step,
+the 128³ flagship's long-window attention and a U-RWKV forward run with
+those imports blocked), and the entry points refuse to run quietly on the
+CPU when CUDA is absent."""
 
 import os
 import subprocess
@@ -48,6 +49,23 @@ _ISOLATED = textwrap.dedent("""
     _, aux = step(state, x, (x[..., 0] > 0).long(),
                   torch.Generator().manual_seed(0))
     assert bool(torch.isfinite(aux["loss"]))
+    # the 128³ flagship builds; its level-1 attention path (K3's plain
+    # version on the CPU) and a U-RWKV forward from the registry run
+    from veloxseg_torch.core.config import flagship_config
+    from veloxseg_torch.ops.pwa_attention import window_attention_train
+    build_veloxseg(flagship_config(), device="cpu")
+    q = torch.randn(1, 1, 1, 8, 1024, requires_grad=True)
+    out = window_attention_train(q, q, q, torch.zeros(1, 1024, 1024),
+                                 torch.tensor([1, 0], dtype=torch.int32),
+                                 0.35, 0.1)
+    out.sum().backward()
+    from veloxseg_torch.models.registry import load_model
+    urwkv = load_model("U-RWKV", {{"U-RWKV": {{"input_channel": 2,
+                                               "num_classes": 2}}}},
+                       device="cpu")
+    with torch.no_grad():
+        y = urwkv(torch.randn(2, 16, 16, 16, 2))
+    assert y.shape == (2, 16, 16, 16, 2) and bool(torch.isfinite(y).all())
     bad = sorted(n for n, m in sys.modules.items() if m is not None and
                  n.split(".")[0] in ("jax", "jaxlib", "flax", "veloxseg_tpu"))
     assert not bad, bad
@@ -68,7 +86,7 @@ def test_port_imports_nothing_of_jax():
     r = _run(_ISOLATED.format(root=ROOT))
     assert r.returncode == 0, r.stderr[-3000:]
     assert "ISOLATED" in r.stdout
-    assert int(r.stdout.split("ISOLATED")[1].split()[0]) >= 26
+    assert int(r.stdout.split("ISOLATED")[1].split()[0]) >= 38
 
 
 def test_entry_points_default_to_cuda():
@@ -86,6 +104,9 @@ def test_entry_points_default_to_cuda():
                           "Feature_Loss_weight": 2.0}, VeloxSegConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         train_step_fn(loss)
+    from veloxseg_torch.models.registry import load_model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_model("U-RWKV", {"U-RWKV": {"input_channel": 2}})
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -115,6 +115,74 @@ def test_train_attention_kernels_match_plain(b, h, n, c_qk, c_v, l, p):
     assert torch.equal(grads[3], again[3])
 
 
+# (B, h, N, Cqk, Cv, L) of the long-window train attention: the 128³
+# flagship's level 1 (K3's one width), and ragged L (partial tiles)
+LONG_ATTN = [(2, 2, 9, 8, 8, 1024), (1, 2, 3, 8, 8, 1024),
+             (1, 1, 3, 8, 8, 1000), (2, 1, 2, 8, 8, 600)]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,n,c_qk,c_v,l", LONG_ATTN)
+def test_long_train_attention_kernels_match_plain(b, h, n, c_qk, c_v, l, p):
+    dev = cuda_or_skip()
+    q, k, v, bias, do = _train_inputs(dev, b, h, n, c_qk, c_v, l)
+    seed = torch.tensor([1234, 3], dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(c_qk)
+    f0 = pwa_attention.window_attention_train_fwd_long.launches
+    b0 = pwa_attention.window_attention_train_bwd_long.launches
+    out = pwa_attention.window_attention_train_fwd_long(q, k, v, bias, seed,
+                                                        scale, p)
+    grads = pwa_attention.window_attention_train_bwd_long(
+        q, k, v, bias, seed, do, scale, p)
+    again = pwa_attention.window_attention_train_bwd_long(
+        q, k, v, bias, seed, do, scale, p)
+    torch.cuda.synchronize()
+    assert pwa_attention.window_attention_train_fwd_long.launches == f0 + 1
+    assert pwa_attention.window_attention_train_bwd_long.launches == b0 + 2
+    ref = pwa_attention.window_attention_train_fwd_plain(q, k, v, bias, seed,
+                                                         scale, p)
+    refs = pwa_attention.window_attention_train_bwd_plain(q, k, v, bias,
+                                                          seed, do, scale, p)
+    # as K2: fp32, the same mask on both sides, other summation orders
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    for got, r in zip(grads, refs):
+        scale_r = float(r.abs().max())
+        torch.testing.assert_close(got, r, rtol=1e-4, atol=1e-4 * scale_r)
+    # every sum is taken in a fixed order: bit-identical between calls
+    for a, b_ in zip(grads, again):
+        assert torch.equal(a, b_)
+
+
+def test_long_train_attention_refuses_other_widths():
+    dev = cuda_or_skip()
+    q, k, v, bias, do = _train_inputs(dev, 1, 1, 2, 16, 32, 1024)
+    seed = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        pwa_attention.window_attention_train_fwd_long(q, k, v, bias, seed,
+                                                      0.25, 0.1)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        pwa_attention.window_attention_train_bwd_long(q, k, v, bias, seed,
+                                                      do, 0.25, 0.1)
+
+
+@pytest.mark.parametrize("b,t,c", [(4, 216, 128), (3, 50, 40)])
+def test_wkv_kernel_matches_plain(b, t, c):
+    from veloxseg_torch.ops import wkv as wkv_ops
+    dev = cuda_or_skip()
+    # U-RWKV's arguments: w = decay / T, u = first / T (urwkv.py:128)
+    w = torch.from_numpy(normal((c,), 0, 3.0) / t).to(dev)
+    u = torch.from_numpy(normal((c,), 1) / t).to(dev)
+    k, v = (torch.from_numpy(normal((b, t, c), s)).to(dev) for s in (2, 3))
+    n0 = wkv_ops.wkv.launches
+    with torch.no_grad():
+        got = wkv_ops.wkv(w, u, k, v)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv.launches == n0 + 1
+    ref = wkv_ops.wkv_plain(w, u, k, v)
+    # fp32; the same recurrence, expf and fused multiply-adds on the card
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("c,groups,expansion,s", JLC_LEVELS)
 def test_jlc_backward_kernels_match_plain(c, groups, expansion, s):
     dev = cuda_or_skip()

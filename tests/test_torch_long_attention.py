@@ -1,0 +1,105 @@
+"""K3, the train window attention for long windows: the dispatch rule
+between K2 and K3, and the port's long-window path (forward, dq, dk, dv
+and dbias) against the JAX package's row-blocked Pallas kernels in
+interpret mode and against ``_train_xla`` and its VJP, at L = 1024 (the
+128³ flagship's level 1). The CUDA kernels against the plain versions are
+in ``test_torch_kernels.py``."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import normal
+from veloxseg_torch.ops import pwa_attention as port
+from veloxseg_tpu.ops.pwa_attention import (_full_train_fits,
+                                            _rowblock_size, _train_xla,
+                                            window_attention_train)
+
+
+def test_dispatch_rule_sends_long_windows_to_k3():
+    # the flagship's level 1 (bench.py:57-62 at 128³), at the one width K3
+    # is built for
+    assert port.uses_long_kernel(1024)
+    assert port.LONG_KERNEL_WIDTHS == {(8, 8)}
+    # every window of the dataset configs and the flagship's other levels:
+    # AutoPET 54/432, BraTS 216, Hecktor 64/512, flagship 128
+    for l in (54, 64, 128, 216, 432, 512):
+        assert not port.uses_long_kernel(l), l
+    # it agrees with the JAX package's choice of its row-blocked kernels
+    for l in (54, 128, 432, 512, 1024):
+        assert port.uses_long_kernel(l) == (not _full_train_fits(l))
+    assert _rowblock_size(1024) > 0
+
+
+@pytest.mark.parametrize("l,want", [(128, "short"), (1024, "long")])
+def test_train_attention_dispatches_by_the_rule(monkeypatch, l, want):
+    calls = []
+    for name in ("window_attention_train_fwd", "window_attention_train_bwd",
+                 "window_attention_train_fwd_long",
+                 "window_attention_train_bwd_long"):
+        real = getattr(port, name)
+
+        def spy(*a, _real=real, _name=name):
+            calls.append(_name)
+            return _real(*a)
+        monkeypatch.setattr(port, name, spy)
+    q, k, v, bias, do = _inputs(1, 1, 1, 4, 4, l)
+    _port_fwd_bwd(q, k, v, bias, do, [3, 0], 0.5, 0.1)
+    suffix = "_long" if want == "long" else ""
+    assert calls == [f"window_attention_train_fwd{suffix}",
+                     f"window_attention_train_bwd{suffix}"]
+
+
+def _inputs(b, h, n, c_qk, c_v, l, seed=0):
+    return (normal((b, h, n, c_qk, l), seed),
+            normal((b, h, n, c_qk, l), seed + 1),
+            normal((b, h, n, c_v, l), seed + 2),
+            normal((h, l, l), seed + 3, 0.5),
+            normal((b, h, n, c_v, l), seed + 4))
+
+
+def _port_fwd_bwd(q, k, v, bias, do, seed, scale, p):
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, bias)]
+    st = torch.tensor(seed, dtype=torch.int32)
+    out = port.window_attention_train(*ts, st, scale, p)
+    grads = torch.autograd.grad(out, ts, torch.from_numpy(do))
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+# (B, h, N, Cqk, Cv, L, p), as tests/test_pwa_attention.py:167-196 runs the
+# row-blocked kernels
+SHAPES = [(1, 1, 2, 8, 8, 1024, 0.3), (1, 2, 2, 8, 8, 1024, 0.2)]
+
+
+@pytest.mark.parametrize("oracle", ["interpret", "xla"])
+@pytest.mark.parametrize("b,h,n,c_qk,c_v,l,p", SHAPES)
+def test_long_path_matches_jax(b, h, n, c_qk, c_v, l, p, oracle):
+    q, k, v, bias, do = _inputs(b, h, n, c_qk, c_v, l, seed=7)
+    seed, scale = [4321, 0], 1.0 / np.sqrt(c_qk)
+    got, grads = _port_fwd_bwd(q, k, v, bias, do, seed, scale, p)
+    sj = jnp.asarray([seed], jnp.int32)
+    if oracle == "interpret":
+        fn = lambda *a: window_attention_train(*a, sj, scale, p, True)  # noqa
+    else:
+        fn = lambda *a: _train_xla(*a, sj, scale, p)  # noqa
+    ref, vjp = jax.vjp(fn, *map(jnp.asarray, (q, k, v, bias)))
+    # fp32 both ways, the same mask, sums in other orders: 1e-5 on the
+    # outputs, 1e-4 of each gradient's max (dbias sums 2·h·L² terms)
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-5)
+    for g, r in zip(grads, vjp(jnp.asarray(do))):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=1e-4 * float(np.abs(r).max()))
+
+
+def test_cpu_tensors_take_plain_versions_without_counting():
+    q, k, v, bias, do = _inputs(1, 1, 1, 8, 8, 1024, seed=3)
+    f0 = port.window_attention_train_fwd_long.launches
+    b0 = port.window_attention_train_bwd_long.launches
+    got, _ = _port_fwd_bwd(q, k, v, bias, do, [5, 0], 0.5, 0.2)
+    assert port.window_attention_train_fwd_long.launches == f0
+    assert port.window_attention_train_bwd_long.launches == b0
+    again, _ = _port_fwd_bwd(q, k, v, bias, do, [5, 0], 0.5, 0.2)
+    np.testing.assert_array_equal(got, again)

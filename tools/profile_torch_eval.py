@@ -2,20 +2,24 @@
 """Where a forward, or a train step, of the PyTorch port spends its time
 on one GPU.
 
-    python3 tools/profile_torch_eval.py [--batch 4] [--train] [--out DIR]
+    python3 tools/profile_torch_eval.py [--model autopet|flagship|urwkv]
+        [--batch N] [--train] [--out DIR]
 
-Builds the AutoPET-II VeloxSeg (``config/models_config_autopetii.json``)
-at full width with seeded weights on the card and runs, on a seeded
-(batch, 96, 96, 96, 2) input, the eval forward (batch 4 is one
-sliding-window batch) or, with ``--train``, the train step as published
-(dropout on; ``config/train_config_bs4.json``: AdamW, batch 2 by default)
-with labels that threshold the PET channel. It prints, per forward or
+Builds the model at full width with seeded weights on the card: the
+AutoPET-II VeloxSeg (``config/models_config_autopetii.json``, 96³), the
+128³ flagship of bench.py (``core/config.flagship_config``) or AutoPET-II's
+U-RWKV (96³, eval only). It runs, on a seeded (batch, size³, 2) input, the
+eval forward (batch 4 by default: one sliding-window batch) or, with
+``--train``, the train step (dropout at the config's rates;
+``config/train_config_bs4.json``'s loss weights and AdamW, which bench.py
+uses too; batch 2 by default, 16 for the flagship, bench.py's) with labels
+that threshold the PET channel. It prints, per forward or
 step: the wall time (host clock around iterations ended by a
 synchronize), the device time summed by ``torch.profiler``, the device's
 idle share (1 − device time / wall time), the device operations, the
 device time by kernel family and the kernels by device time. The JSON
-goes to ``<out>/profile_torch_{eval,train}_b<batch>.json`` (default
-``runs``). Needs CUDA; fp32, TF32 off.
+goes to ``<out>/profile_torch_<model>_{eval,train}_b<batch>.json``
+(default ``runs``). Needs CUDA; fp32, TF32 off.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # substrings of the port's own kernel names (csrc/*.cu)
 PORT_KERNELS = ("pwa_attention_kernel", "pwa_attention_bwd_kernel",
-                "dbias_reduce", "jlc_branch_conv", "plane_stats_kernel",
+                "dbias_reduce", "pwa_long_", "wkv_kernel",
+                "jlc_branch_conv", "plane_stats_kernel",
                 "jlc_stage1_apply", "jlc_stage1_bwd_planes",
                 "jlc_channel_mlp", "jlc_mlp_bwd_tiles",
                 "jlc_stage2_bwd_planes", "mlp_partials_reduce")
@@ -40,6 +45,10 @@ PORT_KERNELS = ("pwa_attention_kernel", "pwa_attention_bwd_kernel",
 FAMILIES = (
     ("K1/K2f attention (pwa_attention_kernel)", ("pwa_attention_kernel",)),
     ("K2b attention backward", ("pwa_attention_bwd_kernel", "dbias_reduce")),
+    ("K3f long-window attention", ("pwa_long_fwd_kernel",)),
+    ("K3b long-window attention backward", ("pwa_long_bwd",
+                                            "pwa_long_dbias")),
+    ("K6 WKV recurrence", ("wkv_kernel",)),
     ("K4f/K4b branch conv (jlc_branch_conv)", ("jlc_branch_conv",)),
     ("K4f/K4b/K5f/K5b IN statistics", ("plane_stats_kernel",)),
     ("K4f apply", ("jlc_stage1_apply",)),
@@ -73,10 +82,13 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from torch.profiler import ProfilerActivity, profile
 
-    from veloxseg_torch.core.config import load_json_config
+    from veloxseg_torch.core.config import flagship_config, load_json_config
+    from veloxseg_torch.models.registry import load_model
     from veloxseg_torch.nn.veloxseg import build_veloxseg
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("autopet", "flagship", "urwkv"),
+                    default="autopet")
     ap.add_argument("--batch", type=int, default=None,
                     help="default 4 (eval) or the train config's 2")
     ap.add_argument("--train", action="store_true",
@@ -91,13 +103,23 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_json_config(os.path.join(
-        ROOT, "config", "models_config_autopetii.json"))["VeloxSeg"]
+    models = load_json_config(os.path.join(
+        ROOT, "config", "models_config_autopetii.json"))
     train_cfg = load_json_config(os.path.join(
         ROOT, "config", "train_config_bs4.json"))
-    batch = args.batch or (train_cfg["batch_size"] if args.train else 4)
-    model, _ = build_veloxseg(cfg, device="cuda", seed=0)
-    x = torch.randn(batch, 96, 96, 96, 2,
+    if args.train and args.model == "urwkv":
+        ap.error("U-RWKV is profiled in eval only")
+    size = 128 if args.model == "flagship" else 96
+    batch = args.batch or (4 if not args.train else
+                           16 if args.model == "flagship"
+                           else train_cfg["batch_size"])
+    if args.model == "urwkv":
+        model = load_model("U-RWKV", models, device="cuda", seed=0)
+    else:
+        model, _ = build_veloxseg(
+            flagship_config() if args.model == "flagship"
+            else models["VeloxSeg"], device="cuda", seed=0)
+    x = torch.randn(batch, size, size, size, 2,
                     generator=torch.Generator().manual_seed(1)).cuda()
 
     if args.train:
@@ -160,8 +182,9 @@ def main() -> int:
     unit = "step" if args.train else "forward"
     kind = "train" if args.train else "eval"
     print(f"card: {card}")
-    print(f"{kind} batch {batch}: wall {wall_ms:.3f} ms/{unit} | device "
-          f"{device_ms:.3f} ms/{unit} ({launches:.0f} operations) | "
+    print(f"{args.model} {size}³ {kind} batch {batch}: wall {wall_ms:.3f} "
+          f"ms/{unit} | device {device_ms:.3f} ms/{unit} ({launches:.0f} "
+          f"operations) | "
           f"idle share {1 - device_ms / wall_ms:.3f} | port kernels "
           f"{port_ms:.3f} ms, other {device_ms - port_ms:.3f} ms")
     for fam, (count, ms) in sorted(fams.items(), key=lambda kv: -kv[1][1]):
@@ -169,9 +192,10 @@ def main() -> int:
     for name, count, us in rows[:25]:
         print(f"  {us:10.1f} us  x{count:5.1f}  {name[:90]}")
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, f"profile_torch_{kind}_b{batch}.json"),
-              "w") as f:
-        json.dump(dict(card=card, kind=kind, batch=batch, wall_ms=wall_ms,
+    with open(os.path.join(args.out, f"profile_torch_{args.model}_{kind}_"
+                           f"b{batch}.json"), "w") as f:
+        json.dump(dict(card=card, model=args.model, kind=kind, batch=batch,
+                       wall_ms=wall_ms,
                        device_ms=device_ms, port_kernels_ms=port_ms,
                        operations=launches,
                        idle_share=1 - device_ms / wall_ms,

@@ -85,3 +85,17 @@ class VeloxSegConfig:
 
     def replace(self, **kw) -> "VeloxSegConfig":
         return dataclasses.replace(self, **{k: _t(v) for k, v in kw.items()})
+
+
+def flagship_config(size=(128, 128, 128)) -> VeloxSegConfig:
+    """The JAX package's benchmark model (``bench.py:53-63``, ``_flagship``):
+    the default config at depth 1 per level and ``input_size`` ``size``;
+    where ``size`` is not a multiple of 3, the power-of-two window pyramid
+    ((4,4,4), (8,8,8), (4,4,4), (4,4,4)), whose level 1 has 1024-token
+    windows at 128³."""
+    cfg = VeloxSegConfig().replace(depths=(1, 1, 1, 1),
+                                   input_size=tuple(size))
+    if size[0] % 3 != 0:
+        cfg = cfg.replace(min_big_window_sizes=(
+            (4, 4, 4), (8, 8, 8), (4, 4, 4), (4, 4, 4)))
+    return cfg

@@ -7,6 +7,12 @@ constant blending by default (gaussian on request), symmetric zero padding
 of volumes smaller than the ROI. Tiles run through the predictor in
 batches of ``sw_batch_size`` on the device, and the weighted sums
 accumulate on the same device.
+
+A ragged last batch is filled up with copies of the first tile, whose
+outputs are dropped, as the JAX package does (MONAI runs a smaller last
+batch instead). A predictor whose output for one tile depends on the
+other tiles of its call, as U-RWKV's batch norms do, then gives what the
+JAX package gives.
 """
 
 from __future__ import annotations
@@ -108,6 +114,8 @@ def sliding_window_inference(
 
     imp = torch.as_tensor(_importance_np(mode, roi), device=dev)[..., None]
     origins = compute_tile_origins(padded_spatial, roi, overlap)
+    n_real = len(origins)
+    origins += [origins[0]] * ((-n_real) % sw_batch_size)
     out_sum = None
     cnt = torch.zeros((*padded_spatial, 1), device=dev)
     for i in range(0, len(origins), sw_batch_size):
@@ -119,7 +127,7 @@ def sliding_window_inference(
         if out_sum is None:
             out_sum = torch.zeros((b, *padded_spatial, logits.shape[-1]),
                                   device=dev)
-        for j, sl in enumerate(sls):
+        for j, sl in enumerate(sls[:n_real - i]):
             out_sum[(slice(None),) + sl] += logits[j * b:(j + 1) * b] * imp
             cnt[sl] += imp
     blended = out_sum / cnt

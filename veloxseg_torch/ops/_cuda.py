@@ -28,7 +28,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pwa_attention", "pwa_attention_bwd", "jlc_stage1", "jlc_stage2")
+SOURCES = ("pwa_attention", "pwa_attention_bwd", "pwa_attention_long",
+           "jlc_stage1", "jlc_stage2", "wkv")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -44,10 +45,15 @@ SIGNATURES = {
     "pwa_attention_bwd": {
         "vs_pwa_attention_train_bwd": [_P] * 11 + [_I] * 7
         + [_F, _U, _F, _P]},
+    "pwa_attention_long": {
+        "vs_pwa_attention_long_train": [_P] * 6 + [_I] * 6 + [_F, _U, _F, _P],
+        "vs_pwa_attention_long_train_bwd": [_P] * 11 + [_I] * 6
+        + [_F, _U, _F, _P]},
     "jlc_stage1": {"vs_jlc_stage1": [_P] * 8 + [_I] * 10 + [_P],
                    "vs_jlc_stage1_bwd": [_P] * 8 + [_I] * 10 + [_P]},
     "jlc_stage2": {"vs_jlc_stage2": [_P] * 8 + [_I] * 4 + [_P],
                    "vs_jlc_stage2_bwd": [_P] * 14 + [_I] * 5 + [_P]},
+    "wkv": {"vs_wkv": [_P] * 5 + [_I] * 3 + [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

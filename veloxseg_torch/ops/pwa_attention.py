@@ -1,13 +1,16 @@
-"""Paired-window attention: the eval kernel K1 and the train kernels K2f,
-K2b, each with its plain version.
+"""Paired-window attention: the eval kernel K1, the train kernels K2f,
+K2b and, for long windows, K3f, K3b, each with its plain version.
 
 Replaces ``veloxseg_tpu/ops/pwa_attention.py``: ``window_attention_pallas``
 (the Pallas ``_attn_kernel``, K1) and ``window_attention_train`` (the
-custom VJP over ``_train_fwd_kernel`` and ``_train_bwd_kernel``, K2).
-Token layout ``(B, h, N, C, L)``: per (batch, head, window), q/k are
-``(Cqk, L)`` and v ``(Cv, L)``; the bias is ``(h, L, L)``. The CUDA
-kernels are ``csrc/pwa_attention.cu`` (K1, K2f) and
-``csrc/pwa_attention_bwd.cu`` (K2b).
+custom VJP over ``_train_fwd_kernel`` and ``_train_bwd_kernel``, K2, and
+their row-blocked forms ``_train_fwd_rb_kernel`` and
+``_train_bwd_rb_kernel``, K3). Token layout ``(B, h, N, C, L)``: per
+(batch, head, window), q/k are ``(Cqk, L)`` and v ``(Cv, L)``; the bias
+is ``(h, L, L)``. The CUDA kernels are ``csrc/pwa_attention.cu`` (K1,
+K2f), ``csrc/pwa_attention_bwd.cu`` (K2b) and
+``csrc/pwa_attention_long.cu`` (K3f, K3b); :func:`uses_long_kernel`
+picks K2 or K3.
 
 Train attention drops attention weights with a counter-based mask: a
 lowbias32 hash of the global (window, row, column) id and a per-call seed
@@ -27,7 +30,8 @@ import torch
 
 from . import _cuda
 
-# (Cqk, Cv) pairs the kernels are instantiated for (csrc/pwa_attention*.cu).
+# (Cqk, Cv) pairs K1 and K2 are instantiated for (csrc/pwa_attention.cu,
+# csrc/pwa_attention_bwd.cu).
 KERNEL_WIDTHS = {(cq, cv) for cq in (4, 8, 16) for cv in (4, 8, 16, 32)}
 
 _M32 = 0xFFFFFFFF
@@ -42,7 +46,7 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhnlm,bhncm->bhncl", weights, v)
 
 
-def _check(q, k, v, bias, *more, seed=None):
+def _check(q, k, v, bias, *more, seed=None, widths=KERNEL_WIDTHS):
     """Device, type, contiguity and shape checks of a kernel call."""
     b, h, n, c_qk, l = q.shape
     c_v = v.shape[3]
@@ -64,7 +68,7 @@ def _check(q, k, v, bias, *more, seed=None):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)} bias "
                          f"{tuple(bias.shape)}")
-    if (c_qk, c_v) not in KERNEL_WIDTHS:
+    if (c_qk, c_v) not in widths:
         raise ValueError(f"no kernel instance for Cqk={c_qk}, Cv={c_v}")
     return b, h, n, c_qk, c_v, l
 
@@ -246,21 +250,106 @@ def window_attention_train_bwd(q, k, v, bias, seed, do, scale: float,
 window_attention_train_bwd.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Train attention for long windows (K3f forward, K3b backward).
+# ---------------------------------------------------------------------------
+
+# (Cqk, Cv) pairs K3 is instantiated for (csrc/pwa_attention_long.cu): the
+# only long window of any config is bench.py's 128³ level 1.
+LONG_KERNEL_WIDTHS = {(8, 8)}
+_K2_MAX_L = 512
+
+
+def uses_long_kernel(l: int) -> bool:
+    """Whether train attention at window length ``l`` takes K3 (True) or
+    K2 (False): K3 for L > 512, where K2b's per-block (L, L) dbias slab
+    would pass 1 MB. Every window of the dataset configs (L <= 512,
+    Hecktor's largest) takes K2; bench.py's 128³ level 1 (L = 1024) takes
+    K3."""
+    return l > _K2_MAX_L
+
+
+def window_attention_train_fwd_long(q, k, v, bias, seed, scale: float,
+                                    p: float) -> torch.Tensor:
+    """K3f: train attention forward with on-chip memory bounded in L;
+    (B, h, N, Cv, L) out. Its plain version is K2's: the same function."""
+    if q.device.type == "cpu":
+        return window_attention_train_fwd_plain(q, k, v, bias, seed, scale, p)
+    seed = seed.reshape(-1).contiguous()
+    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, seed=seed,
+                                   widths=LONG_KERNEL_WIDTHS)
+    out = torch.empty_like(v)
+    lib = _cuda.lib("pwa_attention_long")
+    with torch.cuda.device(q.device):
+        err = lib.vs_pwa_attention_long_train(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            seed.data_ptr(), out.data_ptr(), b, h, n, c_qk, c_v, l,
+            float(scale), drop_threshold(p) if p > 0.0 else 0,
+            1.0 / (1.0 - p), _cuda.stream_ptr(q.device))
+    _cuda.check(lib, err, "pwa_attention_long_train")
+    window_attention_train_fwd_long.launches += 1
+    return out
+
+
+window_attention_train_fwd_long.launches = 0
+
+
+def window_attention_train_bwd_long(q, k, v, bias, seed, do, scale: float,
+                                    p: float):
+    """K3b: (dq, dk, dv, dbias) of the train attention, dbias summed over
+    the windows in a fixed order. Its plain version is K2's."""
+    if q.device.type == "cpu":
+        return window_attention_train_bwd_plain(q, k, v, bias, seed, do,
+                                                scale, p)
+    seed = seed.reshape(-1).contiguous()
+    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, do, seed=seed,
+                                   widths=LONG_KERNEL_WIDTHS)
+    if do.shape != v.shape:
+        raise ValueError(f"do {tuple(do.shape)} differs from v "
+                         f"{tuple(v.shape)}")
+    if b * n == 0:
+        raise ValueError("no windows")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty_like(bias)
+    stats = torch.empty((b, h, n, 3, l), device=q.device)
+    lib = _cuda.lib("pwa_attention_long")
+    with torch.cuda.device(q.device):
+        err = lib.vs_pwa_attention_long_train_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            seed.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), stats.data_ptr(), dbias.data_ptr(), b, h, n,
+            c_qk, c_v, l, float(scale),
+            drop_threshold(p) if p > 0.0 else 0, 1.0 / (1.0 - p),
+            _cuda.stream_ptr(q.device))
+    _cuda.check(lib, err, "pwa_attention_long_train_bwd")
+    window_attention_train_bwd_long.launches += 1
+    return dq, dk, dv, dbias
+
+
+window_attention_train_bwd_long.launches = 0
+
+
 class _TrainAttention(torch.autograd.Function):
     """Saves only the inputs; the backward recomputes the softmax and the
-    mask (``_wat_fwd`` / ``_wat_bwd``)."""
+    mask (``_wat_fwd`` / ``_wat_bwd``). K2 or K3 by
+    :func:`uses_long_kernel` of the window length."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, p):
         ctx.save_for_backward(q, k, v, bias, seed)
         ctx.scale, ctx.p = scale, p
-        return window_attention_train_fwd(q, k, v, bias, seed, scale, p)
+        ctx.long = uses_long_kernel(q.shape[-1])
+        fwd = (window_attention_train_fwd_long if ctx.long
+               else window_attention_train_fwd)
+        return fwd(q, k, v, bias, seed, scale, p)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, seed = ctx.saved_tensors
-        dq, dk, dv, dbias = window_attention_train_bwd(
-            q, k, v, bias, seed, do.contiguous(), ctx.scale, ctx.p)
+        bwd = (window_attention_train_bwd_long if ctx.long
+               else window_attention_train_bwd)
+        dq, dk, dv, dbias = bwd(q, k, v, bias, seed, do.contiguous(),
+                                ctx.scale, ctx.p)
         return dq, dk, dv, dbias, None, None, None
 
 
