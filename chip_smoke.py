@@ -18,14 +18,18 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    training at its B = 16, level 1 at L = 1024): K3f and K3b (also at
    B = 2), K2f and K2b at the three L = 128 levels and, beside K3, at
    L = 1024, K4f, K5f, K4b and K5b at its four JLC levels. U-RWKV: K6 at
-   its bottleneck's (4, 216, 128). K2b's dbias, every K3b output and K5b's
-   dW1/dW2 must repeat bit for bit, and their checksums are printed so
-   that two runs can be compared. Print errors and times: kernel, plain
-   version, the least time the card could take (bound), and for K1 one
-   library call (``scaled_dot_product_attention`` with the bias as a
-   float mask) as a yardstick the port never calls; no one PyTorch call
-   computes the function of K2, K3, K4b, K5b or K6. Each path's calls per
-   unit must equal the launches its run makes (phases 4, 7, 9, 11).
+   its bottleneck's (4, 216, 128). K4b is held against its plain version
+   in dy and in the branch weights' gradient; its weight-gradient launches
+   are also timed alone ("jlc_branch_wgrad", on K4b's own dy). K2b's
+   dbias, every K3b output, K4b's dW and K5b's dW1/dW2 must repeat bit for
+   bit, and their checksums are printed so that two runs can be compared.
+   Print errors and times: kernel, plain version, the least time the card
+   could take (bound), and one library call as a yardstick the port never
+   calls: for K1 ``scaled_dot_product_attention`` with the bias as a float
+   mask, for K4b's wgrad cuDNN's weight-only ``convolution_backward`` of
+   each branch; no one PyTorch call computes the function of K2, K3, K4f,
+   K4b, K5 or K6. Each path's calls per unit must equal the launches its
+   run makes (phases 4, 7, 9, 11).
 4. build the AutoPET-II model (``config/models_config_autopetii.json``) at
    full width with seeded weights on the card; run the eval forward on a
    seeded (1, 96, 96, 96, 2) tile and hold it against the same model and
@@ -41,7 +45,7 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    on one seeded synthetic batch whose labels threshold the PET channel: a
    warm-up step, then 10 timed steps (ms per step, steps/s). The loss must
    be finite and fall; the launches per step must be K2f 4, K2b 4, K4f 13,
-   K4b 13 and no other.
+   K4b 13 (each with its weight-gradient launches: wgrad 13) and no other.
 7. two steps with ``conv_drop`` 0, where stage 2 runs through its kernels:
    K5f 13 and K5b 13 per step.
 8. one step at full width, B = 1, every dropout 0, on the card and on the
@@ -51,8 +55,8 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    bench.py's ``_flagship``, dropout at its defaults, ``conv_drop`` 0) at
    bench.py's B = 16 with its loss weights and AdamW: a warm-up step, then
    10 timed steps (ms per step, peak memory, the loss falling). Launches
-   per step: K2f 3, K2b 3, K3f 1, K3b 1, K4f, K4b, K5f, K5b 13 each, and
-   they must equal phase 3's calls per step.
+   per step: K2f 3, K2b 3, K3f 1, K3b 1, K4f, K4b (and its wgrad), K5f,
+   K5b 13 each, and they must equal phase 3's calls per step.
 10. one flagship step at B = 1, every dropout 0, card against CPU, as 8.
 11. path B, U-RWKV (``load_model("U-RWKV", models_config_autopetii)``)
     with seeded weights: the forward of a seeded (4, 96, 96, 96, 2) batch
@@ -476,22 +480,68 @@ def main() -> int:
                 continue
 
             g = randn(b, c, s, s, s)
-            dy = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
-            ref = fused_jlc.jlc_stage1_bwd_plain(x, ws, g, groups)
+            dy, dws = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
+            _, again = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
+            ref, ref_dws = fused_jlc.jlc_stage1_bwd_plain(x, ws, g, groups)
             torch.cuda.synchronize()
-            require_close(f"K4b {name}", dy, ref,
-                          atol=1e-4 * float(ref.abs().max()), rtol=1e-4)
-            n_bytes = 4 * (2 * vox + sum(w.numel() for w in ws) + 3 * vox)
+            errs4 = []
+            for gname, a, r in [("dy", dy, ref)] + [
+                    (f"dW{k}", a, r) for k, a, r in zip((1, 3, 5), dws,
+                                                        ref_dws)]:
+                require_close(f"K4b {name} {gname}", a, r,
+                              atol=1e-4 * float(r.abs().max()), rtol=1e-4)
+                errs4.append(max_err(a, r))
+            for k, a, a2 in zip((1, 3, 5), dws, again):
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"K4b {name}: dW{k} differs between "
+                                         f"calls")
+                sums[f"K4b {name} dW{k}"] = checksum(a)
+            del again, ref_dws
+            w_numel = sum(w.numel() for w in ws)
+            # x and g in, dy and dW out
+            n_bytes = 4 * (2 * vox + w_numel + 3 * vox + w_numel)
             # the recomputed convolution (as K4f), then per branch value:
             # stats (2), normalize (2), GELU' (8), ·g (1), the two sums (2)
-            # and the InstanceNorm backward (4)
-            n_flop = conv_flop + 19 * 3 * vox
+            # and the InstanceNorm backward (4); the weight gradient's MACs
+            # over the same in-bound taps
+            n_flop = 2 * conv_flop + 19 * 3 * vox
             record("jlc_stage1_bwd", name, weight, n_bytes, n_flop,
-                   max_err(dy, ref),
+                   (max(e[0] for e in errs4), max(e[1] for e in errs4)),
                    cuda_ms(lambda: fused_jlc.jlc_stage1_bwd(x, ws, g, groups)),
                    cuda_ms(lambda: fused_jlc.jlc_stage1_bwd_plain(
                        x, ws, g, groups), 5), None, unit)
-            del dy, ref
+
+            # K4b's weight-gradient launches alone, on the same dy; the
+            # library yardstick is cuDNN's weight-only wgrad of each branch
+            got = fused_jlc.jlc_branch_wgrad(x, dy, ws, groups)
+            torch.cuda.synchronize()
+            werrs = []
+            for k, a, r in zip((1, 3, 5), got, dws):
+                # the same kernels on the same dy as inside K4b
+                if not torch.equal(a, r):
+                    raise AssertionError(f"K4b wgrad {name}: dW{k} differs "
+                                         f"from K4b's")
+            ref_w = fused_jlc.jlc_branch_wgrad_plain(x, dy, ws, groups)
+            for k, a, r in zip((1, 3, 5), got, ref_w):
+                require_close(f"K4b wgrad {name} dW{k}", a, r,
+                              atol=1e-4 * float(r.abs().max()), rtol=1e-4)
+                werrs.append(max_err(a, r))
+            del got, ref_w
+
+            def cudnn_wgrad():
+                for w, dyj in zip(ws, dy):
+                    torch.ops.aten.convolution_backward(
+                        dyj, x, w, None, [1, 1, 1], [w.shape[-1] // 2] * 3,
+                        [1, 1, 1], False, [0, 0, 0], groups,
+                        [False, True, False])
+            record("jlc_branch_wgrad", name, weight,
+                   4 * (vox + 3 * vox + w_numel), conv_flop,
+                   (max(e[0] for e in werrs), max(e[1] for e in werrs)),
+                   cuda_ms(lambda: fused_jlc.jlc_branch_wgrad(x, dy, ws,
+                                                              groups)),
+                   cuda_ms(lambda: fused_jlc.jlc_branch_wgrad_plain(
+                       x, dy, ws, groups), 5), cuda_ms(cudnn_wgrad, 5), unit)
+            del dy, dws, ref
 
             got = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g)
             again = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g)
@@ -566,6 +616,7 @@ def main() -> int:
         "pwa_attention_train_bwd_long":
             pwa_attention.window_attention_train_bwd_long,
         "jlc_stage1_bwd": fused_jlc.jlc_stage1_bwd,
+        "jlc_branch_wgrad": fused_jlc.jlc_branch_wgrad,
         "jlc_stage2_bwd": fused_jlc.jlc_stage2_bwd,
         "wkv": wkv.wkv})
 
@@ -697,7 +748,8 @@ def main() -> int:
     state, aux = step(state, xb_dev, yb_dev, gen_dev)     # warm-up, step 1
     first_loss = float(aux["loss"])
     want = {"jlc_stage1": 13, "pwa_attention_train_fwd": 4,
-            "pwa_attention_train_bwd": 4, "jlc_stage1_bwd": 13}
+            "pwa_attention_train_bwd": 4, "jlc_stage1_bwd": 13,
+            "jlc_branch_wgrad": 13}
     state, losses, step_ms, train_launches, per_step = train_run(
         "AutoPET-II train", state, step, xb_dev, yb_dev, 10, want)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -775,7 +827,8 @@ def main() -> int:
     state, aux = flag_step(state, xf_dev, yf_dev, gen_dev)   # warm-up
     first_loss = float(aux["loss"])
     want_f = {"jlc_stage1": 13, "jlc_stage2": 13, "jlc_stage1_bwd": 13,
-              "jlc_stage2_bwd": 13, "pwa_attention_train_fwd": 3,
+              "jlc_branch_wgrad": 13, "jlc_stage2_bwd": 13,
+              "pwa_attention_train_fwd": 3,
               "pwa_attention_train_bwd": 3,
               "pwa_attention_train_fwd_long": 1,
               "pwa_attention_train_bwd_long": 1}
@@ -928,6 +981,8 @@ def main() -> int:
             "veloxseg_tpu/ops/pwa_attention.py:451"),
         "jlc_stage1_bwd": ("veloxseg_torch/csrc/jlc_stage1.cu",
                            "veloxseg_tpu/ops/fused_jlc.py:135"),
+        "jlc_branch_wgrad": ("veloxseg_torch/csrc/jlc_stage1.cu",
+                             "veloxseg_tpu/ops/fused_jlc.py:369"),
         "jlc_stage2_bwd": ("veloxseg_torch/csrc/jlc_stage2.cu",
                            "veloxseg_tpu/ops/fused_jlc.py:194"),
         "wkv": ("veloxseg_torch/csrc/wkv.cu", "veloxseg_tpu/ops/wkv.py:77"),
@@ -939,7 +994,8 @@ def main() -> int:
     headline = {"pwa_attention": "serving", "jlc_stage1": "serving",
                 "jlc_stage2": "serving", "pwa_attention_train_fwd": "train_96",
                 "pwa_attention_train_bwd": "train_96",
-                "jlc_stage1_bwd": "train_96", "jlc_stage2_bwd": "train_96",
+                "jlc_stage1_bwd": "train_96", "jlc_branch_wgrad": "train_96",
+                "jlc_stage2_bwd": "train_96",
                 "pwa_attention_train_fwd_long": "train_flagship",
                 "pwa_attention_train_bwd_long": "train_flagship",
                 "wkv": "urwkv_serving"}

@@ -195,13 +195,13 @@ def test_jlc_backward_kernels_match_plain(c, groups, expansion, s):
                                         project.weight))
     n1 = fused_jlc.jlc_stage1_bwd.launches
     n2 = fused_jlc.jlc_stage2_bwd.launches
-    dy = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
+    dy, _ = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
     got2 = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g)
     again2 = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g)
     torch.cuda.synchronize()
     assert fused_jlc.jlc_stage1_bwd.launches == n1 + 1
     assert fused_jlc.jlc_stage2_bwd.launches == n2 + 2
-    ref_dy = fused_jlc.jlc_stage1_bwd_plain(x, ws, g, groups)
+    ref_dy, _ = fused_jlc.jlc_stage1_bwd_plain(x, ws, g, groups)
     ref2 = fused_jlc.jlc_stage2_bwd_plain(x, w1, b1, w2, g)
     # fp32 (TF32 off); other summation orders, double-precision statistics
     torch.testing.assert_close(dy, ref_dy, rtol=1e-4,
@@ -212,6 +212,53 @@ def test_jlc_backward_kernels_match_plain(c, groups, expansion, s):
     # the weight gradients are reduced in a fixed order: bit-identical
     for a, b_ in zip(got2[1:], again2[1:]):
         assert torch.equal(a, b_)
+
+
+# K4's tilings: a volume smaller than the k = 5 cube, odd edges, and the
+# 96³ and 128³ L0 edges; C/groups 4, 8 and 16
+@pytest.mark.parametrize("cg", [4, 8, 16])
+@pytest.mark.parametrize("shape", [(3, 3, 3), (5, 7, 9), (24, 24, 24),
+                                   (32, 32, 32)])
+def test_jlc_stage1_kernels_match_plain_at_every_tiling(shape, cg):
+    dev = cuda_or_skip()
+    c, groups, b = 2 * cg, 2, 2
+    x, g = (torch.from_numpy(normal((b, c) + shape, seed=s)).to(dev)
+            for s in (11, 12))
+    ws = [torch.from_numpy(normal((c, cg, k, k, k), seed=13 + k,
+                                  scale=(2.0 / (cg * k ** 3)) ** 0.5)).to(dev)
+          for k in (1, 3, 5)]
+    bs = [torch.zeros(c, device=dev) for _ in ws]
+    n4b, nw = fused_jlc.jlc_stage1_bwd.launches, \
+        fused_jlc.jlc_branch_wgrad.launches
+    with torch.no_grad():
+        out1 = fused_jlc.jlc_stage1(x, ws, bs, groups)
+    dy, dws = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
+    _, again = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
+    alone = fused_jlc.jlc_branch_wgrad(x, dy, ws, groups)
+    torch.cuda.synchronize()
+    assert fused_jlc.jlc_stage1_bwd.launches == n4b + 2
+    assert fused_jlc.jlc_branch_wgrad.launches == nw + 3
+    ref1 = fused_jlc.jlc_stage1_plain(x, ws, bs, groups)
+    ref_dy, ref_dws = fused_jlc.jlc_stage1_bwd_plain(x, ws, g, groups)
+    # fp32 (TF32 off); other summation orders, double-precision statistics
+    torch.testing.assert_close(out1, ref1, rtol=1e-4, atol=1e-4)
+    for got, r in [(dy, ref_dy)] + list(zip(dws, ref_dws)):
+        torch.testing.assert_close(got, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+    # dW is summed in a fixed order: bit-identical between calls, and the
+    # wgrad launches alone give K4b's own
+    for a, a2, a3 in zip(dws, again, alone):
+        assert torch.equal(a, a2) and torch.equal(a, a3)
+
+
+def test_jlc_stage1_kernels_refuse_other_kernel_sets():
+    dev = cuda_or_skip()
+    x = torch.zeros(1, 8, 4, 4, 4, device=dev)
+    ws = [torch.zeros(8, 4, k, k, k, device=dev) for k in (3, 5)]
+    with pytest.raises(ValueError, match="branches"):
+        fused_jlc.jlc_stage1(x, ws, [torch.zeros(8, device=dev)] * 2, 2)
+    with pytest.raises(ValueError, match="branches"):
+        fused_jlc.jlc_stage1_bwd(x, ws, x, 2)
 
 
 def test_tiny_forward_on_card_matches_cpu():

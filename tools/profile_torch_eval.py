@@ -17,7 +17,8 @@ that threshold the PET channel. It prints, per forward or
 step: the wall time (host clock around iterations ended by a
 synchronize), the device time summed by ``torch.profiler``, the device's
 idle share (1 − device time / wall time), the device operations, the
-device time by kernel family and the kernels by device time. The JSON
+device time by kernel family, the kernels by device time and the
+library's convolutions (forward and backward) by input shapes. The JSON
 goes to ``<out>/profile_torch_<model>_{eval,train}_b<batch>.json``
 (default ``runs``). Needs CUDA; fp32, TF32 off.
 """
@@ -36,12 +37,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # substrings of the port's own kernel names (csrc/*.cu)
 PORT_KERNELS = ("pwa_attention_kernel", "pwa_attention_bwd_kernel",
                 "dbias_reduce", "pwa_long_", "wkv_kernel",
-                "jlc_branch_conv", "plane_stats_kernel",
+                "jlc_branch_conv", "jlc_conv_stats", "jlc_branch_wgrad",
+                "jlc_wgrad_reduce", "plane_stats_kernel",
                 "jlc_stage1_apply", "jlc_stage1_bwd_planes",
                 "jlc_channel_mlp", "jlc_mlp_bwd_tiles",
                 "jlc_stage2_bwd_planes", "mlp_partials_reduce")
 
-# (family, substrings of the kernel names), first match wins
+# (family, substrings of the kernel names), first match wins: the port's
+# own kernels come before the library families, whose substrings ("conv",
+# "wgrad", "reduce") their names also hold
 FAMILIES = (
     ("K1/K2f attention (pwa_attention_kernel)", ("pwa_attention_kernel",)),
     ("K2b attention backward", ("pwa_attention_bwd_kernel", "dbias_reduce")),
@@ -50,7 +54,10 @@ FAMILIES = (
                                             "pwa_long_dbias")),
     ("K6 WKV recurrence", ("wkv_kernel",)),
     ("K4f/K4b branch conv (jlc_branch_conv)", ("jlc_branch_conv",)),
-    ("K4f/K4b/K5f/K5b IN statistics", ("plane_stats_kernel",)),
+    ("K4b branch wgrad (jlc_branch_wgrad)", ("jlc_branch_wgrad",
+                                              "jlc_wgrad_reduce")),
+    ("K4f/K4b/K5f/K5b IN statistics", ("plane_stats_kernel",
+                                       "jlc_conv_stats")),
     ("K4f apply", ("jlc_stage1_apply",)),
     ("K4b planes", ("jlc_stage1_bwd_planes",)),
     ("K5f MLP", ("jlc_channel_mlp",)),
@@ -154,7 +161,8 @@ def main() -> int:
         wall_ms = (time.perf_counter() - t0) * 1e3 / iters
 
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
             for _ in range(iters):
                 run()
             torch.cuda.synchronize()
@@ -179,6 +187,17 @@ def main() -> int:
         f = fams.setdefault(family(name), [0.0, 0.0])
         f[0] += count
         f[1] += us / 1e3
+    # the library's convolutions by input shapes: the device time of the
+    # kernels each aten call launched (forward, and backward with its mask)
+    convs = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ("aten::convolution", "aten::convolution_backward"):
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = e.cuda_time_total
+            convs.append((e.key, e.count / iters, dev_us / iters,
+                          [list(s) for s in e.input_shapes[:3]]))
+    convs.sort(key=lambda r: -r[2])
     unit = "step" if args.train else "forward"
     kind = "train" if args.train else "eval"
     print(f"card: {card}")
@@ -191,6 +210,10 @@ def main() -> int:
         print(f"  {ms:9.3f} ms  x{count:6.1f}  {fam}")
     for name, count, us in rows[:25]:
         print(f"  {us:10.1f} us  x{count:5.1f}  {name[:90]}")
+    print("library convolutions by shapes (grad_output or input, input or "
+          "weight, weight):")
+    for key, count, us, shapes in convs[:15]:
+        print(f"  {us:10.1f} us  x{count:5.1f}  {key} {shapes}")
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"profile_torch_{args.model}_{kind}_"
                            f"b{batch}.json"), "w") as f:
@@ -202,7 +225,10 @@ def main() -> int:
                        families={k: dict(per_unit=c, device_ms=m)
                                  for k, (c, m) in fams.items()},
                        rows=[dict(name=n, per_unit=c, device_us=u)
-                             for n, c, u in rows]), f, indent=1)
+                             for n, c, u in rows],
+                       convolutions=[dict(op=k, per_unit=c, device_us=u,
+                                          shapes=sh)
+                                     for k, c, u, sh in convs]), f, indent=1)
     return 0
 
 

@@ -14,6 +14,7 @@ Every exported function returns the ``cudaError_t`` of its launches
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -49,8 +50,9 @@ SIGNATURES = {
         "vs_pwa_attention_long_train": [_P] * 6 + [_I] * 6 + [_F, _U, _F, _P],
         "vs_pwa_attention_long_train_bwd": [_P] * 11 + [_I] * 6
         + [_F, _U, _F, _P]},
-    "jlc_stage1": {"vs_jlc_stage1": [_P] * 8 + [_I] * 10 + [_P],
-                   "vs_jlc_stage1_bwd": [_P] * 8 + [_I] * 10 + [_P]},
+    "jlc_stage1": {"vs_jlc_stage1": [_P] * 9 + [_I] * 12 + [_P],
+                   "vs_jlc_stage1_bwd": [_P] * 13 + [_I] * 14 + [_P],
+                   "vs_jlc_branch_wgrad": [_P] * 6 + [_I] * 11 + [_P]},
     "jlc_stage2": {"vs_jlc_stage2": [_P] * 8 + [_I] * 4 + [_P],
                    "vs_jlc_stage2_bwd": [_P] * 14 + [_I] * 5 + [_P]},
     "wkv": {"vs_wkv": [_P] * 5 + [_I] * 3 + [_P]},
@@ -130,6 +132,7 @@ def check(handle: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({text})")
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of the card (132 on an H100 SXM): the
     backward kernels size their grids of deterministic partial sums by

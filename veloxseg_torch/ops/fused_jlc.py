@@ -15,10 +15,10 @@ IN is the affine-free InstanceNorm (eps 1e-5, ``max(var, 0)``); GELU is
 exact (erf). Each stage is a ``torch.autograd.Function`` that saves only
 its inputs and weights and recomputes the rest in its backward:
 
-- stage 1: K4b recomputes the branch convs and their IN statistics and
-  emits the cotangent at each branch's conv output; the convs' input and
-  weight gradients then run on cuDNN, as the JAX package runs them on XLA
-  (``fused_jlc.py:369-374``).
+- stage 1: K4b recomputes the branch convs and their IN statistics,
+  emits the cotangent at each branch's conv output and, from it and x, the
+  branch weights' gradient (where the JAX package runs XLA's wgrad,
+  ``fused_jlc.py:369-374``); the convs' input gradient runs on cuDNN.
 - stage 2: K5b recomputes the IN and the MLP and emits dx and the weight
   and bias gradients, summed over batch and voxels in a fixed order.
 
@@ -31,8 +31,9 @@ and the kernel for a CUDA tensor.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import List, Sequence
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,8 +41,12 @@ import torch.nn.functional as F
 from ..nn.norms import instance_norm
 from . import _cuda
 
-_MAX_BRANCHES = 3
-_OCH = 4  # output channels per conv thread (csrc/jlc_stage1.cu)
+# the branch kernel sizes K4's kernels are built for (core/config.py)
+KERNEL_SIZES = (1, 3, 5)
+_QUAD = 4  # output (and input) channels per K4 thread (csrc/jlc_stage1.cu)
+_TAPS = 125 + 27 + 1  # the k = 5, 3, 1 taps of one weight-gradient slab row
+_CONV_THREADS = 512  # the most threads of a K4 conv block
+_EDGE = 8  # the longest tile edge
 _TILE = 32  # voxels per K5b tile (csrc/jlc_stage2.cu)
 
 
@@ -86,18 +91,39 @@ def jlc_stage1_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return x + branches
 
 
+def _conv_args(w: torch.Tensor, groups: int):
+    """The branch conv's arguments to ``aten.convolution_backward`` after
+    ``(grad_output, input, weight, bias_sizes)``."""
+    return ([1, 1, 1], [w.shape[-1] // 2] * 3, [1, 1, 1], False, [0, 0, 0],
+            groups)
+
+
+def jlc_branch_wgrad_plain(x: torch.Tensor, dy: torch.Tensor,
+                           weights: Sequence[torch.Tensor], groups: int
+                           ) -> List[torch.Tensor]:
+    """The branch convs' weight gradients given the cotangent ``dy[j]`` at
+    each one's output: the library's wgrad (``fused_jlc.py:369-374`` runs
+    XLA's)."""
+    return [torch.ops.aten.convolution_backward(
+        dyj, x, w, None, *_conv_args(w, groups), [False, True, False])[1]
+        for w, dyj in zip(weights, dy)]
+
+
 def jlc_stage1_bwd_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                         g: torch.Tensor, groups: int) -> torch.Tensor:
-    """K4b's function: the cotangent at each branch's conv output,
-    ``(nb, B, C, D, H, W)``, given the cotangent ``g`` of stage 1's
-    output (``_k1_bwd_kernel``)."""
+                         g: torch.Tensor, groups: int
+                         ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """K4b's function: ``(dy, [dW_j])``, the cotangent at each branch's
+    conv output, ``(nb, B, C, D, H, W)``, given the cotangent ``g`` of
+    stage 1's output (``_k1_bwd_kernel``), and the branch weights'
+    gradient."""
     out = []
     for w in weights:
         y = F.conv3d(x, w, None, padding=w.shape[-1] // 2, groups=groups)
         mean, rstd = _plane_stats(y)
         yhat = (y - mean) * rstd
         out.append(_in_backward(g * _gelu_grad(yhat), yhat, rstd))
-    return torch.stack(out)
+    dy = torch.stack(out)
+    return dy, jlc_branch_wgrad_plain(x, dy, weights, groups)
 
 
 def jlc_stage2_plain(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -146,24 +172,109 @@ def _check_cuda(x: torch.Tensor, *tensors: torch.Tensor) -> None:
                              f"{x.device}, got {t.dtype} on {t.device}")
 
 
+class Stage1Launch(NamedTuple):
+    """K4's launch geometry for one shape (``csrc/jlc_stage1.cu`` checks
+    it): the tile edges and the tiles along D, H, W; the branch conv's
+    voxels per thread along W (``vx``), input-channel slices per block
+    (``ks``) and output-channel quads per block (``oqb``); the wgrad's
+    output quads per block and its blocks along the (b, tile) units."""
+    tz: int
+    ty: int
+    tx: int
+    nz: int
+    ny: int
+    nx: int
+    vx: int
+    ks: int
+    oqb: int
+    wgrad_oqb: int
+    chunks: int
+
+    @property
+    def tiles(self) -> int:
+        return self.nz * self.ny * self.nx
+
+    def wgrad_ranges(self, b: int) -> List[Tuple[int, int]]:
+        """The (b, tile) units ``[lo, hi)`` each wgrad block walks; unit
+        ``u`` is sample ``u // tiles``, tile ``u % tiles`` (the kernel's
+        own arithmetic)."""
+        units = b * self.tiles
+        per = -(-units // self.chunks)
+        return [(i * per, min(units, (i + 1) * per))
+                for i in range(self.chunks)]
+
+
+_WGRAD_BLOCKS_PER_SM = 4  # wgrad blocks hold 100-200 threads
+
+
+def _edge(n: int) -> int:
+    """The tile edge along an axis of ``n`` voxels: at most ``_EDGE``,
+    as even as the tile count allows."""
+    return -(-n // -(-n // _EDGE))
+
+
+@functools.lru_cache(maxsize=None)
+def stage1_launch(b: int, c: int, groups: int, d: int, h: int, w: int,
+                  sms: int) -> Stage1Launch:
+    """K4's tiling. Volumes at least 8 wide take 4 voxels per conv thread
+    along W (tiles 8 or 4 wide) and all the group's output channels per
+    block; narrower ones (the 3³-6³ levels) take 1 voxel per thread, the
+    whole W in one tile, and split the input channels over the block's
+    threads, so that few voxels still give many threads. The wgrad runs
+    about ``_WGRAD_BLOCKS_PER_SM`` blocks per SM, none of them empty."""
+    quads = c // groups // _QUAD
+    if w >= _EDGE:
+        vx, tx, ks, oqb = 4, (8 if w % 8 == 0 else 4), 1, quads
+    else:
+        vx, tx, ks, oqb = 1, w, quads, 1
+    ty, tz = _edge(h), _edge(d)
+    while ks * oqb * tz * ty * (tx // vx) > _CONV_THREADS:
+        if oqb % 2 == 0:
+            oqb //= 2
+        elif tz > 1:
+            tz = -(-tz // 2)
+        elif ks % 2 == 0:
+            ks //= 2
+        else:
+            ty = -(-ty // 2)
+    nz, ny, nx = -(-d // tz), -(-h // ty), -(-w // tx)
+    wgrad_oqb = 2 if quads % 2 == 0 else 1
+    blocks_y = groups * (quads // wgrad_oqb) * quads
+    units = b * nz * ny * nx
+    chunks = max(1, min(units, -(-_WGRAD_BLOCKS_PER_SM * sms // blocks_y)))
+    return Stage1Launch(tz, ty, tx, nz, ny, nx, vx, ks, oqb, wgrad_oqb,
+                        -(-units // -(-units // chunks)))
+
+
 def _stage1_args(x: torch.Tensor, weights: Sequence[torch.Tensor],
                  groups: int):
-    """Checked kernel arguments shared by K4f and K4b."""
+    """Checked kernel arguments shared by K4f and K4b: the contiguous
+    weights and the launch geometry."""
     weights = [w.contiguous() for w in weights]
     _check_cuda(x, *weights)
-    c = x.shape[1]
-    nb = len(weights)
-    ks = [int(wt.shape[-1]) for wt in weights]
+    b, c, d, h, w = x.shape
+    ks = tuple(int(wt.shape[-1]) for wt in weights)
     cg = c // groups
-    if not 1 <= nb <= _MAX_BRANCHES or cg * groups != c or cg % _OCH \
-            or any(k % 2 == 0 for k in ks) \
+    if ks != KERNEL_SIZES or cg * groups != c or cg % _QUAD \
             or any(tuple(wt.shape) != (c, cg, k, k, k)
                    for wt, k in zip(weights, ks)):
-        raise ValueError(f"K4 takes 1-{_MAX_BRANCHES} odd cubic branches "
-                         f"with C/groups a multiple of {_OCH}; got C={c}, "
+        raise ValueError(f"K4's kernels take the branches {KERNEL_SIZES} "
+                         f"with C/groups a multiple of {_QUAD}; got C={c}, "
                          f"groups={groups}, kernels {ks}")
-    ptrs = [wt.data_ptr() for wt in weights] + [None] * (_MAX_BRANCHES - nb)
-    return weights, nb, ptrs, ks + [0] * (_MAX_BRANCHES - nb)
+    return weights, stage1_launch(b, c, groups, d, h, w,
+                                  _cuda.sm_count(x.device))
+
+
+def _stage1_scratch(x: torch.Tensor, lw: Stage1Launch):
+    """The branch outputs (3, B, C, D, H, W), the per-tile statistics and
+    the per-plane mean and rstd."""
+    b, c = x.shape[:2]
+    planes = 3 * b * c
+    return (torch.empty((3,) + tuple(x.shape), device=x.device),
+            torch.empty((planes * lw.tiles, 2), dtype=torch.float64,
+                        device=x.device),
+            torch.empty((planes,), device=x.device),
+            torch.empty((planes,), device=x.device))
 
 
 def _jlc_stage1_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -172,48 +283,86 @@ def _jlc_stage1_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """K4f (or the plain version for a CPU tensor)."""
     if x.device.type == "cpu":
         return jlc_stage1_plain(x, weights, biases, groups)
-    weights, nb, ptrs, ks = _stage1_args(x, weights, groups)
-    b, c, d, h, w = x.shape
-    scratch = torch.empty((nb, b, c, d, h, w), device=x.device)
-    mean = torch.empty((nb * b * c,), device=x.device)
-    rstd = torch.empty_like(mean)
+    weights, lw = _stage1_args(x, weights, groups)
+    scratch, pstat, mean, rstd = _stage1_scratch(x, lw)
     out = torch.empty_like(x)
     lib = _cuda.lib("jlc_stage1")
     with torch.cuda.device(x.device):
         err = lib.vs_jlc_stage1(
-            x.data_ptr(), *ptrs, scratch.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), out.data_ptr(), b, c, d, h, w, groups, nb, *ks,
-            _cuda.stream_ptr(x.device))
+            x.data_ptr(), *(wt.data_ptr() for wt in weights),
+            scratch.data_ptr(), pstat.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), out.data_ptr(), *x.shape, groups, lw.tz, lw.ty,
+            lw.tx, lw.vx, lw.ks, lw.oqb, _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "jlc_stage1")
     jlc_stage1.launches += 1
     return out
 
 
+def _wgrad_out(x: torch.Tensor, weights: Sequence[torch.Tensor],
+               lw: Stage1Launch):
+    """The wgrad's per-block slabs and the branches' weight gradients."""
+    c, cg = weights[0].shape[:2]
+    return (torch.empty((lw.chunks, c * cg * _TAPS), device=x.device),
+            [torch.empty_like(wt) for wt in weights])
+
+
 def jlc_stage1_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
-                   g: torch.Tensor, groups: int) -> torch.Tensor:
-    """K4b: the cotangent at each branch's conv output, (nb, B, C, D, H, W)."""
+                   g: torch.Tensor, groups: int
+                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """K4b: ``(dy, [dW_j])``, the cotangent at each branch's conv output,
+    (3, B, C, D, H, W), and the branch weights' gradient, which K4b's own
+    wgrad launches compute from dy and x."""
     if x.device.type == "cpu":
         return jlc_stage1_bwd_plain(x, weights, g, groups)
-    weights, nb, ptrs, ks = _stage1_args(x, weights, groups)
+    weights, lw = _stage1_args(x, weights, groups)
     _check_cuda(x, g)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} differs from x {tuple(x.shape)}")
-    b, c, d, h, w = x.shape
-    dy = torch.empty((nb, b, c, d, h, w), device=x.device)
-    mean = torch.empty((nb * b * c,), device=x.device)
-    rstd = torch.empty_like(mean)
+    dy, pstat, mean, rstd = _stage1_scratch(x, lw)
+    part, dws = _wgrad_out(x, weights, lw)
     lib = _cuda.lib("jlc_stage1")
     with torch.cuda.device(x.device):
         err = lib.vs_jlc_stage1_bwd(
-            x.data_ptr(), *ptrs, g.data_ptr(), dy.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), b, c, d, h, w, groups, nb, *ks,
-            _cuda.stream_ptr(x.device))
+            x.data_ptr(), *(wt.data_ptr() for wt in weights), g.data_ptr(),
+            dy.data_ptr(), pstat.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), part.data_ptr(), *(t.data_ptr() for t in dws),
+            *x.shape, groups, lw.tz, lw.ty, lw.tx, lw.vx, lw.ks, lw.oqb,
+            lw.wgrad_oqb, lw.chunks, _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "jlc_stage1_bwd")
     jlc_stage1_bwd.launches += 1
-    return dy
+    jlc_branch_wgrad.launches += 1
+    return dy, dws
 
 
 jlc_stage1_bwd.launches = 0
+
+
+def jlc_branch_wgrad(x: torch.Tensor, dy: torch.Tensor,
+                     weights: Sequence[torch.Tensor], groups: int
+                     ) -> List[torch.Tensor]:
+    """K4b's weight-gradient launches alone: the branch weights' gradient
+    given x and the cotangent ``dy`` (3, B, C, D, H, W) at the branch
+    outputs (the plain version for a CPU tensor). The train step runs them
+    inside :func:`jlc_stage1_bwd`, which counts them here too."""
+    if x.device.type == "cpu":
+        return jlc_branch_wgrad_plain(x, dy, weights, groups)
+    weights, lw = _stage1_args(x, weights, groups)
+    _check_cuda(x, dy)
+    if dy.shape != (3,) + tuple(x.shape):
+        raise ValueError(f"dy {tuple(dy.shape)} is not 3 x {tuple(x.shape)}")
+    part, dws = _wgrad_out(x, weights, lw)
+    lib = _cuda.lib("jlc_stage1")
+    with torch.cuda.device(x.device):
+        err = lib.vs_jlc_branch_wgrad(
+            x.data_ptr(), dy.data_ptr(), part.data_ptr(),
+            *(t.data_ptr() for t in dws), *x.shape, groups, lw.tz, lw.ty,
+            lw.tx, lw.wgrad_oqb, lw.chunks, _cuda.stream_ptr(x.device))
+    _cuda.check(lib, err, "jlc_branch_wgrad")
+    jlc_branch_wgrad.launches += 1
+    return dws
+
+
+jlc_branch_wgrad.launches = 0
 
 
 def _stage2_mats(out1, w1, w2):
@@ -316,16 +465,13 @@ class _Stage1(torch.autograd.Function):
     def backward(ctx, g):
         x, *weights = ctx.saved_tensors
         g = g.contiguous()
-        dy = jlc_stage1_bwd(x, weights, g, ctx.groups)
+        dy, dws = jlc_stage1_bwd(x, weights, g, ctx.groups)
         dx = g
-        dws: List[torch.Tensor] = []
         for w, dyj in zip(weights, dy):
-            # the branch conv's dgrad and wgrad on cuDNN (CPU: ATen)
-            dxj, dwj, _ = torch.ops.aten.convolution_backward(
-                dyj, x, w, None, [1, 1, 1], [w.shape[-1] // 2] * 3,
-                [1, 1, 1], False, [0, 0, 0], ctx.groups, [True, True, False])
-            dx = dx + dxj
-            dws.append(dwj)
+            # the branch conv's dgrad on cuDNN (CPU: ATen)
+            dx = dx + torch.ops.aten.convolution_backward(
+                dyj, x, w, None, *_conv_args(w, ctx.groups),
+                [True, False, False])[0]
         zeros = [torch.zeros(w.shape[0], device=w.device, dtype=w.dtype)
                  for w in weights]
         return (dx, None, None, *dws, *zeros)
@@ -351,8 +497,9 @@ def _needs_graph(*tensors: torch.Tensor) -> bool:
 def jlc_stage1(x: torch.Tensor, weights: Sequence[torch.Tensor],
                biases: Sequence[torch.Tensor], groups: int) -> torch.Tensor:
     """JLC stage 1 on ``(B, C, D, H, W)``; ``weights[j]`` is the
-    ``(C, C/groups, k, k, k)`` kernel of branch j (odd k). K4f forward;
-    under autograd, K4b and the convs' dgrad/wgrad backward."""
+    ``(C, C/groups, k, k, k)`` kernel of branch j (odd k; the kernels take
+    k = 1, 3, 5). K4f forward; under autograd, K4b (with the weight
+    gradient) and the convs' dgrad backward."""
     if not _needs_graph(x, *weights, *biases):
         return _jlc_stage1_fwd(x, weights, biases, groups)
     return _Stage1.apply(x, groups, len(weights), *weights, *biases)
