@@ -20,9 +20,13 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    L = 1024, K4f, K5f, K4b and K5b at its four JLC levels. U-RWKV: K6 at
    its bottleneck's (4, 216, 128). K4b is held against its plain version
    in dy and in the branch weights' gradient; its weight-gradient launches
-   are also timed alone ("jlc_branch_wgrad", on K4b's own dy). K2b's
-   dbias, every K3b output, K4b's dW and K5b's dW1/dW2 must repeat bit for
-   bit, and their checksums are printed so that two runs can be compared.
+   are also timed alone ("jlc_branch_wgrad", on K4b's own dy). K3f also
+   writes each row's log-sum-exp (held against its plain version), and
+   K3b takes it with K3f's output; K5b takes K5f's plane statistics, as
+   the train step runs it. K2b's dbias, every K3b and K5b output and K4b's
+   dW must repeat bit for bit; the K2b/K3b dbias, K4b dW and K5b dW1/dW2
+   checksums are printed so that two runs can be compared. The timers,
+   the card query and the bounds are ``tools/chip_measure.py``'s.
    Print errors and times: kernel, plain version, the least time the card
    could take (bound), and one library call as a yardstick the port never
    calls: for K1 ``scaled_dot_product_attention`` with the bias as a float
@@ -80,37 +84,15 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
-
-
-def cuda_ms(fn, iters=20):
-    """Mean device ms of ``fn`` over ``iters`` back-to-back calls (after
-    one warm-up), timed with CUDA events."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(n_bytes, n_flop):
-    """(bound_ms, bound_by): the larger of bytes/HBM rate and
-    FLOP/fp32 rate."""
-    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = n_flop / FP32_FLOP_PER_S * 1e3
-    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+sys.path.insert(0, os.path.join(ROOT, "tools"))
+# the timers, the card query and the bounds, shared with the bench tools
+from chip_measure import (FP32_FLOP_PER_S, HBM_BYTES_PER_S,  # noqa: E402
+                          bound, card as card_line, cuda_ms,
+                          stage2_bwd_work, train_attention_work)
 
 
 def taps_in_bounds(s, k):
@@ -193,10 +175,7 @@ def main() -> int:
                                                   train_step_fn)
 
     # -- phase 1 ------------------------------------------------------------
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -345,27 +324,27 @@ def main() -> int:
         do = randn(b, h, n, cv, L)
         scale = 1.0 / cqk ** 0.5
         qkvb = (q, k, v, bias, seed)
+        # K3f also writes each row's log-sum-exp, which K3b takes with out
         got = fwd(*qkvb, scale, p_drop)
+        saved = got if long else ()
+        if long:
+            got = got[0]
+            require_close(f"K3f {name} lse", saved[1],
+                          pa.train_lse_plain(q, k, bias, scale), atol=1e-5,
+                          rtol=1e-5)
         ref = pa.window_attention_train_fwd_plain(*qkvb, scale, p_drop)
         torch.cuda.synchronize()
         require_close(f"{tag}f {name}", got, ref, atol=1e-4, rtol=1e-4)
         err = max_err(got, ref)
         del got, ref
-        scores = b * h * n * L * L
-        n_bytes = 4 * (q.numel() + k.numel() + 2 * v.numel()
-                       + bias.numel()) + 8
-        # QKᵀ and PV, softmax as K1 (5 per score), and the mask: the
-        # hash's 14 integer operations and the select, per score, counted
-        # at the fp32 rate (the card's int32 rate is not higher)
-        n_flop = (2 * scores * (cqk + cv) + 5 * scores + b * h * n * L * cv
-                  + 16 * scores)
-        record(fname, name, weight, n_bytes, n_flop, err,
+        work_f, work_b = train_attention_work(b, h, n, cqk, cv, L, long)
+        record(fname, name, weight, *work_f, err,
                cuda_ms(lambda: fwd(*qkvb, scale, p_drop)),
                cuda_ms(lambda: pa.window_attention_train_fwd_plain(
                    *qkvb, scale, p_drop), 5), None, unit)
 
-        grads = bwd(*qkvb, do, scale, p_drop)
-        again = bwd(*qkvb, do, scale, p_drop)
+        grads = bwd(*qkvb, do, scale, p_drop, *saved)
+        again = bwd(*qkvb, do, scale, p_drop, *saved)
         refs = pa.window_attention_train_bwd_plain(*qkvb, do, scale, p_drop)
         torch.cuda.synchronize()
         gerrs = []
@@ -384,17 +363,12 @@ def main() -> int:
                                      f"between calls")
         sums[f"{tag}b {name} dbias"] = checksum(grads[3])
         del grads, again
-        n_bytes = 4 * (2 * (q.numel() + k.numel() + v.numel())
-                       + 2 * bias.numel() + do.numel()) + 8
-        # QKᵀ recomputed once, dOᵀV, dV, dQ, dK; softmax, dS (3) and the
-        # mask (16) per score; dbias summed over the windows
-        n_flop = (2 * scores * (3 * cqk + 2 * cv) + 5 * scores
-                  + 3 * scores + 16 * scores + scores)
-        record(bname, name, weight, n_bytes, n_flop,
+        record(bname, name, weight, *work_b,
                (max(e[0] for e in gerrs), max(e[1] for e in gerrs)),
-               cuda_ms(lambda: bwd(*qkvb, do, scale, p_drop)),
+               cuda_ms(lambda: bwd(*qkvb, do, scale, p_drop, *saved)),
                cuda_ms(lambda: pa.window_attention_train_bwd_plain(
                    *qkvb, do, scale, p_drop), 5), None, unit)
+        del saved
         torch.cuda.empty_cache()
 
     # AutoPET-II, B = 2: K2 at every level
@@ -543,8 +517,11 @@ def main() -> int:
                        x, dy, ws, groups), 5), cuda_ms(cudnn_wgrad, 5), unit)
             del dy, dws, ref
 
-            got = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g)
-            again = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g)
+            # K5b as the train step runs it: with K5f's plane statistics
+            with torch.inference_mode():
+                _, mean, rstd = fused_jlc._jlc_stage2_fwd(x, w1, b1, w2, b2)
+            got = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g, mean, rstd)
+            again = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g, mean, rstd)
             refs = fused_jlc.jlc_stage2_bwd_plain(x, w1, b1, w2, g)
             torch.cuda.synchronize()
             errs5 = []
@@ -553,24 +530,22 @@ def main() -> int:
                 require_close(f"K5b {name} {gname}", a, r,
                               atol=1e-4 * float(r.abs().max()), rtol=1e-4)
                 errs5.append(max_err(a, r))
-            for gname, a, a2 in (("dW1", got[1], again[1]),
-                                 ("dW2", got[3], again[3])):
+            for gname, a, a2 in zip(("dx", "dW1", "db1", "dW2", "db2"),
+                                    got, again):
                 if not torch.equal(a, a2):
                     raise AssertionError(f"K5b {name}: {gname} differs "
                                          f"between calls")
-                sums[f"K5b {name} {gname}"] = checksum(a)
+            sums[f"K5b {name} dW1"] = checksum(got[1])
+            sums[f"K5b {name} dW2"] = checksum(got[3])
             del got, again, refs
-            n_bytes = 4 * (3 * vox + 2 * (w1.numel() + w2.numel())
-                           + 2 * b1.numel() + 2 * c)
-            # five channel products (W1ŷ, W2ᵀg, dW2, dW1, W1ᵀdz1), stats
-            # (4), GELU and GELU' (14) per hidden value, the IN backward (8)
-            n_flop = 10 * vox * e * c + 4 * vox + 14 * vox * e + 8 * vox
-            record("jlc_stage2_bwd", name, weight, n_bytes, n_flop,
+            record("jlc_stage2_bwd", name, weight,
+                   *stage2_bwd_work(b, c, e, s ** 3),
                    (max(x_[0] for x_ in errs5), max(x_[1] for x_ in errs5)),
-                   cuda_ms(lambda: fused_jlc.jlc_stage2_bwd(x, w1, b1, w2,
-                                                            g)),
+                   cuda_ms(lambda: fused_jlc.jlc_stage2_bwd(
+                       x, w1, b1, w2, g, mean, rstd)),
                    cuda_ms(lambda: fused_jlc.jlc_stage2_bwd_plain(
                        x, w1, b1, w2, g), 5), None, unit)
+            del mean, rstd
             torch.cuda.empty_cache()
 
     # serving: encoder and decoder at L0-L2, the encoder alone at L3; a

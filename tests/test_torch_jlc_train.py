@@ -177,3 +177,139 @@ def test_stage1_launch_covers_every_voxel_and_unit_once(b, c, groups, shape,
     units = [u for lo, hi in ranges for u in range(lo, hi)]
     assert units == list(range(b * lw.tiles))
     assert all(hi > lo for lo, hi in ranges)
+
+
+# (B, C, E·C, edge) of the two training paths' JLC levels (K5b runs where
+# stage 2 is not under dropout): the 96³ step at B = 2, the 128³ flagship
+# at B = 16
+TRAIN_STAGE2_LEVELS = [(b, 16 * 2 ** i, e * 16 * 2 ** i, s0 // 2 ** i)
+                       for b, s0 in ((2, 24), (16, 32))
+                       for i, e in enumerate((3, 3, 2, 2))]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("b,c,hid,s", [
+    (b, c, hid, s ** 3) for b, c, hid, s in TRAIN_STAGE2_LEVELS] + [
+    (2, 128, 256, 105), (1, 8, 24, 16 * 16 * 17), (2, 16, 48, 1000),
+    (3, 64, 128, 1)])
+def test_stage2_bwd_launch_covers_every_voxel_and_unit_once(b, c, hid, s,
+                                                            sms):
+    lw = port.stage2_bwd_launch(b, c, hid, s, sms)
+    # the hidden slices split E·C in order, each within the kernel's limits
+    # (csrc/jlc_stage2.cu:vs_jlc_stage2_bwd)
+    assert lw.hs * lw.slices == hid and lw.hs % 4 == 0
+    assert lw.hs * c <= 8192 and lw.hs + c <= 256
+    assert [r for lo, hi in lw.slice_rows() for r in range(lo, hi)] \
+        == list(range(hid))
+    if c == 128:
+        assert lw.slices == 8          # W1 + W2 (256 KB) exceed a block
+    # shared memory (floats): weights, two stage buffers of x and g, the
+    # z1/dz1 tiles, b1
+    floats = 3 * lw.hs * c + 4 * c * 68 + 2 * lw.hs * 68 + lw.hs
+    assert floats * 4 <= 232448
+    # with voxel parts the block adds them through 16 floats a thread
+    assert port._k5b_smem_floats(c, lw.hs, lw.tp) == max(
+        floats, 16 * 256 if lw.tp > 1 else 0)
+    # every weight job has threads: JPT per thread, TP threads per job
+    jobs = lw.hs * c // 8
+    assert lw.jpt in (1, 2, 4) and 64 % (4 * lw.tp) == 0
+    assert lw.jpt * (256 // lw.tp) >= jobs and (lw.tp == 1 or lw.jpt == 1)
+    # the chunks split the (b, tile) units, none of them empty
+    ranges = lw.unit_ranges()
+    assert [u for lo, hi in ranges for u in range(lo, hi)] \
+        == list(range(lw.units))
+    assert all(hi > lo for lo, hi in ranges)
+    assert lw.units == b * lw.tiles_per_sample
+    # the 64-voxel tiles of a sample cover its voxels once
+    seen = np.zeros(s, np.int64)
+    for t in range(lw.tiles_per_sample):
+        assert t * 64 < s
+        seen[t * 64:(t + 1) * 64] += 1
+    assert (seen == 1).all()
+    # the planes launch's blocks of a plane cover it once
+    vchunk = -(-s // lw.ysplit)
+    assert (lw.ysplit - 1) * vchunk < s <= lw.ysplit * vchunk
+
+
+@pytest.mark.parametrize("b,c,e,spatial,sms", [
+    (2, 16, 3, (4, 6, 8), 3), (1, 128, 2, (4, 4, 6), 132),
+    (2, 32, 3, (6, 6, 6), 2)])
+def test_stage2_split_form_matches_jax_k2_bwd(b, c, e, spatial, sms):
+    hid = e * c
+    x, g = normal((b, c) + spatial, 31), normal((b, c) + spatial, 32)
+    w1 = normal((hid, c), 33, (2.0 / c) ** 0.5)
+    b1 = normal((hid,), 34, 0.1)
+    w2 = normal((c, hid), 35, (2.0 / hid) ** 0.5)
+    lw = port.stage2_bwd_launch(b, c, hid, int(np.prod(spatial)), sms)
+    got = port.jlc_stage2_bwd_split_plain(
+        torch.from_numpy(x), torch.from_numpy(w1)[..., None, None, None],
+        torch.from_numpy(b1), torch.from_numpy(w2)[..., None, None, None],
+        torch.from_numpy(g), lw)
+    # the Pallas stage-2 backward in interpret mode on the packed stream,
+    # with the block-diagonal weights jlc_block builds
+    eye = jnp.eye(8, dtype=jnp.float32)
+    big1 = (jnp.asarray(w1.T)[None, :, None, :]
+            * eye[:, None, :, None]).reshape(8 * c, 8 * hid)
+    big2 = (jnp.asarray(w2.T)[None, :, None, :]
+            * eye[:, None, :, None]).reshape(8 * hid, 8 * c)
+    b1t = packed_conv.tile_bias(jnp.asarray(b1), 1)[None, :]
+    xp = packed_conv.pack_s2d(jnp.asarray(np.moveaxis(x, 1, -1)))
+    gp = packed_conv.pack_s2d(jnp.asarray(np.moveaxis(g, 1, -1)))
+    dxp, dbig1, db1t, dbig2, db2t = fused_jlc._k2_bwd(xp, big1, b1t, big2,
+                                                      gp, interpret=True)
+    diag = lambda m, r, k: np.einsum(  # noqa: E731
+        "prpk->rk", np.asarray(m).reshape(8, r, 8, k))
+    refs = [np.moveaxis(np.asarray(packed_conv.unpack_s2d(dxp, c)), -1, 1),
+            diag(dbig1, c, hid).T, np.asarray(db1t).reshape(8, hid).sum(0),
+            diag(dbig2, hid, c).T, np.asarray(db2t).reshape(8, c).sum(0)]
+    for a, r in zip(got, refs):
+        # fp32 both ways; sums in other orders (per chunk, slice and tile)
+        np.testing.assert_allclose(a.numpy().reshape(r.shape), r, rtol=0,
+                                   atol=1e-4 * float(np.abs(r).max()))
+
+
+@pytest.mark.parametrize("c,e", [(4, 3), (6, 3), (12, 3), (10, 2)])
+def test_stage2_padding_adds_nothing(c, e):
+    # K5b runs C not a multiple of 8, or E·C not one of 4, on zero channels
+    # and hidden rows: the padded decomposition, cut back, is the plain
+    # backward
+    b, spatial, hid = 2, (3, 4, 5), e * c
+    x, g = (torch.from_numpy(normal((b, c) + spatial, s)) for s in (41, 42))
+    w1 = torch.from_numpy(normal((hid, c), 43, (2.0 / c) ** 0.5))
+    b1 = torch.from_numpy(normal((hid,), 44, 0.1))
+    w2 = torch.from_numpy(normal((c, hid), 45, (2.0 / hid) ** 0.5))
+    mean, rstd = (t.reshape(-1) for t in port._plane_stats(x))
+    xp, w1p, b1p, w2p, gp, mp, rp = port.pad_stage2_bwd(x, w1, b1, w2, g,
+                                                         mean, rstd)
+    cp, hp = port.stage2_bwd_widths(c, hid)
+    assert cp % 8 == 0 and hp % 4 == 0 and cp - c < 8 and hp - hid < 4
+    assert xp.shape == (b, cp) + spatial and gp.shape == xp.shape
+    assert w1p.shape == (hp, cp) and w2p.shape == (cp, hp)
+    # the new planes normalize to 0 with the statistics the kernel gets
+    assert torch.equal(mp.reshape(b, cp)[:, :c], mean.reshape(b, c))
+    assert torch.equal(rp.reshape(b, cp)[:, :c], rstd.reshape(b, c))
+    assert (mp.reshape(b, cp)[:, c:] == 0).all()
+    assert (rp.reshape(b, cp)[:, c:] == 1).all()
+    lw = port.stage2_bwd_launch(b, cp, hp, int(np.prod(spatial)), 4)
+    got = port.jlc_stage2_bwd_split_plain(
+        xp, w1p[..., None, None, None], b1p, w2p[..., None, None, None], gp,
+        lw)
+    dx, dw1, db1, dw2, db2 = got
+    for pad in (dx[:, c:], dw1[hid:], dw1[:, c:], db1[hid:], dw2[c:],
+                dw2[:, hid:], db2[c:]):
+        assert not pad.any()
+    refs = port.jlc_stage2_bwd_plain(x, w1[..., None, None, None], b1,
+                                     w2[..., None, None, None], g)
+    cut = (dx[:, :c], dw1[:hid, :c], db1[:hid], dw2[:c, :hid], db2[:c])
+    for a, r in zip(cut, refs):
+        # fp32 both ways; sums in other orders
+        torch.testing.assert_close(a.reshape(r.shape), r, rtol=0,
+                                   atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("c,hid", [(208, 416), (256, 512)])
+def test_stage2_bwd_launch_refuses_stages_too_wide_for_a_block(c, hid):
+    # the two stage buffers of x and g alone outgrow a block past C = 200
+    with pytest.raises(ValueError, match="no hidden slice"):
+        port.stage2_bwd_launch(2, c, hid, 1000, 132)
+    port.stage2_bwd_launch(2, 200, 2 * 200, 1000, 132)

@@ -130,12 +130,12 @@ def test_long_train_attention_kernels_match_plain(b, h, n, c_qk, c_v, l, p):
     scale = 1.0 / np.sqrt(c_qk)
     f0 = pwa_attention.window_attention_train_fwd_long.launches
     b0 = pwa_attention.window_attention_train_bwd_long.launches
-    out = pwa_attention.window_attention_train_fwd_long(q, k, v, bias, seed,
-                                                        scale, p)
+    out, lse = pwa_attention.window_attention_train_fwd_long(
+        q, k, v, bias, seed, scale, p)
     grads = pwa_attention.window_attention_train_bwd_long(
-        q, k, v, bias, seed, do, scale, p)
+        q, k, v, bias, seed, do, scale, p, out, lse)
     again = pwa_attention.window_attention_train_bwd_long(
-        q, k, v, bias, seed, do, scale, p)
+        q, k, v, bias, seed, do, scale, p, out, lse)
     torch.cuda.synchronize()
     assert pwa_attention.window_attention_train_fwd_long.launches == f0 + 1
     assert pwa_attention.window_attention_train_bwd_long.launches == b0 + 2
@@ -145,12 +145,46 @@ def test_long_train_attention_kernels_match_plain(b, h, n, c_qk, c_v, l, p):
                                                           seed, do, scale, p)
     # as K2: fp32, the same mask on both sides, other summation orders
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(
+        lse, pwa_attention.train_lse_plain(q, k, bias, scale), rtol=1e-5,
+        atol=1e-5)
     for got, r in zip(grads, refs):
         scale_r = float(r.abs().max())
         torch.testing.assert_close(got, r, rtol=1e-4, atol=1e-4 * scale_r)
     # every sum is taken in a fixed order: bit-identical between calls
     for a, b_ in zip(grads, again):
         assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("l", [1000, 1024])
+def test_long_train_attention_backward_matches_its_decomposition(l, p):
+    dev = cuda_or_skip()
+    q, k, v, bias, do = _train_inputs(dev, 2, 2, 3, 8, 8, l, seed=5)
+    seed = torch.tensor([77, 1], dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(8)
+    out, lse = pwa_attention.window_attention_train_fwd_long(
+        q, k, v, bias, seed, scale, p)
+    grads = pwa_attention.window_attention_train_bwd_long(
+        q, k, v, bias, seed, do, scale, p, out, lse)
+    refs = pwa_attention.window_attention_train_bwd_long_plain(
+        q, k, v, bias, seed, do, out, lse, scale, p)
+    # the same P, D and mask from the same out and lse; sums in other
+    # orders
+    for got, r in zip(grads, refs):
+        torch.testing.assert_close(got, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+
+
+def test_long_train_attention_backward_needs_the_forward():
+    dev = cuda_or_skip()
+    q, k, v, bias, do = _train_inputs(dev, 1, 1, 2, 8, 8, 1024)
+    seed = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    # K3f's lse is one float per row: one of another shape is refused
+    with pytest.raises(ValueError, match="lse"):
+        pwa_attention.window_attention_train_bwd_long(
+            q, k, v, bias, seed, do, 0.25, 0.1, do,
+            torch.zeros(1, 1, 2, 1000, device=dev))
 
 
 def test_long_train_attention_refuses_other_widths():
@@ -161,8 +195,9 @@ def test_long_train_attention_refuses_other_widths():
         pwa_attention.window_attention_train_fwd_long(q, k, v, bias, seed,
                                                       0.25, 0.1)
     with pytest.raises(ValueError, match="no kernel instance"):
-        pwa_attention.window_attention_train_bwd_long(q, k, v, bias, seed,
-                                                      do, 0.25, 0.1)
+        pwa_attention.window_attention_train_bwd_long(
+            q, k, v, bias, seed, do, 0.25, 0.1, do,
+            torch.zeros(1, 1, 2, 1024, device=dev))
 
 
 @pytest.mark.parametrize("b,t,c", [(4, 216, 128), (3, 50, 40)])
@@ -193,11 +228,14 @@ def test_jlc_backward_kernels_match_plain(c, groups, expansion, s):
     expand, project = blk.channel_conv[1], blk.channel_conv[3]
     w1, b1, w2 = (t.detach() for t in (expand.weight, expand.bias,
                                         project.weight))
+    with torch.no_grad():
+        _, mean, rstd = fused_jlc._jlc_stage2_fwd(x, w1, b1, w2,
+                                                  project.bias)
     n1 = fused_jlc.jlc_stage1_bwd.launches
     n2 = fused_jlc.jlc_stage2_bwd.launches
     dy, _ = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
-    got2 = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g)
-    again2 = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g)
+    got2 = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g, mean, rstd)
+    again2 = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g, mean, rstd)
     torch.cuda.synchronize()
     assert fused_jlc.jlc_stage1_bwd.launches == n1 + 1
     assert fused_jlc.jlc_stage2_bwd.launches == n2 + 2
@@ -212,6 +250,55 @@ def test_jlc_backward_kernels_match_plain(c, groups, expansion, s):
     # the weight gradients are reduced in a fixed order: bit-identical
     for a, b_ in zip(got2[1:], again2[1:]):
         assert torch.equal(a, b_)
+
+
+# K5b at the 128-channel level (eight hidden slices) with odd voxel counts,
+# a 16-channel level whose volume is not a multiple of the 64-voxel tile,
+# TINY's 8 channels, and widths it runs padded (C not a multiple of 8, E·C
+# not one of 4)
+@pytest.mark.parametrize("b,c,e,shape", [
+    (2, 128, 2, (3, 5, 7)), (16, 128, 2, (3, 3, 3)), (2, 16, 3, (9, 11, 13)),
+    (1, 8, 3, (16, 16, 17)), (2, 4, 3, (5, 6, 7)), (2, 12, 3, (4, 4, 4)),
+    (1, 6, 3, (3, 5, 7))])
+def test_jlc_stage2_backward_kernel_at_every_tiling(b, c, e, shape):
+    dev = cuda_or_skip()
+    hid = e * c
+    x, g = (torch.from_numpy(normal((b, c) + shape, seed=s)).to(dev)
+            for s in (21, 22))
+    w1 = torch.from_numpy(normal((hid, c, 1, 1, 1), 23,
+                                 (2.0 / c) ** 0.5)).to(dev)
+    b1 = torch.from_numpy(normal((hid,), 24, 0.1)).to(dev)
+    w2 = torch.from_numpy(normal((c, hid, 1, 1, 1), 25,
+                                 (2.0 / hid) ** 0.5)).to(dev)
+    b2 = torch.from_numpy(normal((c,), 26, 0.1)).to(dev)
+    with torch.no_grad():
+        _, mean, rstd = fused_jlc._jlc_stage2_fwd(x, w1, b1, w2, b2)
+    n2 = fused_jlc.jlc_stage2_bwd.launches
+    got = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g, mean, rstd)
+    again = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g, mean, rstd)
+    torch.cuda.synchronize()
+    assert fused_jlc.jlc_stage2_bwd.launches == n2 + 2
+    refs = fused_jlc.jlc_stage2_bwd_plain(x, w1, b1, w2, g)
+    # fp32 (TF32 off); other summation orders, double-precision statistics
+    for a, r in zip(got, refs):
+        assert a.shape == r.shape
+        torch.testing.assert_close(a, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+    # fixed-order sums: bit-identical between calls
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+
+
+def test_jlc_stage2_backward_kernel_refuses_too_wide_stages():
+    dev = cuda_or_skip()
+    c, hid = 256, 512
+    x = torch.zeros(1, c, 2, 2, 2, device=dev)
+    stats = torch.zeros(c, device=dev)
+    with pytest.raises(ValueError, match="no hidden slice"):
+        fused_jlc.jlc_stage2_bwd(x, torch.zeros(hid, c, 1, 1, 1, device=dev),
+                                 torch.zeros(hid, device=dev),
+                                 torch.zeros(c, hid, 1, 1, 1, device=dev), x,
+                                 stats, stats)
 
 
 # K4's tilings: a volume smaller than the k = 5 cube, odd edges, and the

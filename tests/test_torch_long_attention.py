@@ -103,3 +103,42 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     assert port.window_attention_train_bwd_long.launches == b0
     again, _ = _port_fwd_bwd(q, k, v, bias, do, [5, 0], 0.5, 0.2)
     np.testing.assert_array_equal(got, again)
+
+
+@pytest.mark.parametrize("l", [600, 1000, 1024])
+def test_long_bwd_tiles_cover_every_score_once(l):
+    # K3b's grid: (column tile, row tile, head); each block owns the
+    # 128 × 128 dbias tile at (row tile·128, column tile·128) and writes one
+    # dq partial per column tile and one dk, dv partial per row tile
+    tiles = port.long_bwd_tiles(l)
+    seen = np.zeros((l, l), np.int64)
+    for i in range(tiles):
+        for j in range(tiles):
+            assert i * 128 < l and j * 128 < l
+            seen[i * 128:(i + 1) * 128, j * 128:(j + 1) * 128] += 1
+    assert (seen == 1).all()
+    assert tiles == -(-l // 128) and (tiles - 1) * 128 < l
+
+
+def test_long_bwd_decomposition_matches_jax_vjp():
+    # P from the forward's log-sum-exp, D = rowsum(dO ⊙ out), dS once per
+    # (row tile, column tile), against _train_xla's VJP at L = 1024 with
+    # dropout 0.1
+    q, k, v, bias, do = _inputs(1, 2, 2, 8, 8, 1024, seed=11)
+    seed, scale, p = [99, 1], 1.0 / np.sqrt(8), 0.1
+    ts = [torch.from_numpy(a) for a in (q, k, v, bias, do)]
+    st = torch.tensor(seed, dtype=torch.int32)
+    out, lse = port.window_attention_train_fwd_long(*ts[:4], st, scale, p)
+    grads = port.window_attention_train_bwd_long_plain(
+        *ts[:4], st, ts[4], out, lse, scale, p)
+    sj = jnp.asarray([seed], jnp.int32)
+    ref, vjp = jax.vjp(lambda *a: _train_xla(*a, sj, scale, p),
+                       *map(jnp.asarray, (q, k, v, bias)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5,
+                               atol=1e-5)
+    for g, r in zip(grads, vjp(jnp.asarray(do))):
+        # fp32 both ways, the same mask; P from the saved log-sum-exp and
+        # sums in other orders: 1e-4 of each gradient's max
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=1e-4 * float(np.abs(r).max()))

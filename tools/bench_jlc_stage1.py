@@ -24,8 +24,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
+
+from chip_measure import card as card_line
+from chip_measure import cuda_ms, device_ms
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,16 +43,10 @@ def main() -> int:
         print("bench_jlc_stage1: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.root))
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from veloxseg_torch.ops import _cuda, fused_jlc
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(f"card: {card} | root {os.path.abspath(args.root)}", flush=True)
     _cuda.build_all()
     dev = torch.device("cuda")
@@ -59,30 +55,8 @@ def main() -> int:
     def randn(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
-    def event_ms(fn, iters):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def device_ms(fn, iters=10):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   ) / iters / 1e3
-
     def ms(row, key, fn, iters=20):
-        row[key + "_ms"] = event_ms(fn, iters)
+        row[key + "_ms"] = cuda_ms(fn, iters)
         row[key + "_device_ms"] = device_ms(fn)
 
     # (path, B, spatial of level 0): C = 16·2^i, groups = C / (4, 8, 8, 16)

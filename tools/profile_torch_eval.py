@@ -28,9 +28,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
+
+from chip_measure import card as card_line
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,7 +42,7 @@ PORT_KERNELS = ("pwa_attention_kernel", "pwa_attention_bwd_kernel",
                 "jlc_wgrad_reduce", "plane_stats_kernel",
                 "jlc_stage1_apply", "jlc_stage1_bwd_planes",
                 "jlc_channel_mlp", "jlc_mlp_bwd_tiles",
-                "jlc_stage2_bwd_planes", "mlp_partials_reduce")
+                "jlc_stage2_bwd_planes")
 
 # (family, substrings of the kernel names), first match wins: the port's
 # own kernels come before the library families, whose substrings ("conv",
@@ -50,8 +51,7 @@ FAMILIES = (
     ("K1/K2f attention (pwa_attention_kernel)", ("pwa_attention_kernel",)),
     ("K2b attention backward", ("pwa_attention_bwd_kernel", "dbias_reduce")),
     ("K3f long-window attention", ("pwa_long_fwd_kernel",)),
-    ("K3b long-window attention backward", ("pwa_long_bwd",
-                                            "pwa_long_dbias")),
+    ("K3b long-window attention backward", ("pwa_long_bwd",)),
     ("K6 WKV recurrence", ("wkv_kernel",)),
     ("K4f/K4b branch conv (jlc_branch_conv)", ("jlc_branch_conv",)),
     ("K4b branch wgrad (jlc_branch_wgrad)", ("jlc_branch_wgrad",
@@ -61,8 +61,7 @@ FAMILIES = (
     ("K4f apply", ("jlc_stage1_apply",)),
     ("K4b planes", ("jlc_stage1_bwd_planes",)),
     ("K5f MLP", ("jlc_channel_mlp",)),
-    ("K5b", ("jlc_mlp_bwd_tiles", "jlc_stage2_bwd_planes",
-             "mlp_partials_reduce")),
+    ("K5b", ("jlc_mlp_bwd_tiles", "jlc_stage2_bwd_planes")),
     ("optimizer (foreach AdamW)", ("multi_tensor", "foreach")),
     ("cuDNN/cuBLAS convs and GEMMs", ("conv", "cudnn", "xmma", "gemm",
                                       "cutlass", "sm90_", "implicit",
@@ -104,10 +103,7 @@ def main() -> int:
     args = ap.parse_args()
     iters = 5
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     models = load_json_config(os.path.join(

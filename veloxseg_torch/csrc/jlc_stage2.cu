@@ -23,28 +23,40 @@
 // memory: at L3 (C = 128, E = 2) W1 and W2 are 256 KB of fp32, more than a
 // block may hold, so they stream through L1/L2 as warp-uniform loads.
 //
-// K5b replaces veloxseg_tpu/ops/fused_jlc.py:_k2_bwd_kernel (194-243),
+// K5b replaces veloxseg_tpu/ops/fused_jlc.py:_k2_bwd_kernel (194-245),
 // called through _k2_bwd (315-343). Given g, the cotangent of out, it
 // recomputes ŷ = IN(out1), z1p = W1·ŷ + b1 and z1 = GELU(z1p), then
 //   db2 = Σ g,  dW2 = Σ g·z1ᵀ,  dz1 = (W2ᵀ g) ⊙ GELU'(z1p),  db1 = Σ dz1,
 //   dW1 = Σ dz1·ŷᵀ,  dz = W1ᵀ dz1,
 //   dx = g + rstd·(dz − mean(dz) − ŷ·mean(dz·ŷ)),
-// sums over batch and voxels. Four launches:
-//   1. plane_stats_kernel on out1 (the forward's statistics).
-//   2. jlc_mlp_bwd_tiles: a block walks a chunk of 32-voxel tiles; per
-//      tile it stages ŷ and g ([C][32]) and computes z1 and dz1 ([E·C][32])
-//      in shared memory, writes dz to an HBM scratch, and adds the tile's
-//      weight and bias products (sums over its 32 voxels) into its own
-//      partial of (dW1, dW2, db1, db2): a private slab in global memory,
-//      each element owned by one thread (written at the chunk's first
-//      tile, added to after). The matrix products stay in this kernel, as
-//      they were inside the TPU kernel's body.
-//   3. jlc_stage2_bwd_planes: one block per (b, c) plane reduces mean(dz)
-//      and mean(dz·ŷ) in double in a fixed order and writes dx.
-//   4. mlp_partials_reduce: sums the partials over the chunks in order.
-// No float atomics: the weight gradients repeat bit for bit.
-// Bound: ~10·C·E·C FLOP per voxel (E = 2..3) for the five products, and
-// out1, g, dx once in HBM (dz adds a round trip).
+// sums over batch and voxels. The plane statistics are K5f's (the stage
+// Function keeps them). Two launches:
+//   1. jlc_mlp_bwd_tiles: the weight gradients as split-K products over
+//      voxels. Block (k, s) walks a contiguous range of (b, 64-voxel tile)
+//      units with hidden slice s (E·C split in `slices` parts of HS rows
+//      where W1, W2 and the tiles would not fit one block: eight slices of
+//      32 at 128 channels, two of 64 at 64) and keeps its part of dW1, dW2,
+//      db1, db2 in registers across the whole range; it writes its partial
+//      once.
+//      Per tile: ŷ and g staged as [C][64] (+4 pad); the weight slices
+//      (W1ᵀ, W1, W2) staged once per block; every thread computes 4×4
+//      register tiles (4 hidden × 4 voxels for W1·ŷ and W2ᵀ·g, 4 channels
+//      × 4 voxels for W1ᵀ·dz1, 4 hidden × 4 channels for dW1 and dW2), each
+//      float4 shared-memory load feeding 4 FMAs. dz (one slab per slice)
+//      goes to HBM with the tile's per-channel sums of dz and dz·ŷ, reduced
+//      over the tile's 16 lanes by xor shuffles in a fixed order.
+//   2. jlc_stage2_bwd_planes: its first blocks sum the weight partials over
+//      the chunks in order; the rest form dx in one elementwise pass per
+//      (b, c) plane part, mean(dz) and mean(dz·ŷ) summed in double from
+//      the per-tile sums in a fixed order.
+// It takes C a multiple of 8 and E·C of 4 (the wrapper pads other widths
+// with zero channels and hidden rows) and C up to 200: beyond, the two
+// stage buffers of x and g do not fit a block beside the weight slices.
+// No float atomics: everything repeats bit for bit. The products run on
+// the fp32 FMA pipes (tensor cores: ROADMAP); they stay in this kernel, as
+// they were inside the TPU kernel's body.
+// Bound: ~10·C·E·C FLOP per voxel (E = 2..3) for the five products; in HBM
+// out1, g, dx once (dz adds a round trip).
 #include "common.cuh"
 
 constexpr int kTile = 32;        // voxels per block (one warp wide)
@@ -113,182 +125,433 @@ extern "C" int vs_jlc_stage2(const float* x, const float* w1, const float* b1,
 }
 
 constexpr int kBwdThreads = 256;
-// Row stride of K5b's [channel][voxel] tiles in shared memory: one more
-// than the tile, so lanes that read one voxel of 32 channels hit 32 banks.
-constexpr int kLd = kTile + 1;
+constexpr int kVT = 64;          // voxels per K5b tile
+constexpr int kVS = kVT + 4;     // row stride of [row][voxel] tiles (float4,
+                                 // and rows 4 banks apart)
+constexpr int kMaxSliceWork = 8192;  // HS·C: at most 4 weight jobs a thread
 
-// K5b launch 2. part: one slab per block, laid out [dW1 (HID·C) | dW2
-// (C·HID) | db1 (HID) | db2 (C)].
-__global__ void __launch_bounds__(kBwdThreads)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Copies from global to shared memory that do not hold up the thread
+// (cp.async, 4 or 16 bytes), zero-filled where `valid` is false; complete
+// after cp_async_wait_all.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src,
+                                               bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Shared memory of a K5b tiles block, in floats (host and device agree;
+// ops/fused_jlc.py:stage2_bwd_launch keeps it within a block's 227 KB).
+__host__ __device__ inline int mlp_bwd_smem_floats(int C, int HS, int TP) {
+  const int n = 3 * HS * C + 4 * C * kVS + 2 * HS * kVS + HS;
+  const int red = TP > 1 ? kBwdThreads * 16 : 0;
+  return n > red ? n : red;
+}
+
+// Issue the copies of unit (b, v0)'s x and g into one stage buffer, [C][kVS]
+// each; voxels past S read 0.
+__device__ __forceinline__ void stage_tile(float* xs, float* gs,
+                                           const float* __restrict__ x,
+                                           const float* __restrict__ g,
+                                           int b, int64_t v0, int C,
+                                           int64_t S) {
+  const int64_t base = (int64_t)b * C * S;
+  if ((S & 3) == 0) {  // 16-byte copies: a group of 4 is all in or all out
+    for (int i = threadIdx.x; i < C * (kVT / 4); i += kBwdThreads) {
+      const int c = i / (kVT / 4), t = (i - c * (kVT / 4)) * 4;
+      const bool ok = v0 + t < S;
+      const int64_t o = base + c * S + (ok ? v0 + t : 0);
+      cp_async_f32x4(xs + c * kVS + t, x + o, ok);
+      cp_async_f32x4(gs + c * kVS + t, g + o, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < C * kVT; i += kBwdThreads) {
+      const int c = i / kVT, t = i - c * kVT;
+      const bool ok = v0 + t < S;
+      const int64_t o = base + c * S + (ok ? v0 + t : 0);
+      cp_async_f32(xs + c * kVS + t, x + o, ok);
+      cp_async_f32(gs + c * kVS + t, g + o, ok);
+    }
+  }
+}
+
+// K5b launch 1. Block (blockIdx.x = chunk k, blockIdx.y = slice s) walks
+// units [k·per, min(units, (k + 1)·per)); unit u is sample u / tps, voxels
+// [(u % tps)·64, +64). dz: slices·B·C·S floats; tsum: units·slices·C·2;
+// part: chunks·(2·HID·C + HID + C), [dW1 (HID·C) | dW2 (C·HID) | db1 | db2].
+// Weight jobs: HS·C/8 4×4 tiles (half dW1, half dW2); TP threads split a
+// tile's 64 voxels when there are fewer jobs than threads (JPT = 1), and
+// add their sums in tp order at the end. The next unit's x and g arrive by
+// cp.async (two stage buffers) while a unit is computed.
+template <int JPT>
+__global__ void __launch_bounds__(kBwdThreads, JPT == 1 ? 2 : 1)
 jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
                   const float* __restrict__ b1, const float* __restrict__ w2,
                   const float* __restrict__ g, const float* __restrict__ mean,
                   const float* __restrict__ rstd, float* __restrict__ dz,
-                  float* __restrict__ part, int C, int HID, int64_t S,
-                  int tiles_per_sample, int total_tiles, int chunk) {
-  extern __shared__ float sm[];
-  float* zs = sm;                  // [C][kLd] ŷ
-  float* gs = zs + C * kLd;        // [C][kLd] g
-  float* z1s = gs + C * kLd;       // [HID][kLd] GELU(z1p)
-  float* d1s = z1s + HID * kLd;    // [HID][kLd] dz1
-  const int t0 = blockIdx.x * chunk;
-  const int t1 = min(t0 + chunk, total_tiles);
-  const int64_t slab = 2LL * HID * C + HID + C;
-  float* pc = part + blockIdx.x * slab;
-  if (t0 >= t1) {  // an empty chunk still owns its slab: zero it
-    for (int64_t i = threadIdx.x; i < slab; i += blockDim.x) pc[i] = 0.f;
-    return;
+                  float* __restrict__ tsum, float* __restrict__ part, int B,
+                  int C, int HID, int HS, int64_t S, int tps, int units,
+                  int per, int TP) {
+  extern __shared__ __align__(16) float sm[];
+  float* w1t = sm;                   // [C][HS]  W1ᵀ slice
+  float* w1n = w1t + HS * C;         // [HS][C]  W1 slice
+  float* w2s = w1n + HS * C;         // [C][HS]  W2 slice
+  float* stg = w2s + HS * C;         // 2 × ([C][kVS] x → ŷ, [C][kVS] g)
+  float* z1s = stg + 4 * C * kVS;    // [HS][kVS] GELU(z1p)
+  float* d1s = z1s + HS * kVS;       // [HS][kVS] dz1
+  float* b1s = d1s + HS * kVS;       // [HS]
+  const int tid = threadIdx.x;
+  const int s = blockIdx.y, nsl = gridDim.y, e0 = s * HS;
+  const int u0 = blockIdx.x * per, u1 = min(units, u0 + per);
+
+#pragma unroll 4
+  for (int i = tid; i < HS * C; i += kBwdThreads) {
+    const int e = i / C, c = i - e * C;
+    const float w = w1[(int64_t)(e0 + e) * C + c];
+    w1n[i] = w;
+    w1t[c * HS + e] = w;
   }
-  for (int ti = t0; ti < t1; ++ti) {
-    const int b = ti / tiles_per_sample;
-    const int64_t v0 = (int64_t)(ti - b * tiles_per_sample) * kTile;
-    const float* xb = x + (int64_t)b * C * S;
-    const float* gb = g + (int64_t)b * C * S;
-    float* dzb = dz + (int64_t)b * C * S;
-    __syncthreads();  // the previous tile is done with shared memory
-    for (int i = threadIdx.x; i < C * kTile; i += blockDim.x) {
-      const int c = i / kTile, t = i - c * kTile;
-      const int64_t v = v0 + t;
-      float z = 0.f, gv = 0.f;  // voxels past the end contribute nothing
-      if (v < S) {
-        z = (xb[c * S + v] - mean[b * C + c]) * rstd[b * C + c];
-        gv = gb[c * S + v];
-      }
-      zs[c * kLd + t] = z;
-      gs[c * kLd + t] = gv;
+#pragma unroll 4
+  for (int i = tid; i < C * HS; i += kBwdThreads) {
+    const int c = i / HS, e = i - c * HS;
+    w2s[i] = w2[(int64_t)c * HID + e0 + e];
+  }
+  for (int i = tid; i < HS; i += kBwdThreads) b1s[i] = b1[e0 + i];
+
+  // weight jobs of this thread: job = tid / TP + q·(256 / TP)
+  const int jobs = HS * C / 8, half = jobs / 2, c4n = C / 4, h4n = HS / 4;
+  const int tp = tid % TP, jstride = kBwdThreads / TP;
+  const int tlen = kVT / TP, tb = tp * tlen;
+  float acc[JPT][4][4];
+#pragma unroll
+  for (int q = 0; q < JPT; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[q][i][k] = 0.f;
+  float db1a = 0.f, db2a = 0.f;
+
+  if (u0 < u1)
+    stage_tile(stg, stg + C * kVS, x, g, u0 / tps,
+               (int64_t)(u0 % tps) * kVT, C, S);
+  for (int u = u0; u < u1; ++u) {
+    const int b = u / tps;
+    const int64_t v0 = (int64_t)(u - b * tps) * kVT;
+    float* ys = stg + ((u - u0) & 1) * 2 * C * kVS;
+    float* gs = ys + C * kVS;
+    cp_async_wait_all();
+    __syncthreads();  // this unit is staged; the last one is done with the
+                      // other buffer, z1s and d1s
+    if (u + 1 < u1) {
+      float* nx = stg + ((u + 1 - u0) & 1) * 2 * C * kVS;
+      stage_tile(nx, nx + C * kVS, x, g, (u + 1) / tps,
+                 (int64_t)((u + 1) % tps) * kVT, C, S);
+    }
+    for (int i = tid; i < C * kVT; i += kBwdThreads) {  // x → ŷ in place
+      const int c = i / kVT, t = i - c * kVT;
+      float* p = ys + c * kVS + t;
+      // voxels past the end contribute nothing (g reads 0 there too)
+      *p = v0 + t < S ? (*p - mean[b * C + c]) * rstd[b * C + c] : 0.f;
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < HID * kTile; i += blockDim.x) {
-      const int e = i / kTile, t = i - e * kTile;
-      const float* we = w1 + (int64_t)e * C;
-      float acc = 0.f, gw = 0.f;
+    // z1p = W1·ŷ + b1 and W2ᵀ·g: 4 hidden × 4 voxels per job
+    for (int j = tid; j < h4n * 16; j += kBwdThreads) {
+      const int e4 = j >> 4, t4 = j & 15;
+      float zp[4][4], gw[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) zp[i][k] = gw[i][k] = 0.f;
       for (int c = 0; c < C; ++c) {
-        acc = fmaf(__ldg(we + c), zs[c * kLd + t], acc);
-        gw = fmaf(__ldg(w2 + (int64_t)c * HID + e), gs[c * kLd + t], gw);
+        const float4 wa = ld4(w1t + c * HS + e4 * 4);
+        const float4 wb = ld4(w2s + c * HS + e4 * 4);
+        const float4 yv = ld4(ys + c * kVS + t4 * 4);
+        const float4 gv = ld4(gs + c * kVS + t4 * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            zp[i][k] = fmaf(f4(wa, i), f4(yv, k), zp[i][k]);
+            gw[i][k] = fmaf(f4(wb, i), f4(gv, k), gw[i][k]);
+          }
       }
-      const float z1p = acc + __ldg(b1 + e);
-      z1s[e * kLd + t] = gelu_exact(z1p);
-      d1s[e * kLd + t] = gw * gelu_grad(z1p);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = e4 * 4 + i;
+        float z[4], d[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float p = zp[i][k] + b1s[e];
+          z[k] = gelu_exact(p);
+          d[k] = gw[i][k] * gelu_grad(p);
+        }
+        st4(z1s + e * kVS + t4 * 4, z[0], z[1], z[2], z[3]);
+        st4(d1s + e * kVS + t4 * 4, d[0], d[1], d[2], d[3]);
+      }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < C * kTile; i += blockDim.x) {
-      const int c = i / kTile, t = i - c * kTile;
-      const int64_t v = v0 + t;
-      if (v >= S) continue;
-      float acc = 0.f;
-      for (int e = 0; e < HID; ++e)
-        acc = fmaf(__ldg(w1 + (int64_t)e * C + c), d1s[e * kLd + t], acc);
-      dzb[c * S + v] = acc;
-    }
-    // this tile's weight and bias products, summed over its 32 voxels
-    const bool first = ti == t0;
-    for (int64_t i = threadIdx.x; i < slab; i += blockDim.x) {
-      float acc = 0.f;
-      if (i < (int64_t)HID * C) {              // dW1[e][c]
-        const int e = (int)(i / C), c = (int)(i - (int64_t)e * C);
-#pragma unroll 8
-        for (int t = 0; t < kTile; ++t)
-          acc = fmaf(d1s[e * kLd + t], zs[c * kLd + t], acc);
-      } else if (i < 2LL * HID * C) {          // dW2[c][e]
-        const int64_t k = i - (int64_t)HID * C;
-        const int c = (int)(k / HID), e = (int)(k - (int64_t)c * HID);
-#pragma unroll 8
-        for (int t = 0; t < kTile; ++t)
-          acc = fmaf(gs[c * kLd + t], z1s[e * kLd + t], acc);
-      } else if (i < 2LL * HID * C + HID) {    // db1[e]
-        const int e = (int)(i - 2LL * HID * C);
-        for (int t = 0; t < kTile; ++t) acc += d1s[e * kLd + t];
-      } else {                                 // db2[c]
-        const int c = (int)(i - 2LL * HID * C - HID);
-        for (int t = 0; t < kTile; ++t) acc += gs[c * kLd + t];
+    // dz = W1ᵀ·dz1 (this slice's part): 4 channels × 4 voxels per job, and
+    // the tile's per-channel sums of dz and dz·ŷ (C % 8 == 0: whole warps).
+    // Its jobs start at the last warp, the weight jobs below at the first,
+    // so that where there are few of each they run on different warps.
+    for (int j = kBwdThreads - 1 - tid; j < c4n * 16; j += kBwdThreads) {
+      const int c4 = j >> 4, t4 = j & 15;
+      float a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) a[i][k] = 0.f;
+      for (int e = 0; e < HS; ++e) {
+        const float4 wv = ld4(w1n + e * C + c4 * 4);
+        const float4 dv = ld4(d1s + e * kVS + t4 * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            a[i][k] = fmaf(f4(wv, i), f4(dv, k), a[i][k]);
       }
-      pc[i] = first ? acc : pc[i] + acc;
+      const int64_t v = v0 + t4 * 4;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = c4 * 4 + i;
+        float* dst = dz + ((int64_t)(s * B + b) * C + c) * S + v;
+        if ((S & 3) == 0) {
+          if (v < S) st4(dst, a[i][0], a[i][1], a[i][2], a[i][3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (v + k < S) dst[k] = a[i][k];
+        }
+        const float4 yv = ld4(ys + c * kVS + t4 * 4);
+        float s1 = (a[i][0] + a[i][1]) + (a[i][2] + a[i][3]);
+        float s2 = fmaf(a[i][0], yv.x, a[i][1] * yv.y) +
+                   fmaf(a[i][2], yv.z, a[i][3] * yv.w);
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) {
+          s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+        }
+        if (t4 == 0) {
+          float* ts = tsum + (((int64_t)u * nsl + s) * C + c) * 2;
+          ts[0] = s1;
+          ts[1] = s2;
+        }
+      }
+    }
+    // dW1 += dz1·ŷᵀ, dW2 += g·z1ᵀ: job (a4, c4) owns rows a4 + i·HS/4 and
+    // channels c4 + k·C/4 (interleaved, so neighbouring lanes read
+    // neighbouring rows)
+#pragma unroll
+    for (int q = 0; q < JPT; ++q) {
+      const int jid = tid / TP + q * jstride;
+      if (jid >= jobs) continue;
+      const bool second = jid >= half;
+      const int r = second ? jid - half : jid;
+      const int a4 = r / c4n, c4 = r - a4 * c4n;
+      const float* A = second ? z1s : d1s;
+      const float* Bm = second ? gs : ys;
+      for (int t = tb; t < tb + tlen; t += 4) {
+        float4 av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          av[i] = ld4(A + (a4 + i * h4n) * kVS + t);
+          bv[i] = ld4(Bm + (c4 + i * c4n) * kVS + t);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            float v = acc[q][i][k];
+            v = fmaf(av[i].x, bv[k].x, v);
+            v = fmaf(av[i].y, bv[k].y, v);
+            v = fmaf(av[i].z, bv[k].z, v);
+            v = fmaf(av[i].w, bv[k].w, v);
+            acc[q][i][k] = v;
+          }
+      }
+    }
+    if (tid < HS) {
+      for (int t = 0; t < kVT; t += 4) {
+        const float4 d = ld4(d1s + tid * kVS + t);
+        db1a += (d.x + d.y) + (d.z + d.w);
+      }
+    } else if (s == 0 && tid < HS + C) {
+      for (int t = 0; t < kVT; t += 4) {
+        const float4 d = ld4(gs + (tid - HS) * kVS + t);
+        db2a += (d.x + d.y) + (d.z + d.w);
+      }
     }
   }
+
+  // the voxel parts of a job added in tp order (TP > 1 only with JPT = 1)
+  if (TP > 1) {
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) sm[tid * 16 + i * 4 + k] = acc[0][i][k];
+    __syncthreads();
+    if (tp == 0) {
+      for (int p = 1; p < TP; ++p)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            acc[0][i][k] += sm[(tid + p) * 16 + i * 4 + k];
+    }
+  }
+  const int64_t slab = 2LL * HID * C + HID + C;
+  float* pc = part + (int64_t)blockIdx.x * slab;
+  if (tp == 0) {
+#pragma unroll
+    for (int q = 0; q < JPT; ++q) {
+      const int jid = tid / TP + q * jstride;
+      if (jid >= jobs) continue;
+      const bool second = jid >= half;
+      const int r = second ? jid - half : jid;
+      const int a4 = r / c4n, c4 = r - a4 * c4n;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int e = e0 + a4 + i * h4n, c = c4 + k * c4n;
+          if (second)
+            pc[(int64_t)HID * C + (int64_t)c * HID + e] = acc[q][i][k];
+          else
+            pc[(int64_t)e * C + c] = acc[q][i][k];
+        }
+    }
+  }
+  if (tid < HS) pc[2LL * HID * C + e0 + tid] = db1a;
+  else if (s == 0 && tid < HS + C) pc[2LL * HID * C + HID + tid - HS] = db2a;
 }
 
-// K5b launch 3: the InstanceNorm backward, one block per (b, c) plane.
+// K5b launch 2. Blocks [0, nred): the weight partials summed over the
+// chunks in order. Block nred + p·ysplit + y: plane p = b·C + c, voxels
+// [y·vchunk, +vchunk): dx = g + r·(Σ_s dz_s − m1 − ŷ·m2), with m1, m2 the
+// plane's means of dz and dz·ŷ from the per-tile sums (double, fixed order).
 __global__ void __launch_bounds__(kStatsThreads)
 jlc_stage2_bwd_planes(const float* __restrict__ x,
                       const float* __restrict__ g,
                       const float* __restrict__ dz,
+                      const float* __restrict__ tsum,
+                      const float* __restrict__ part,
                       const float* __restrict__ mean,
-                      const float* __restrict__ rstd,
-                      float* __restrict__ dx, int64_t S) {
-  const int64_t p = blockIdx.x;
-  const float* xp = x + p * S;
-  const float* dp = dz + p * S;
-  const float m = mean[p], r = rstd[p];
-  double s1 = 0.0, s2 = 0.0;
-  for (int64_t i = threadIdx.x; i < S; i += blockDim.x) {
-    const float d = dp[i];
-    s1 += d;
-    s2 += static_cast<double>(d) * ((xp[i] - m) * r);
-  }
-  block_sum2(s1, s2);
-  const float m1 = static_cast<float>(s1 / static_cast<double>(S));
-  const float m2 = static_cast<float>(s2 / static_cast<double>(S));
-  for (int64_t i = threadIdx.x; i < S; i += blockDim.x) {
-    const float yh = (xp[i] - m) * r;
-    dx[p * S + i] = g[p * S + i] + r * (dp[i] - m1 - yh * m2);
-  }
-}
-
-// K5b launch 4: the partials summed over the chunks, in order.
-__global__ void mlp_partials_reduce(const float* __restrict__ part,
-                                    int chunks, int C, int HID,
-                                    float* __restrict__ dw1,
-                                    float* __restrict__ dw2,
-                                    float* __restrict__ db1,
-                                    float* __restrict__ db2) {
+                      const float* __restrict__ rstd, float* __restrict__ dx,
+                      float* __restrict__ dw1, float* __restrict__ dw2,
+                      float* __restrict__ db1, float* __restrict__ db2,
+                      int B, int C, int HID, int64_t S, int tps, int nsl,
+                      int chunks, int nred, int ysplit, int64_t vchunk) {
   const int64_t hc = (int64_t)HID * C;
-  const int64_t slab = 2 * hc + HID + C;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < slab;
-       i += (int64_t)gridDim.x * blockDim.x) {
+  if ((int)blockIdx.x < nred) {  // one element a thread, loads batched
+    const int64_t slab = 2 * hc + HID + C;
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= slab) return;
     float s = 0.f;
+#pragma unroll 8
     for (int k = 0; k < chunks; ++k) s += part[k * slab + i];
     if (i < hc) dw1[i] = s;
     else if (i < 2 * hc) dw2[i - hc] = s;
     else if (i < 2 * hc + HID) db1[i - 2 * hc] = s;
     else db2[i - 2 * hc - HID] = s;
+    return;
+  }
+  const int q = blockIdx.x - nred;
+  const int p = q / ysplit, y = q - p * ysplit;
+  const int b = p / C, c = p - b * C;
+  double s1 = 0.0, s2 = 0.0;
+  const int n = tps * nsl;  // (tile, slice) sums of sample b, in order
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float* ts = tsum + (((int64_t)b * tps * nsl + i) * C + c) * 2;
+    s1 += ts[0];
+    s2 += ts[1];
+  }
+  block_sum2(s1, s2);
+  const float m1 = static_cast<float>(s1 / static_cast<double>(S));
+  const float m2 = static_cast<float>(s2 / static_cast<double>(S));
+  const float m = mean[p], r = rstd[p];
+  const int64_t lo = y * vchunk, hi = min(S, lo + vchunk);
+  const int64_t plane = (int64_t)B * C * S;
+  for (int64_t v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+    const int64_t o = (int64_t)p * S + v;
+    float d = dz[o];
+    for (int sl = 1; sl < nsl; ++sl) d += dz[sl * plane + o];
+    const float yh = (x[o] - m) * r;
+    dx[o] = g[o] + r * (d - m1 - yh * m2);
   }
 }
 
 // K5b. x = out1, g: (B, C, D, H, W); w1: (HID, C); b1: (HID,); w2:
-// (C, HID); mean, rstd: B·C floats (scratch); dz: like x (scratch); part:
-// chunks·(2·HID·C + HID + C) floats (scratch; 1 <= chunks <= the number
-// of 32-voxel tiles); dx: like x; dw1: (HID, C); db1: (HID,); dw2:
-// (C, HID); db2: (C,).
+// (C, HID); mean, rstd: B·C floats, K5f's statistics; dz: slices·B·C·S
+// floats, tsum: units·slices·C·2, part: chunks·(2·HID·C + HID + C)
+// (scratch); dx: like x; dw1: (HID, C); db1: (HID,); dw2: (C, HID); db2:
+// (C,). The launch geometry (ops/fused_jlc.py:stage2_bwd_launch): HS
+// hidden rows per slice, chunks of `per` units, TP voxel parts per weight
+// job, JPT weight jobs per thread, ysplit blocks per plane in the planes
+// launch.
 extern "C" int vs_jlc_stage2_bwd(const float* x, const float* w1,
                                  const float* b1, const float* w2,
-                                 const float* g, float* mean, float* rstd,
-                                 float* dz, float* part, float* dx,
-                                 float* dw1, float* db1, float* dw2,
-                                 float* db2, int B, int C, int HID, int S,
-                                 int chunks, void* stream_ptr) {
+                                 const float* g, const float* mean,
+                                 const float* rstd, float* dz, float* tsum,
+                                 float* part, float* dx, float* dw1,
+                                 float* db1, float* dw2, float* db2, int B,
+                                 int C, int HID, int S, int HS, int chunks,
+                                 int per, int TP, int JPT, int ysplit,
+                                 void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B == 0 || S == 0) return cudaSuccess;
-  const int tps = (S + kTile - 1) / kTile;
-  const int total = B * tps;
-  if (chunks < 1 || chunks > total) return cudaErrorInvalidValue;
-  plane_stats_kernel<<<B * C, kStatsThreads, 0, stream>>>(x, S, 1e-5f, mean,
-                                                          rstd);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)(2 * C + 2 * HID) * kLd * sizeof(float);
-  err = allow_smem(jlc_mlp_bwd_tiles, smem);
-  if (err != cudaSuccess) return err;
-  const int chunk = (total + chunks - 1) / chunks;
-  jlc_mlp_bwd_tiles<<<chunks, kBwdThreads, smem, stream>>>(
-      x, w1, b1, w2, g, mean, rstd, dz, part, C, HID, S, tps, total, chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  jlc_stage2_bwd_planes<<<B * C, kStatsThreads, 0, stream>>>(
-      x, g, dz, mean, rstd, dx, S);
+  const int tps = (S + kVT - 1) / kVT;
+  const int units = B * tps;
+  const int jobs = HS * C / 8;
+  if (C % 8 || HS % 4 || HS <= 0 || HID % HS || HS * C > kMaxSliceWork ||
+      HS + C > kBwdThreads || TP < 1 || kVT % (4 * TP) ||
+      (TP > 1 && JPT != 1) || JPT * (kBwdThreads / TP) < jobs ||
+      chunks < 1 || per < 1 || (int64_t)(chunks - 1) * per >= units ||
+      (int64_t)chunks * per < units || ysplit < 1)
+    return cudaErrorInvalidValue;
+  const int nsl = HID / HS;
+  cudaError_t err;
+  const size_t smem = (size_t)mlp_bwd_smem_floats(C, HS, TP) * sizeof(float);
+  const dim3 grid(chunks, nsl);
+#define VS_K5B_TILES(J)                                                      \
+  if (JPT == J) {                                                            \
+    err = allow_smem(jlc_mlp_bwd_tiles<J>, smem);                            \
+    if (err != cudaSuccess) return err;                                      \
+    jlc_mlp_bwd_tiles<J><<<grid, kBwdThreads, smem, stream>>>(               \
+        x, w1, b1, w2, g, mean, rstd, dz, tsum, part, B, C, HID, HS, S, tps, \
+        units, per, TP);                                                     \
+  } else
+  VS_K5B_TILES(1) VS_K5B_TILES(2) VS_K5B_TILES(4) return cudaErrorInvalidValue;
+#undef VS_K5B_TILES
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t slab = 2LL * HID * C + HID + C;
-  mlp_partials_reduce<<<(unsigned)((slab + 255) / 256), 256, 0, stream>>>(
-      part, chunks, C, HID, dw1, dw2, db1, db2);
+  const int nred = (int)((slab + kStatsThreads - 1) / kStatsThreads);
+  const int64_t vchunk = (S + ysplit - 1) / ysplit;
+  jlc_stage2_bwd_planes<<<nred + B * C * ysplit, kStatsThreads, 0, stream>>>(
+      x, g, dz, tsum, part, mean, rstd, dx, dw1, dw2, db1, db2, B, C, HID, S,
+      tps, nsl, chunks, nred, ysplit, vchunk);
   return cudaGetLastError();
 }

@@ -25,28 +25,29 @@
 //            rows stream through shared memory in tiles of kTile columns;
 //            the softmax is exact and online (running max and sum, the
 //            kept-weight accumulator rescaled when the max grows).
+//            It also writes each row's log-sum-exp (lse) for K3b.
 //   K3b, three launches, none with atomics, so every sum (dbias too) is
-//   taken in a fixed order and repeats bit for bit:
-//     rows     as K3f's grid: a first online pass gives each row's max,
-//              1/sum and D = Σ P·dP (saved, 3·L floats per window); a
-//              second pass accumulates dq in registers.
-//     columns  one block per (window, block of kRows key columns), one
-//              thread per column with its k and v in registers; Q, dO
-//              and the row statistics stream through shared memory in
-//              tiles of kTile rows; dk and dv accumulate in registers.
-//     dbias    one block per (head, kBiasTile × kBiasTile tile of dbias),
-//              each thread owning kBiasTile/4 elements of one column in
-//              registers; it walks the (b, n) windows of its head in
-//              order, recomputing each element's dS from the saved row
-//              statistics (the rows' q and dO staged in shared memory).
-// The scores are recomputed four times in the backward (rows twice,
-// columns, dbias) and once in the forward. Tensor cores are not used.
+//   taken in a fixed order and repeats bit for bit. It takes K3f's out and
+//   lse, so P = exp(s − lse) needs no pass of its own and D = Σ_j P·dP =
+//   dO·out (with W = M·P/(1 − p)); each score, mask and dS is computed once:
+//     prep     per row, lse in base 2 and D.
+//     tiles    one block per (head, 128 rows, 128 columns of dbias) walks
+//              the head's B·N windows in order with the dbias tile in
+//              registers (8 × 4 × 2 per thread) and the bias tile in shared
+//              memory; per window (tokens double-buffered by cp.async) and
+//              64-column half, each thread forms 8 × 4 scores from the
+//              staged q, k, dO, v (each shared-memory load feeds 4 or 8
+//              FMAs), then dq (over the tile's columns) and dk, dv (over
+//              its rows) are products over the dS and W tiles in shared
+//              memory, written as per-tile partials.
+//     reduce   dq, dk, dv: the ⌈L/128⌉ partials added in tile order.
+//   At the flagship (L = 1024, 288 windows) the grid is 2 × 8 × 8 = 128
+//   blocks and the partials are 3 × 8 × 9.4 MB, written and read once.
+// Tensor cores are not used (ROADMAP: 3×TF32).
 #include "common.cuh"
 
-constexpr int kRows = 128;      // rows (K3f, rows) or columns per block
-constexpr int kTile = 32;       // streamed columns (rows) per tile
-constexpr int kBiasTile = 64;   // dbias tile edge
-constexpr int kBiasThreads = 256;
+constexpr int kRows = 128;      // query rows per K3f block
+constexpr int kTile = 32;       // streamed columns per tile
 
 // Stage a (C, tile) slice of one window's (C, L) tokens as [tile][C]
 // (rows read as broadcasts); columns past L read 0.
@@ -111,8 +112,8 @@ pwa_long_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ bias,
                     const int* __restrict__ seed, float* __restrict__ out,
-                    int H, int N, int L, float scale, uint32_t thresh,
-                    float inv_keep) {
+                    float* __restrict__ lse, int H, int N, int L,
+                    float scale, uint32_t thresh, float inv_keep) {
   __shared__ float ks[kTile * CQK];
   __shared__ float vs[kTile * CV];
   __shared__ float bs[kRows * (kTile + 1)];
@@ -169,6 +170,7 @@ pwa_long_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (!row_ok) return;
+  lse[w * L + l] = mx + logf(sum);  // the row's log-sum-exp, for K3b
   const float inv = (DROP ? inv_keep : 1.f) / sum;
   float* ow = out + w * CV * L;
 #pragma unroll
@@ -176,304 +178,301 @@ pwa_long_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K3b, launch 1: row statistics and dq
+// K3b
 // ---------------------------------------------------------------------------
 
-template <int CQK, int CV, bool DROP>
-__global__ void __launch_bounds__(kRows)
-pwa_long_bwd_rows_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ bias,
-                         const int* __restrict__ seed,
-                         const float* __restrict__ dout,
-                         float* __restrict__ dq, float* __restrict__ stats,
-                         int H, int N, int L, float scale, uint32_t thresh,
-                         float inv_keep) {
-  __shared__ float ks[kTile * CQK];
-  __shared__ float vs[kTile * CV];
-  __shared__ float bs[kRows * (kTile + 1)];
-  const int64_t w = blockIdx.x;
-  const int h = static_cast<int>((w / N) % H);
-  const int l0 = blockIdx.y * kRows;
-  const int l = l0 + threadIdx.x;
-  const bool row_ok = l < L;
-  const float* kw = k + w * CQK * L;
-  const float* vw = v + w * CV * L;
-  const float* bh = bias + static_cast<int64_t>(h) * L * L;
-  const float* brow = bs + threadIdx.x * (kTile + 1);
-  const uint32_t uL = static_cast<uint32_t>(L);
-  uint32_t sd = 0, rowbase = 0;
-  if (DROP) {
-    sd = static_cast<uint32_t>(seed[0]);
-    rowbase = (global_wid(w, static_cast<uint32_t>(seed[1]), H, N) * uL +
-               static_cast<uint32_t>(l)) * uL;
-  }
-  float qr[CQK], dr[CV];
-#pragma unroll
-  for (int c = 0; c < CQK; ++c) qr[c] = row_ok ? q[(w * CQK + c) * L + l] : 0.f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBT = 128;             // dbias tile edge (rows and columns)
+constexpr int kBHalf = kBT / 2;      // columns per pass over a tile
+constexpr int kBThreads = 256;       // 16 × 16: 8 rows × 4 columns a pass
+constexpr int kTS = kBT + 4;         // row stride of the [c][128] token tiles
+constexpr int kBS = kBT + 4;         // row stride of the bias tile
+constexpr int kDS = kBHalf + 4;      // row stride of the dS and W tiles
+constexpr int kWinFloats = 4 * 8 * kTS + 2 * kBT;  // one window's stage
+
+// A 4-byte copy from global to shared memory that does not hold up the
+// thread (cp.async), zero-filled where `valid` is false; complete after
+// cp_async_wait_all.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// K3b launch 1: per window and row, the forward's log-sum-exp in base 2
+// and D = Σ_c dO·out (= Σ_j P·dP); stats: [window][2][L].
+template <int CV>
+__global__ void pwa_long_bwd_prep(const float* __restrict__ dout,
+                                  const float* __restrict__ out,
+                                  const float* __restrict__ lse,
+                                  float* __restrict__ stats, int64_t W,
+                                  int L) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= W * L) return;
+  const int64_t w = i / L;
+  const int l = static_cast<int>(i - w * L);
+  float d = 0.f;
 #pragma unroll
   for (int c = 0; c < CV; ++c)
-    dr[c] = row_ok ? dout[(w * CV + c) * L + l] : 0.f;
-
-  // pass 1 (online): max, Σ e and Σ e·dP, rescaled as the max grows
-  float mx = -INFINITY, sum = 0.f, edp = 0.f;
-  for (int m0 = 0; m0 < L; m0 += kTile) {
-    __syncthreads();
-    stage_tokens<CQK>(ks, kw, L, m0);
-    stage_tokens<CV>(vs, vw, L, m0);
-    stage_bias(bs, bh, L, l0, m0);
-    __syncthreads();
-    float s[kTile];
-    const float tmax =
-        tile_logits<CQK>(s, qr, ks, brow, min(kTile, L - m0), scale);
-    if (tmax > mx) {
-      const float f = expf(mx - tmax);
-      sum *= f;
-      edp *= f;
-      mx = tmax;
-    }
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const float e = expf(s[j] - mx);
-      sum += e;
-      if (DROP && keep_hash(rowbase + static_cast<uint32_t>(m0 + j), sd) <
-                      thresh)
-        continue;
-      float dwv = 0.f;
-#pragma unroll
-      for (int c = 0; c < CV; ++c) dwv = fmaf(dr[c], vs[j * CV + c], dwv);
-      edp = fmaf(e, DROP ? dwv * inv_keep : dwv, edp);
-    }
-  }
-  const float inv = 1.f / sum;
-  const float dd = edp * inv;
-  if (row_ok) {
-    float* st = stats + w * 3 * L;
-    st[l] = mx;
-    st[L + l] = inv;
-    st[2 * L + l] = dd;
-  }
-
-  // pass 2: dS and dq
-  float acc[CQK];
-#pragma unroll
-  for (int c = 0; c < CQK; ++c) acc[c] = 0.f;
-  for (int m0 = 0; m0 < L; m0 += kTile) {
-    __syncthreads();
-    stage_tokens<CQK>(ks, kw, L, m0);
-    stage_tokens<CV>(vs, vw, L, m0);
-    stage_bias(bs, bh, L, l0, m0);
-    __syncthreads();
-    // no tile max is needed here: each logit is used where it is made
-    // (a tile of them held in registers spills with the mask's branches)
-    const int cols = min(kTile, L - m0);
-#pragma unroll 4
-    for (int j = 0; j < cols; ++j) {
-      float d = 0.f;
-#pragma unroll
-      for (int c = 0; c < CQK; ++c) d = fmaf(qr[c], ks[j * CQK + c], d);
-      const float p = expf(fmaf(d, scale, brow[j]) - mx) * inv;
-      float dp = 0.f;
-      if (!DROP ||
-          keep_hash(rowbase + static_cast<uint32_t>(m0 + j), sd) >= thresh) {
-        float dwv = 0.f;
-#pragma unroll
-        for (int c = 0; c < CV; ++c) dwv = fmaf(dr[c], vs[j * CV + c], dwv);
-        dp = DROP ? dwv * inv_keep : dwv;
-      }
-      const float ds = p * (dp - dd);
-#pragma unroll
-      for (int c = 0; c < CQK; ++c) acc[c] = fmaf(ds, ks[j * CQK + c], acc[c]);
-    }
-  }
-  if (!row_ok) return;
-#pragma unroll
-  for (int c = 0; c < CQK; ++c) dq[(w * CQK + c) * L + l] = acc[c] * scale;
+    d = fmaf(dout[(w * CV + c) * L + l], out[(w * CV + c) * L + l], d);
+  stats[(w * 2) * L + l] = lse[i] * kLog2e;
+  stats[(w * 2 + 1) * L + l] = d;
 }
 
-// ---------------------------------------------------------------------------
-// K3b, launch 2: dk and dv
-// ---------------------------------------------------------------------------
-
-template <int CQK, int CV, bool DROP>
-__global__ void __launch_bounds__(kRows)
-pwa_long_bwd_cols_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ bias,
-                         const int* __restrict__ seed,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ stats,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int H, int N, int L, float scale, uint32_t thresh,
-                         float inv_keep) {
-  __shared__ float qs[kTile * CQK];
-  __shared__ float dos[kTile * CV];
-  __shared__ float st[3 * kTile];
-  const int64_t w = blockIdx.x;
-  const int h = static_cast<int>((w / N) % H);
-  const int m = blockIdx.y * kRows + threadIdx.x;
-  const bool col_ok = m < L;
-  const float* qw = q + w * CQK * L;
-  const float* dw = dout + w * CV * L;
-  const float* sw = stats + w * 3 * L;
-  const float* bh = bias + static_cast<int64_t>(h) * L * L;
-  const uint32_t uL = static_cast<uint32_t>(L);
-  uint32_t sd = 0, wbase = 0;
-  if (DROP) {
-    sd = static_cast<uint32_t>(seed[0]);
-    wbase = global_wid(w, static_cast<uint32_t>(seed[1]), H, N) * uL;
-  }
-  float kc[CQK], vc[CV], dka[CQK], dva[CV];
-#pragma unroll
-  for (int c = 0; c < CQK; ++c) {
-    kc[c] = col_ok ? k[(w * CQK + c) * L + m] : 0.f;
-    dka[c] = 0.f;
-  }
-#pragma unroll
-  for (int c = 0; c < CV; ++c) {
-    vc[c] = col_ok ? v[(w * CV + c) * L + m] : 0.f;
-    dva[c] = 0.f;
-  }
-  for (int r0 = 0; r0 < L; r0 += kTile) {
-    __syncthreads();
-    stage_tokens<CQK>(qs, qw, L, r0);
-    stage_tokens<CV>(dos, dw, L, r0);
-    for (int i = threadIdx.x; i < 3 * kTile; i += blockDim.x) {
-      const int which = i / kTile, j = i - which * kTile;
-      st[i] = r0 + j < L ? sw[which * L + r0 + j] : 0.f;
-    }
-    __syncthreads();
-    if (!col_ok) continue;
-    const int rows = min(kTile, L - r0);
-    for (int j = 0; j < rows; ++j) {
-      const int l = r0 + j;
-      const float* ql = qs + j * CQK;
-      const float* dl = dos + j * CV;
-      float s = 0.f;
-#pragma unroll
-      for (int c = 0; c < CQK; ++c) s = fmaf(ql[c], kc[c], s);
-      const float p =
-          expf(fmaf(s, scale, bh[static_cast<int64_t>(l) * L + m]) - st[j]) *
-          st[kTile + j];
-      float dp = 0.f;
-      if (!DROP || keep_hash((wbase + static_cast<uint32_t>(l)) * uL +
-                                 static_cast<uint32_t>(m),
-                             sd) >= thresh) {
-        const float wgt = DROP ? p * inv_keep : p;
-        float dwv = 0.f;
-#pragma unroll
-        for (int c = 0; c < CV; ++c) {
-          dwv = fmaf(dl[c], vc[c], dwv);
-          dva[c] = fmaf(wgt, dl[c], dva[c]);
-        }
-        dp = DROP ? dwv * inv_keep : dwv;
-      }
-      const float ds = p * (dp - st[2 * kTile + j]);
-#pragma unroll
-      for (int c = 0; c < CQK; ++c) dka[c] = fmaf(ds, ql[c], dka[c]);
+// Stage window w's tokens for row tile l0 (q, dO, statistics) and column
+// tile m0 (k, v) into one stage buffer: [q | dO | k | v] as [c][kTS], then
+// lse2 and D; past L everything reads 0.
+__device__ __forceinline__ void stage_window(
+    float* buf, const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ stats, int64_t w, int L, int l0, int m0) {
+  for (int i = threadIdx.x; i < 4 * 8 * kBT + 2 * kBT; i += kBThreads) {
+    if (i < 4 * 8 * kBT) {
+      const int arr = i >> 10, c = (i >> 7) & 7, j = i & (kBT - 1);
+      const float* src = arr == 0 ? q : arr == 1 ? dout : arr == 2 ? k : v;
+      const int t = (arr < 2 ? l0 : m0) + j;
+      const bool ok = t < L;
+      cp_async_f32(buf + (arr * 8 + c) * kTS + j,
+                   src + (w * 8 + c) * L + (ok ? t : 0), ok);
+    } else {
+      const int k2 = i - 4 * 8 * kBT, which = k2 >> 7, j = k2 & (kBT - 1);
+      const bool ok = l0 + j < L;
+      cp_async_f32(buf + 4 * 8 * kTS + which * kBT + j,
+                   stats + (w * 2 + which) * L + (ok ? l0 + j : 0), ok);
     }
   }
-  if (!col_ok) return;
-#pragma unroll
-  for (int c = 0; c < CQK; ++c) dk[(w * CQK + c) * L + m] = dka[c] * scale;
-#pragma unroll
-  for (int c = 0; c < CV; ++c) dv[(w * CV + c) * L + m] = dva[c];
 }
 
-// ---------------------------------------------------------------------------
-// K3b, launch 3: dbias, summed over the windows of each head in order
-// ---------------------------------------------------------------------------
-
-constexpr int kBiasRowsPerThread = kBiasTile * kBiasTile / kBiasThreads;
-
+// K3b launch 2. Block (column tile J, row tile I, head h) walks the head's
+// (b, n) windows in order. Per window and half of its 64 columns, thread
+// (ty, tx) forms the 8 × 4 scores of rows ty·8 + i, columns tx·4 + j:
+// s = q·k and dO·v from the staged tokens, P = 2^(s·scale·log2e +
+// bias·log2e − lse2), the keep mask, dS = P·(dP − D) and W = M·P/(1 − p);
+// it adds dS to its dbias elements (registers, across all windows) and
+// writes dS and W to shared memory. Then dq (per row, this column tile's
+// part), dk and dv (per column, this row tile's part) are products over the
+// shared tiles; the partials go to part = [dq | dk | dv], each
+// [tile][window][8][L]. The next window's tokens arrive by cp.async while
+// this one is computed.
 template <int CQK, int CV, bool DROP>
-__global__ void __launch_bounds__(kBiasThreads)
-pwa_long_dbias_kernel(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ bias,
-                      const int* __restrict__ seed,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ stats,
-                      float* __restrict__ dbias, int B, int H, int N, int L,
-                      float scale, uint32_t thresh, float inv_keep) {
-  __shared__ float qs[kBiasTile * CQK];
-  __shared__ float dos[kBiasTile * CV];
-  __shared__ float st[3 * kBiasTile];
-  constexpr int kGroups = kBiasThreads / kBiasTile;  // row groups
+__global__ void __launch_bounds__(kBThreads, 1)
+pwa_long_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ bias,
+                   const int* __restrict__ seed,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ stats,
+                   float* __restrict__ part, float* __restrict__ dbias,
+                   int B, int H, int N, int L, float scale, uint32_t thresh,
+                   float inv_keep) {
+  static_assert(CQK == 8 && CV == 8, "K3b's tiles are built for 8 + 8");
+  extern __shared__ __align__(16) float smem[];
+  float* bs = smem;                       // [kBT][kBS] bias·log2e
+  float* stage = bs + kBT * kBS;          // 2 × kWinFloats
+  float* dss = stage + 2 * kWinFloats;    // [kBT][kDS] dS of a half
+  float* ws = dss + kBT * kDS;            // [kBT][kDS] W of a half
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int h = blockIdx.z;
-  const int r0 = blockIdx.y * kBiasTile, c0 = blockIdx.x * kBiasTile;
-  const int tx = threadIdx.x % kBiasTile, ty = threadIdx.x / kBiasTile;
-  const int m = c0 + tx;
-  const bool col_ok = m < L;
+  const int l0 = blockIdx.y * kBT, m0 = blockIdx.x * kBT;
+  const int nT = gridDim.x;
+  const int64_t W = static_cast<int64_t>(B) * H * N;
   const float* bh = bias + static_cast<int64_t>(h) * L * L;
+  for (int i = tid; i < kBT * kBT; i += kBThreads) {
+    const int r = i >> 7, m = i & (kBT - 1);
+    const bool ok = l0 + r < L && m0 + m < L;
+    bs[r * kBS + m] =
+        ok ? bh[static_cast<int64_t>(l0 + r) * L + m0 + m] * kLog2e
+           : -INFINITY;
+  }
+  const float sc2 = scale * kLog2e;
   const uint32_t uL = static_cast<uint32_t>(L);
   const uint32_t sd = DROP ? static_cast<uint32_t>(seed[0]) : 0u;
   const uint32_t off = DROP ? static_cast<uint32_t>(seed[1]) : 0u;
-  float bv[kBiasRowsPerThread], acc[kBiasRowsPerThread];
+  float acc[2][8][4];
 #pragma unroll
-  for (int i = 0; i < kBiasRowsPerThread; ++i) {
-    const int l = r0 + ty + kGroups * i;
-    bv[i] = (col_ok && l < L) ? bh[static_cast<int64_t>(l) * L + m] : 0.f;
-    acc[i] = 0.f;
-  }
-  for (int b = 0; b < B; ++b) {
-    for (int n = 0; n < N; ++n) {
-      const int64_t w = (static_cast<int64_t>(b) * H + h) * N + n;
-      float kc[CQK], vc[CV];
+  for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int c = 0; c < CQK; ++c)
-        kc[c] = col_ok ? k[(w * CQK + c) * L + m] : 0.f;
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int c = 0; c < CV; ++c)
-        vc[c] = col_ok ? v[(w * CV + c) * L + m] : 0.f;
-      __syncthreads();  // the previous window is done with shared memory
-      for (int i = threadIdx.x; i < CQK * kBiasTile; i += blockDim.x) {
-        const int c = i / kBiasTile, j = i - c * kBiasTile;
-        qs[j * CQK + c] = r0 + j < L ? q[(w * CQK + c) * L + r0 + j] : 0.f;
+      for (int j = 0; j < 4; ++j) acc[hf][i][j] = 0.f;
+  float* dqp = part;
+  float* dkp = part + static_cast<int64_t>(nT) * W * 8 * L;
+  float* dvp = dkp + static_cast<int64_t>(nT) * W * 8 * L;
+  const int pr = tid >> 1, cq = (tid & 1) * 4;  // dq row; dk, dv column
+
+  const int nwin = B * N;
+  stage_window(stage, q, k, v, dout, stats, static_cast<int64_t>(h) * N, L,
+               l0, m0);
+  for (int it = 0; it < nwin; ++it) {
+    const int b = it / N, n = it - b * N;
+    const int64_t w = (static_cast<int64_t>(b) * H + h) * N + n;
+    float* cur = stage + (it & 1) * kWinFloats;
+    cp_async_wait_all();
+    __syncthreads();  // this window is staged; the last one is done with
+                      // the other buffer and with dss, ws
+    if (it + 1 < nwin) {
+      const int b2 = (it + 1) / N, n2 = it + 1 - b2 * N;
+      stage_window(stage + ((it + 1) & 1) * kWinFloats, q, k, v, dout, stats,
+                   (static_cast<int64_t>(b2) * H + h) * N + n2, L, l0, m0);
+    }
+    const float* qT = cur;
+    const float* dT = cur + 8 * kTS;
+    const float* kT = cur + 16 * kTS;
+    const float* vT = cur + 24 * kTS;
+    const float* ls = cur + 32 * kTS;
+    const float* Ds = ls + kBT;
+    const uint32_t wbase = global_wid(w, off, H, N) * uL;
+    float dqa[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int mc = hf * kBHalf + tx * 4;  // first column in the tile
+      float s[8][4], dp[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const float4 qa = lds4(qT + c * kTS + ty * 8);
+        const float4 qb = lds4(qT + c * kTS + ty * 8 + 4);
+        const float4 da = lds4(dT + c * kTS + ty * 8);
+        const float4 db = lds4(dT + c * kTS + ty * 8 + 4);
+        const float4 kk = lds4(kT + c * kTS + mc);
+        const float4 vv = lds4(vT + c * kTS + mc);
+        const float qr[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+        const float dr[8] = {da.x, da.y, da.z, da.w, db.x, db.y, db.z, db.w};
+        const float kc[4] = {kk.x, kk.y, kk.z, kk.w};
+        const float vc[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qr[i], kc[j], s[i][j]);
+            dp[i][j] = fmaf(dr[i], vc[j], dp[i][j]);
+          }
       }
-      for (int i = threadIdx.x; i < CV * kBiasTile; i += blockDim.x) {
-        const int c = i / kBiasTile, j = i - c * kBiasTile;
-        dos[j * CV + c] = r0 + j < L ? dout[(w * CV + c) * L + r0 + j] : 0.f;
-      }
-      for (int i = threadIdx.x; i < 3 * kBiasTile; i += blockDim.x) {
-        const int which = i / kBiasTile, j = i - which * kBiasTile;
-        st[i] = r0 + j < L ? stats[(w * 3 + which) * L + r0 + j] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = ty * 8 + i;
+        const float4 bb = lds4(bs + r * kBS + mc);
+        const float bj[4] = {bb.x, bb.y, bb.z, bb.w};
+        const float l2 = ls[r], dd = Ds[r];
+        const uint32_t rowbase =
+            (wbase + static_cast<uint32_t>(l0 + r)) * uL +
+            static_cast<uint32_t>(m0 + mc);
+        float dsv[4], wv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = exp2f(fmaf(s[i][j], sc2, bj[j]) - l2);
+          float dpk = dp[i][j], wgt = p;
+          if (DROP) {
+            const bool keep =
+                keep_hash(rowbase + static_cast<uint32_t>(j), sd) >= thresh;
+            dpk = keep ? dpk * inv_keep : 0.f;
+            wgt = keep ? p * inv_keep : 0.f;
+          }
+          dsv[j] = p * (dpk - dd);
+          wv[j] = wgt;
+          acc[hf][i][j] += dsv[j];
+        }
+        *reinterpret_cast<float4*>(dss + r * kDS + tx * 4) =
+            make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
+        *reinterpret_cast<float4*>(ws + r * kDS + tx * 4) =
+            make_float4(wv[0], wv[1], wv[2], wv[3]);
       }
       __syncthreads();
-      const uint32_t wbase = global_wid(w, off, H, N) * uL;
+      // dq of row pr over this half's columns (scaled in the reduce)
+      for (int m = 0; m < kBHalf; m += 4) {
+        const float4 d = lds4(dss + pr * kDS + m);
 #pragma unroll
-      for (int i = 0; i < kBiasRowsPerThread; ++i) {
-        const int j = ty + kGroups * i;
-        const int l = r0 + j;
-        const float* ql = qs + j * CQK;
-        float s = 0.f;
-#pragma unroll
-        for (int c = 0; c < CQK; ++c) s = fmaf(ql[c], kc[c], s);
-        // rows past L have statistics 0 and contribute p·(dp − 0) of
-        // zeroed tokens; they are never written
-        const float p = expf(fmaf(s, scale, bv[i]) - st[j]) * st[kBiasTile + j];
-        float dp = 0.f;
-        if (!DROP || keep_hash((wbase + static_cast<uint32_t>(l)) * uL +
-                                   static_cast<uint32_t>(m),
-                               sd) >= thresh) {
-          const float* dl = dos + j * CV;
-          float dwv = 0.f;
-#pragma unroll
-          for (int c = 0; c < CV; ++c) dwv = fmaf(dl[c], vc[c], dwv);
-          dp = DROP ? dwv * inv_keep : dwv;
+        for (int cc = 0; cc < 4; ++cc) {
+          const float4 kv = lds4(kT + (cq + cc) * kTS + hf * kBHalf + m);
+          dqa[cc] = fmaf(d.x, kv.x, dqa[cc]);
+          dqa[cc] = fmaf(d.y, kv.y, dqa[cc]);
+          dqa[cc] = fmaf(d.z, kv.z, dqa[cc]);
+          dqa[cc] = fmaf(d.w, kv.w, dqa[cc]);
         }
-        acc[i] += p * (dp - st[2 * kBiasTile + j]);
       }
+      // dk (threads 0-127) and dv (128-255) of column pr % 64 over the
+      // row tile
+      {
+        const bool is_v = tid >= kBT;
+        const int m = pr & (kBHalf - 1);
+        const float* A = is_v ? ws : dss;
+        const float* T = is_v ? dT : qT;
+        float a[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int r = 0; r < kBT; r += 4) {
+          const float s0 = A[r * kDS + m], s1 = A[(r + 1) * kDS + m];
+          const float s2 = A[(r + 2) * kDS + m], s3 = A[(r + 3) * kDS + m];
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            const float4 t = lds4(T + (cq + cc) * kTS + r);
+            a[cc] = fmaf(s0, t.x, a[cc]);
+            a[cc] = fmaf(s1, t.y, a[cc]);
+            a[cc] = fmaf(s2, t.z, a[cc]);
+            a[cc] = fmaf(s3, t.w, a[cc]);
+          }
+        }
+        const int col = m0 + hf * kBHalf + m;
+        if (col < L) {
+          float* dst = (is_v ? dvp : dkp) +
+                       ((static_cast<int64_t>(blockIdx.y) * W + w) * 8 + cq) *
+                           L + col;
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) dst[cc * L] = a[cc];
+        }
+      }
+      if (hf == 0) __syncthreads();  // dss, ws are rewritten by half 1
+    }
+    if (l0 + pr < L) {
+      float* dst = dqp + ((static_cast<int64_t>(blockIdx.x) * W + w) * 8 +
+                          cq) * L + l0 + pr;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) dst[cc * L] = dqa[cc];
     }
   }
-  if (!col_ok) return;
+  float* dbh = dbias + static_cast<int64_t>(h) * L * L;
 #pragma unroll
-  for (int i = 0; i < kBiasRowsPerThread; ++i) {
-    const int l = r0 + ty + kGroups * i;
-    if (l < L) dbias[(static_cast<int64_t>(h) * L + l) * L + m] = acc[i];
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = l0 + ty * 8 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = m0 + hf * kBHalf + tx * 4 + j;
+        if (r < L && m < L) dbh[static_cast<int64_t>(r) * L + m] = acc[hf][i][j];
+      }
+    }
+}
+
+// K3b launch 3: dq = scale·Σ_J, dk = scale·Σ_I, dv = Σ_I of the partials,
+// over the tiles in order.
+__global__ void pwa_long_bwd_reduce(const float* __restrict__ part,
+                                    float* __restrict__ dq,
+                                    float* __restrict__ dk,
+                                    float* __restrict__ dv, int64_t n,
+                                    int nT, float scale) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < 3 * n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int which = static_cast<int>(i / n);
+    const int64_t e = i - which * n;
+    const float* p = part + which * nT * n + e;
+    float s = 0.f;
+    for (int t = 0; t < nT; ++t) s += p[t * n];
+    if (which == 0) dq[e] = s * scale;
+    else if (which == 1) dk[e] = s * scale;
+    else dv[e] = s;
   }
 }
 
@@ -484,38 +483,43 @@ pwa_long_dbias_kernel(const float* __restrict__ q,
 template <int CQK, int CV, bool DROP>
 static cudaError_t launch_fwd(const float* q, const float* k, const float* v,
                               const float* bias, const int* seed, float* out,
-                              int B, int H, int N, int L, float scale,
-                              uint32_t thresh, float inv_keep,
+                              float* lse, int B, int H, int N, int L,
+                              float scale, uint32_t thresh, float inv_keep,
                               cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(B) * H * N, (L + kRows - 1) / kRows);
   pwa_long_fwd_kernel<CQK, CV, DROP><<<grid, kRows, 0, stream>>>(
-      q, k, v, bias, seed, out, H, N, L, scale, thresh, inv_keep);
+      q, k, v, bias, seed, out, lse, H, N, L, scale, thresh, inv_keep);
   return cudaGetLastError();
 }
 
 template <int CQK, int CV, bool DROP>
 static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
                               const float* bias, const int* seed,
-                              const float* dout, float* dq, float* dk,
-                              float* dv, float* stats, float* dbias, int B,
-                              int H, int N, int L, float scale,
-                              uint32_t thresh, float inv_keep,
+                              const float* dout, const float* out,
+                              const float* lse, float* dq, float* dk,
+                              float* dv, float* stats, float* part,
+                              float* dbias, int B, int H, int N, int L,
+                              float scale, uint32_t thresh, float inv_keep,
                               cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(B) * H * N, (L + kRows - 1) / kRows);
-  pwa_long_bwd_rows_kernel<CQK, CV, DROP><<<grid, kRows, 0, stream>>>(
-      q, k, v, bias, seed, dout, dq, stats, H, N, L, scale, thresh, inv_keep);
+  const int64_t W = static_cast<int64_t>(B) * H * N;
+  pwa_long_bwd_prep<CV><<<static_cast<unsigned>((W * L + 255) / 256), 256, 0,
+                          stream>>>(dout, out, lse, stats, W, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  pwa_long_bwd_cols_kernel<CQK, CV, DROP><<<grid, kRows, 0, stream>>>(
-      q, k, v, bias, seed, dout, stats, dk, dv, H, N, L, scale, thresh,
-      inv_keep);
+  const size_t smem =
+      (size_t)(kBT * kBS + 2 * kWinFloats + 2 * kBT * kDS) * sizeof(float);
+  err = allow_smem(pwa_long_bwd_tiles<CQK, CV, DROP>, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned nT = (L + kBT - 1) / kBT;
+  pwa_long_bwd_tiles<CQK, CV, DROP>
+      <<<dim3(nT, nT, static_cast<unsigned>(H)), kBThreads, smem, stream>>>(
+          q, k, v, bias, seed, dout, stats, part, dbias, B, H, N, L, scale,
+          thresh, inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const unsigned tiles = (L + kBiasTile - 1) / kBiasTile;
-  const dim3 bgrid(tiles, tiles, static_cast<unsigned>(H));
-  pwa_long_dbias_kernel<CQK, CV, DROP><<<bgrid, kBiasThreads, 0, stream>>>(
-      q, k, v, bias, seed, dout, stats, dbias, B, H, N, L, scale, thresh,
-      inv_keep);
+  const int64_t n = W * CQK * L;
+  pwa_long_bwd_reduce<<<1024, 256, 0, stream>>>(part, dq, dk, dv, n, nT,
+                                                scale);
   return cudaGetLastError();
 }
 
@@ -526,20 +530,22 @@ static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
 
 #define VS_FWD_CASE(CQ, CVV, DROP)                                         \
   if (Cqk == CQ && Cv == CVV)                                              \
-    return launch_fwd<CQ, CVV, DROP>(q, k, v, bias, seed, out, B, H, N, L, \
-                                     scale, thresh, inv_keep, stream);
+    return launch_fwd<CQ, CVV, DROP>(q, k, v, bias, seed, out, lse, B, H,  \
+                                     N, L, scale, thresh, inv_keep, stream);
 #define VS_BWD_CASE(CQ, CVV, DROP)                                         \
   if (Cqk == CQ && Cv == CVV)                                              \
-    return launch_bwd<CQ, CVV, DROP>(q, k, v, bias, seed, dout, dq, dk,    \
-                                     dv, stats, dbias, B, H, N, L, scale,  \
-                                     thresh, inv_keep, stream);
+    return launch_bwd<CQ, CVV, DROP>(q, k, v, bias, seed, dout, out, lse, \
+                                     dq, dk, dv, stats, part, dbias, B, H, \
+                                     N, L, scale, thresh, inv_keep, stream);
 
 // K3f. q, k: (B, H, N, Cqk, L); v, out: (B, H, N, Cv, L); bias: (H, L, L);
-// seed: int32 [seed, batch_offset] on the device; thresh = 0: no dropout.
+// seed: int32 [seed, batch_offset] on the device; thresh = 0: no dropout;
+// lse: (B, H, N, L), each row's log-sum-exp of its logits.
 extern "C" int vs_pwa_attention_long_train(
     const float* q, const float* k, const float* v, const float* bias,
-    const int* seed, float* out, int B, int H, int N, int Cqk, int Cv, int L,
-    float scale, unsigned int thresh, float inv_keep, void* stream_ptr) {
+    const int* seed, float* out, float* lse, int B, int H, int N, int Cqk,
+    int Cv, int L, float scale, unsigned int thresh, float inv_keep,
+    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B * H * N == 0 || L == 0) return cudaSuccess;
   if (thresh == 0) {
@@ -550,14 +556,17 @@ extern "C" int vs_pwa_attention_long_train(
   return cudaErrorInvalidValue;
 }
 
-// K3b. As K3f, plus dout like v; dq, dk, dv like q, k, v; stats:
-// B·H·N·3·L floats of scratch (row max, 1/sum, D per window); dbias:
-// (H, L, L), written whole. B·H·N must be > 0.
+// K3b. As K3f, plus dout like v, and K3f's out and lse of the same call;
+// dq, dk, dv like q, k, v; stats: B·H·N·2·L floats of scratch (lse in base
+// 2 and D per row); part: 3·⌈L/128⌉·B·H·N·Cqk·L floats of scratch (the
+// dq, dk, dv tile partials); dbias: (H, L, L), written whole. B·H·N must
+// be > 0.
 extern "C" int vs_pwa_attention_long_train_bwd(
     const float* q, const float* k, const float* v, const float* bias,
-    const int* seed, const float* dout, float* dq, float* dk, float* dv,
-    float* stats, float* dbias, int B, int H, int N, int Cqk, int Cv, int L,
-    float scale, unsigned int thresh, float inv_keep, void* stream_ptr) {
+    const int* seed, const float* dout, const float* out, const float* lse,
+    float* dq, float* dk, float* dv, float* stats, float* part,
+    float* dbias, int B, int H, int N, int Cqk, int Cv, int L, float scale,
+    unsigned int thresh, float inv_keep, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B * H * N == 0 || L == 0) return cudaErrorInvalidValue;
   if (thresh == 0) {

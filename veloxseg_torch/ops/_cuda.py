@@ -47,14 +47,14 @@ SIGNATURES = {
         "vs_pwa_attention_train_bwd": [_P] * 11 + [_I] * 7
         + [_F, _U, _F, _P]},
     "pwa_attention_long": {
-        "vs_pwa_attention_long_train": [_P] * 6 + [_I] * 6 + [_F, _U, _F, _P],
-        "vs_pwa_attention_long_train_bwd": [_P] * 11 + [_I] * 6
+        "vs_pwa_attention_long_train": [_P] * 7 + [_I] * 6 + [_F, _U, _F, _P],
+        "vs_pwa_attention_long_train_bwd": [_P] * 14 + [_I] * 6
         + [_F, _U, _F, _P]},
     "jlc_stage1": {"vs_jlc_stage1": [_P] * 9 + [_I] * 12 + [_P],
                    "vs_jlc_stage1_bwd": [_P] * 13 + [_I] * 14 + [_P],
                    "vs_jlc_branch_wgrad": [_P] * 6 + [_I] * 11 + [_P]},
     "jlc_stage2": {"vs_jlc_stage2": [_P] * 8 + [_I] * 4 + [_P],
-                   "vs_jlc_stage2_bwd": [_P] * 14 + [_I] * 5 + [_P]},
+                   "vs_jlc_stage2_bwd": [_P] * 15 + [_I] * 10 + [_P]},
     "wkv": {"vs_wkv": [_P] * 5 + [_I] * 3 + [_P]},
 }
 

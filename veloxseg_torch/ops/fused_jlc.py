@@ -47,7 +47,7 @@ _QUAD = 4  # output (and input) channels per K4 thread (csrc/jlc_stage1.cu)
 _TAPS = 125 + 27 + 1  # the k = 5, 3, 1 taps of one weight-gradient slab row
 _CONV_THREADS = 512  # the most threads of a K4 conv block
 _EDGE = 8  # the longest tile edge
-_TILE = 32  # voxels per K5b tile (csrc/jlc_stage2.cu)
+_TILE = 64  # voxels per K5b tile (csrc/jlc_stage2.cu:kVT)
 
 
 def _gelu_grad(x: torch.Tensor) -> torch.Tensor:
@@ -377,10 +377,11 @@ def _stage2_mats(out1, w1, w2):
 
 
 def _jlc_stage2_fwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                    w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """K5f (or the plain version for a CPU tensor)."""
+                    w2: torch.Tensor, b2: torch.Tensor):
+    """K5f (or the plain version for a CPU tensor): ``(out, mean, rstd)``,
+    the plane statistics K5f took (B·C floats each; None on the CPU)."""
     if out1.device.type == "cpu":
-        return jlc_stage2_plain(out1, w1, b1, w2, b2)
+        return jlc_stage2_plain(out1, w1, b1, w2, b2), None, None
     b, c, d, h, w = out1.shape
     w1m, w2m, hid = _stage2_mats(out1, w1, w2)
     _check_cuda(out1, w1m, b1, w2m, b2)
@@ -398,50 +399,198 @@ def _jlc_stage2_fwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             b, c, hid, d * h * w, _cuda.stream_ptr(out1.device))
     _cuda.check(lib, err, "jlc_stage2")
     jlc_stage2.launches += 1
-    return out
+    return out, mean, rstd
 
 
-def mlp_bwd_chunks(b: int, s: int, sms: int) -> int:
-    """Tile chunks of K5b: about two blocks per SM, none of them empty."""
-    tiles = b * -(-s // _TILE)
-    per = -(-tiles // max(1, min(tiles, 2 * sms)))
-    return -(-tiles // per)
+class Stage2BwdLaunch(NamedTuple):
+    """K5b's launch geometry for one shape (``csrc/jlc_stage2.cu`` checks
+    it): the hidden rows per slice (``hs``; E·C in ``slices`` parts), the
+    64-voxel tiles per sample and the (b, tile) units, the chunks of
+    ``per`` units each tiles block walks, the voxel parts (``tp``) and the
+    jobs per thread (``jpt``) of the weight products, and the planes
+    blocks per (b, c) plane (``ysplit``)."""
+    hs: int
+    slices: int
+    tiles_per_sample: int
+    units: int
+    chunks: int
+    per: int
+    tp: int
+    jpt: int
+    ysplit: int
+
+    def unit_ranges(self) -> List[Tuple[int, int]]:
+        """The units ``[lo, hi)`` of each chunk; unit ``u`` is sample
+        ``u // tiles_per_sample``, voxels ``[(u % tiles_per_sample)·64,
+        +64)`` (the kernel's own arithmetic)."""
+        return [(i * self.per, min(self.units, (i + 1) * self.per))
+                for i in range(self.chunks)]
+
+    def slice_rows(self) -> List[Tuple[int, int]]:
+        """The hidden rows ``[lo, hi)`` of each slice."""
+        return [(i * self.hs, (i + 1) * self.hs) for i in range(self.slices)]
+
+
+_K5B_THREADS = 256
+_K5B_SLICE_WORK = 8192  # HS·C: at most 4 weight jobs of 4×4 a thread
+_K5B_ROW = _TILE + 4    # row stride of its [row][voxel] tiles
+_SMEM_FLOATS = 232448 // 4  # the most a block may hold
+
+
+def _k5b_smem_floats(c: int, hs: int, tp: int) -> int:
+    """Shared memory of a K5b tiles block (``mlp_bwd_smem_floats``): W1ᵀ,
+    W1 and W2 slices, two stage buffers of x and g, z1 and dz1, b1."""
+    return max(3 * hs * c + 4 * c * _K5B_ROW + 2 * hs * _K5B_ROW + hs,
+               _K5B_THREADS * 16 if tp > 1 else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def stage2_bwd_launch(b: int, c: int, hid: int, s: int,
+                      sms: int) -> Stage2BwdLaunch:
+    """K5b's tiling: the fewest hidden slices with HS·C <= 8192 whose
+    weights and tiles fit a block (one slice up to 32 channels, two of 64
+    rows at 64, eight of 32 at 128), about two tiles blocks per SM over the
+    (b, tile) units, none of them empty, and up to 16 planes blocks per
+    plane."""
+    if c % 8 or hid % 4:
+        raise ValueError(f"K5b takes C a multiple of 8 and E·C of 4; got "
+                         f"C={c}, E·C={hid}")
+    slices = next((n for n in range(1, hid // 4 + 1)
+                   if hid % n == 0 and (hid // n) % 4 == 0
+                   and hid // n * c <= _K5B_SLICE_WORK
+                   and _k5b_smem_floats(c, hid // n, 1) <= _SMEM_FLOATS),
+                  None)
+    if slices is None:
+        raise ValueError(f"K5b: no hidden slice of E·C={hid} fits C={c}")
+    hs = hid // slices
+    if hs + c > _K5B_THREADS:
+        raise ValueError(f"K5b: E·C/slices + C = {hs + c} > {_K5B_THREADS}")
+    tps = -(-s // _TILE)
+    units = b * tps
+    per = -(-units // max(1, min(units, -(-2 * sms // slices))))
+    jobs = hs * c // 8
+    tp = 1
+    while jobs * tp * 2 <= _K5B_THREADS and tp < _TILE // 4:
+        tp *= 2
+    jpt = -(-jobs // _K5B_THREADS)
+    jpt = 1 if jpt == 1 else 2 if jpt == 2 else 4
+    ysplit = max(1, min(16, s // 2048))
+    return Stage2BwdLaunch(hs, slices, tps, units, -(-units // per), per, tp,
+                           jpt, ysplit)
+
+
+def jlc_stage2_bwd_split_plain(out1, w1, b1, w2, g, lw: Stage2BwdLaunch):
+    """K5b's decomposition in torch ops (the tests hold it against the JAX
+    VJP): per (chunk, slice) partial weight sums over the chunk's 64-voxel
+    units, dz per slice, per-tile sums of dz and dz·ŷ, then the partials
+    added in chunk, slice and tile order."""
+    b, c = out1.shape[:2]
+    hid = w1.shape[0]
+    mean, rstd = _plane_stats(out1)
+    yhat = ((out1 - mean) * rstd).reshape(b, c, -1)
+    g3 = g.reshape(b, c, -1)
+    s = yhat.shape[-1]
+    pad = lw.tiles_per_sample * _TILE - s
+    yt = F.pad(yhat, (0, pad)).reshape(b, c, -1, _TILE).transpose(1, 2)
+    gt = F.pad(g3, (0, pad)).reshape(b, c, -1, _TILE).transpose(1, 2)
+    yt, gt = yt.reshape(-1, c, _TILE), gt.reshape(-1, c, _TILE)  # units
+    w1m, w2m = w1.reshape(hid, c), w2.reshape(c, hid)
+    dw1, dw2 = torch.zeros(hid, c), torch.zeros(c, hid)
+    db1, db2 = torch.zeros(hid), torch.zeros(c)
+    dz = torch.zeros(lw.units, c, _TILE)
+    tsum = torch.zeros(lw.units, 2, c)
+    for lo, hi in lw.unit_ranges():
+        y, gg = yt[lo:hi], gt[lo:hi]
+        db2 += gg.sum(dim=(0, 2))
+        for e0, e1 in lw.slice_rows():
+            z1p = torch.einsum("ec,uct->uet", w1m[e0:e1], y) \
+                + b1[e0:e1, None]
+            d1 = (torch.einsum("ce,uct->uet", w2m[:, e0:e1], gg)
+                  * _gelu_grad(z1p))
+            dw1[e0:e1] += torch.einsum("uet,uct->ec", d1, y)
+            dw2[:, e0:e1] += torch.einsum("uct,uet->ce", gg, F.gelu(z1p))
+            db1[e0:e1] += d1.sum(dim=(0, 2))
+            dzs = torch.einsum("ec,uet->uct", w1m[e0:e1], d1)
+            dz[lo:hi] += dzs
+            tsum[lo:hi, 0] += dzs.sum(-1)
+            tsum[lo:hi, 1] += (dzs * y).sum(-1)
+    per_b = tsum.reshape(b, -1, 2, c).sum(1) / s         # (b, 2, c)
+    dz = dz.reshape(b, -1, c, _TILE).transpose(1, 2).reshape(b, c, -1)
+    dz = dz[..., :s]
+    r = rstd.reshape(b, c, 1)
+    dx = g3 + r * (dz - per_b[:, 0, :, None] - yhat * per_b[:, 1, :, None])
+    return (dx.reshape(out1.shape), dw1.reshape(w1.shape), db1,
+            dw2.reshape(w2.shape), db2)
+
+
+def stage2_bwd_widths(c: int, hid: int) -> Tuple[int, int]:
+    """The widths K5b runs at: C up to a multiple of 8, E·C up to one of
+    4 (``csrc/jlc_stage2.cu``)."""
+    return -(-c // 8) * 8, -(-hid // 4) * 4
+
+
+def pad_stage2_bwd(out1, w1m, b1, w2m, g, mean, rstd):
+    """K5b's inputs widened to :func:`stage2_bwd_widths` with zero
+    channels and hidden rows (``w1m`` (E·C, C), ``w2m`` (C, E·C); the new
+    planes get mean 0, rstd 1). A zero plane normalizes to ŷ = 0 under a
+    zero g, and a zero hidden row has z1p = 0 and no weight to or from the
+    others: neither adds to any sum, and their own gradients are 0."""
+    b, c = out1.shape[:2]
+    hid = w1m.shape[0]
+    cp, hp = stage2_bwd_widths(c, hid)
+    dc, dh = cp - c, hp - hid
+
+    def planes(t):
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, dc)).contiguous()
+
+    return (planes(out1), F.pad(w1m, (0, dc, 0, dh)), F.pad(b1, (0, dh)),
+            F.pad(w2m, (0, dh, 0, dc)), planes(g),
+            F.pad(mean.reshape(b, c), (0, dc)).reshape(-1),
+            F.pad(rstd.reshape(b, c), (0, dc), value=1.0).reshape(-1))
 
 
 def jlc_stage2_bwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                   w2: torch.Tensor, g: torch.Tensor):
-    """K5b: ``(dx, dw1, db1, dw2, db2)`` of stage 2."""
+                   w2: torch.Tensor, g: torch.Tensor, mean: torch.Tensor,
+                   rstd: torch.Tensor):
+    """K5b: ``(dx, dw1, db1, dw2, db2)`` of stage 2. ``mean``, ``rstd``:
+    K5f's plane statistics of ``out1`` (B·C floats each; the plain version
+    recomputes them). Widths the kernel does not take run padded
+    (:func:`pad_stage2_bwd`)."""
     if out1.device.type == "cpu":
         return jlc_stage2_bwd_plain(out1, w1, b1, w2, g)
     b, c, d, h, w = out1.shape
     s = d * h * w
     w1m, w2m, hid = _stage2_mats(out1, w1, w2)
-    _check_cuda(out1, w1m, b1, w2m, g)
-    if b1.shape != (hid,) or g.shape != out1.shape:
-        raise ValueError(f"K5b: b1 {tuple(b1.shape)} or g {tuple(g.shape)} "
-                         f"does not match C={c}, E·C={hid}")
-    chunks = mlp_bwd_chunks(b, s, _cuda.sm_count(out1.device))
+    _check_cuda(out1, w1m, b1, w2m, g, mean, rstd)
+    if b1.shape != (hid,) or g.shape != out1.shape \
+            or mean.numel() != b * c or rstd.numel() != b * c:
+        raise ValueError(f"K5b: b1 {tuple(b1.shape)}, g {tuple(g.shape)} or "
+                         f"the B·C statistics do not match C={c}, E·C={hid}")
+    ins = (out1, w1m, b1, w2m, g, mean, rstd)
+    cp, hp = stage2_bwd_widths(c, hid)
+    if (cp, hp) != (c, hid):
+        ins = pad_stage2_bwd(*ins)
+    lw = stage2_bwd_launch(b, cp, hp, s, _cuda.sm_count(out1.device))
     dev = out1.device
-    mean = torch.empty((b * c,), device=dev)
-    rstd = torch.empty_like(mean)
-    dz = torch.empty_like(out1)
-    part = torch.empty((chunks, 2 * hid * c + hid + c), device=dev)
-    dx = torch.empty_like(out1)
-    dw1 = torch.empty((hid, c), device=dev)
-    dw2 = torch.empty((c, hid), device=dev)
-    db1 = torch.empty((hid,), device=dev)
-    db2 = torch.empty((c,), device=dev)
+    dz = torch.empty((lw.slices, b, cp, s), device=dev)
+    tsum = torch.empty((lw.units, lw.slices, cp, 2), device=dev)
+    part = torch.empty((lw.chunks, 2 * hp * cp + hp + cp), device=dev)
+    dx = torch.empty((b, cp, d, h, w), device=dev)
+    dw1 = torch.empty((hp, cp), device=dev)
+    dw2 = torch.empty((cp, hp), device=dev)
+    db1 = torch.empty((hp,), device=dev)
+    db2 = torch.empty((cp,), device=dev)
     lib = _cuda.lib("jlc_stage2")
     with torch.cuda.device(dev):
         err = lib.vs_jlc_stage2_bwd(
-            out1.data_ptr(), w1m.data_ptr(), b1.data_ptr(), w2m.data_ptr(),
-            g.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dz.data_ptr(),
+            *(t.data_ptr() for t in ins), dz.data_ptr(), tsum.data_ptr(),
             part.data_ptr(), dx.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-            dw2.data_ptr(), db2.data_ptr(), b, c, hid, s, chunks,
-            _cuda.stream_ptr(dev))
+            dw2.data_ptr(), db2.data_ptr(), b, cp, hp, s, lw.hs, lw.chunks,
+            lw.per, lw.tp, lw.jpt, lw.ysplit, _cuda.stream_ptr(dev))
     _cuda.check(lib, err, "jlc_stage2_bwd")
     jlc_stage2_bwd.launches += 1
-    return dx, dw1.reshape(w1.shape), db1, dw2.reshape(w2.shape), db2
+    return (dx[:, :c].contiguous(), dw1[:hid, :c].reshape(w1.shape),
+            db1[:hid], dw2[:c, :hid].reshape(w2.shape), db2[:c])
 
 
 jlc_stage2_bwd.launches = 0
@@ -481,13 +630,15 @@ class _Stage2(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, out1, w1, b1, w2, b2):
-        ctx.save_for_backward(out1, w1, b1, w2)
-        return _jlc_stage2_fwd(out1, w1, b1, w2, b2)
+        # K5b reuses K5f's plane statistics
+        out, mean, rstd = _jlc_stage2_fwd(out1, w1, b1, w2, b2)
+        ctx.save_for_backward(out1, w1, b1, w2, mean, rstd)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        out1, w1, b1, w2 = ctx.saved_tensors
-        return jlc_stage2_bwd(out1, w1, b1, w2, g.contiguous())
+        out1, w1, b1, w2, mean, rstd = ctx.saved_tensors
+        return jlc_stage2_bwd(out1, w1, b1, w2, g.contiguous(), mean, rstd)
 
 
 def _needs_graph(*tensors: torch.Tensor) -> bool:
@@ -512,7 +663,7 @@ def jlc_stage2(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """JLC stage 2 on ``(B, C, D, H, W)``: K5f forward, K5b backward."""
     if not _needs_graph(out1, w1, b1, w2, b2):
-        return _jlc_stage2_fwd(out1, w1, b1, w2, b2)
+        return _jlc_stage2_fwd(out1, w1, b1, w2, b2)[0]
     return _Stage2.apply(out1, w1, b1, w2, b2)
 
 

@@ -269,58 +269,123 @@ def uses_long_kernel(l: int) -> bool:
     return l > _K2_MAX_L
 
 
+def train_lse_plain(q, k, bias, scale: float) -> torch.Tensor:
+    """Each row's log-sum-exp of its logits, (B, h, N, L): what K3f writes
+    beside its output for K3b."""
+    scores = torch.einsum("bhncl,bhncm->bhnlm", q, k) * scale
+    return torch.logsumexp(scores + bias[None, :, None], dim=-1)
+
+
 def window_attention_train_fwd_long(q, k, v, bias, seed, scale: float,
-                                    p: float) -> torch.Tensor:
+                                    p: float):
     """K3f: train attention forward with on-chip memory bounded in L;
-    (B, h, N, Cv, L) out. Its plain version is K2's: the same function."""
+    (B, h, N, Cv, L) out and each row's log-sum-exp (B, h, N, L), which
+    K3b takes. Its plain version is K2's (the same function) with
+    :func:`train_lse_plain`."""
     if q.device.type == "cpu":
-        return window_attention_train_fwd_plain(q, k, v, bias, seed, scale, p)
+        return (window_attention_train_fwd_plain(q, k, v, bias, seed, scale,
+                                                 p),
+                train_lse_plain(q, k, bias, scale))
     seed = seed.reshape(-1).contiguous()
     b, h, n, c_qk, c_v, l = _check(q, k, v, bias, seed=seed,
                                    widths=LONG_KERNEL_WIDTHS)
     out = torch.empty_like(v)
+    lse = torch.empty((b, h, n, l), device=q.device)
     lib = _cuda.lib("pwa_attention_long")
     with torch.cuda.device(q.device):
         err = lib.vs_pwa_attention_long_train(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            seed.data_ptr(), out.data_ptr(), b, h, n, c_qk, c_v, l,
-            float(scale), drop_threshold(p) if p > 0.0 else 0,
+            seed.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, n, c_qk,
+            c_v, l, float(scale), drop_threshold(p) if p > 0.0 else 0,
             1.0 / (1.0 - p), _cuda.stream_ptr(q.device))
     _cuda.check(lib, err, "pwa_attention_long_train")
     window_attention_train_fwd_long.launches += 1
-    return out
+    return out, lse
 
 
 window_attention_train_fwd_long.launches = 0
 
+_LONG_TILE = 128  # dbias tile edge of K3b (csrc/pwa_attention_long.cu:kBT)
+
+
+def long_bwd_tiles(l: int) -> int:
+    """K3b's row (and column) tiles of 128: its grid is tiles × tiles ×
+    heads, and dq, dk, dv have this many partials each."""
+    return -(-l // _LONG_TILE)
+
+
+def window_attention_train_bwd_long_plain(q, k, v, bias, seed, do, out, lse,
+                                          scale: float, p: float):
+    """K3b's decomposition in torch ops: P from the forward's ``lse``,
+    D = rowsum(dO ⊙ out), each (row tile I, column tile J) of 128 forming
+    dS once; dq summed over the J partials, dk and dv over the I
+    partials, dbias over the windows, in tile order."""
+    b, h, n, _, l = q.shape
+    prob = torch.exp(torch.einsum("bhncl,bhncm->bhnlm", q, k) * scale
+                     + bias[None, :, None] - lse[..., None])
+    if p > 0.0:
+        s, off = _seed_pair(seed)
+        keep = keep_mask(window_ids(b, h, n, l, off, q.device), p, s)
+        inv = 1.0 / (1.0 - p)
+    d = (do * out).sum(dim=3)                                   # (b,h,n,L)
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    dbias = torch.zeros_like(bias)
+    t = _LONG_TILE
+    for i0 in range(0, l, t):
+        for j0 in range(0, l, t):
+            pr = prob[..., i0:i0 + t, j0:j0 + t]
+            dw = torch.einsum("bhncl,bhncm->bhnlm", do[..., i0:i0 + t],
+                              v[..., j0:j0 + t])
+            if p > 0.0:
+                kp = keep[..., i0:i0 + t, j0:j0 + t]
+                dw = torch.where(kp, dw * inv, 0.0)
+                wt = torch.where(kp, pr * inv, 0.0)
+            else:
+                wt = pr
+            ds = pr * (dw - d[..., i0:i0 + t, None])
+            dq[..., i0:i0 + t] += torch.einsum("bhncm,bhnlm->bhncl",
+                                               k[..., j0:j0 + t], ds)
+            dk[..., j0:j0 + t] += torch.einsum("bhncl,bhnlm->bhncm",
+                                               q[..., i0:i0 + t], ds)
+            dv[..., j0:j0 + t] += torch.einsum("bhnlm,bhncl->bhncm", wt,
+                                               do[..., i0:i0 + t])
+            dbias[:, i0:i0 + t, j0:j0 + t] = ds.sum(dim=(0, 2))
+    return dq * scale, dk * scale, dv, dbias
+
 
 def window_attention_train_bwd_long(q, k, v, bias, seed, do, scale: float,
-                                    p: float):
+                                    p: float, out, lse):
     """K3b: (dq, dk, dv, dbias) of the train attention, dbias summed over
-    the windows in a fixed order. Its plain version is K2's."""
+    the windows in a fixed order, from K3f's ``out`` and ``lse`` of the
+    same inputs. Its plain version is K2's, which recomputes the softmax
+    and takes neither."""
     if q.device.type == "cpu":
         return window_attention_train_bwd_plain(q, k, v, bias, seed, do,
                                                 scale, p)
     seed = seed.reshape(-1).contiguous()
-    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, do, seed=seed,
+    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, do, out, lse, seed=seed,
                                    widths=LONG_KERNEL_WIDTHS)
-    if do.shape != v.shape:
-        raise ValueError(f"do {tuple(do.shape)} differs from v "
+    if do.shape != v.shape or out.shape != v.shape \
+            or lse.shape != (b, h, n, l):
+        raise ValueError(f"do {tuple(do.shape)}, out {tuple(out.shape)} or "
+                         f"lse {tuple(lse.shape)} does not match v "
                          f"{tuple(v.shape)}")
     if b * n == 0:
         raise ValueError("no windows")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(bias)
-    stats = torch.empty((b, h, n, 3, l), device=q.device)
+    stats = torch.empty((b, h, n, 2, l), device=q.device)
+    part = torch.empty((3, long_bwd_tiles(l)) + tuple(q.shape),
+                       device=q.device)
     lib = _cuda.lib("pwa_attention_long")
     with torch.cuda.device(q.device):
         err = lib.vs_pwa_attention_long_train_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            seed.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), stats.data_ptr(), dbias.data_ptr(), b, h, n,
-            c_qk, c_v, l, float(scale),
-            drop_threshold(p) if p > 0.0 else 0, 1.0 / (1.0 - p),
-            _cuda.stream_ptr(q.device))
+            seed.data_ptr(), do.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            part.data_ptr(), dbias.data_ptr(), b, h, n, c_qk, c_v, l,
+            float(scale), drop_threshold(p) if p > 0.0 else 0,
+            1.0 / (1.0 - p), _cuda.stream_ptr(q.device))
     _cuda.check(lib, err, "pwa_attention_long_train_bwd")
     window_attention_train_bwd_long.launches += 1
     return dq, dk, dv, dbias
@@ -330,27 +395,35 @@ window_attention_train_bwd_long.launches = 0
 
 
 class _TrainAttention(torch.autograd.Function):
-    """Saves only the inputs; the backward recomputes the softmax and the
-    mask (``_wat_fwd`` / ``_wat_bwd``). K2 or K3 by
-    :func:`uses_long_kernel` of the window length."""
+    """Saves the inputs; the backward recomputes the softmax and the mask
+    (``_wat_fwd`` / ``_wat_bwd``). K2 or K3 by :func:`uses_long_kernel` of
+    the window length; K3 also saves K3f's output and log-sum-exp for K3b
+    (the plain backward on the CPU takes neither)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, p):
-        ctx.save_for_backward(q, k, v, bias, seed)
         ctx.scale, ctx.p = scale, p
         ctx.long = uses_long_kernel(q.shape[-1])
-        fwd = (window_attention_train_fwd_long if ctx.long
-               else window_attention_train_fwd)
-        return fwd(q, k, v, bias, seed, scale, p)
+        if ctx.long:
+            out, lse = window_attention_train_fwd_long(q, k, v, bias, seed,
+                                                       scale, p)
+            ctx.save_for_backward(q, k, v, bias, seed, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v, bias, seed)
+        return window_attention_train_fwd(q, k, v, bias, seed, scale, p)
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, seed = ctx.saved_tensors
-        bwd = (window_attention_train_bwd_long if ctx.long
-               else window_attention_train_bwd)
-        dq, dk, dv, dbias = bwd(q, k, v, bias, seed, do.contiguous(),
-                                ctx.scale, ctx.p)
-        return dq, dk, dv, dbias, None, None, None
+        q, k, v, bias, seed, *saved = ctx.saved_tensors
+        if ctx.long:
+            grads = window_attention_train_bwd_long(
+                q, k, v, bias, seed, do.contiguous(), ctx.scale, ctx.p,
+                *saved)
+        else:
+            grads = window_attention_train_bwd(q, k, v, bias, seed,
+                                               do.contiguous(), ctx.scale,
+                                               ctx.p)
+        return (*grads, None, None, None)
 
 
 def window_attention_train(q: torch.Tensor, k: torch.Tensor,
