@@ -20,20 +20,25 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    L = 1024, K4f, K5f, K4b and K5b at its four JLC levels. U-RWKV: K6 at
    its bottleneck's (4, 216, 128). K4b is held against its plain version
    in dy and in the branch weights' gradient; its weight-gradient launches
-   are also timed alone ("jlc_branch_wgrad", on K4b's own dy). K3f also
-   writes each row's log-sum-exp (held against its plain version), and
-   K3b takes it with K3f's output; K5b takes K5f's plane statistics, as
-   the train step runs it. K2b's dbias, every K3b and K5b output and K4b's
-   dW must repeat bit for bit; the K2b/K3b dbias, K4b dW and K5b dW1/dW2
-   checksums are printed so that two runs can be compared. The timers,
-   the card query and the bounds are ``tools/chip_measure.py``'s.
-   Print errors and times: kernel, plain version, the least time the card
-   could take (bound), and one library call as a yardstick the port never
-   calls: for K1 ``scaled_dot_product_attention`` with the bias as a float
-   mask, for K4b's wgrad cuDNN's weight-only ``convolution_backward`` of
-   each branch; no one PyTorch call computes the function of K2, K3, K4f,
-   K4b, K5 or K6. Each path's calls per unit must equal the launches its
-   run makes (phases 4, 7, 9, 11).
+   are also timed alone ("jlc_branch_wgrad", on K4b's own dy). K2f and K3f
+   also write each row's log-sum-exp (held against its plain version), and
+   K2b and K3b take it with the forward's output; K2b also runs at
+   Hecktor's L = 512 (no main path's, weight 0); K5b takes K5f's plane
+   statistics, as the train step runs it. Every K2b, K3b and K5b output,
+   K5f's output and statistics and K4b's dW must repeat bit for bit; the
+   K2b/K3b dbias, K4b dW and K5b dW1/dW2 checksums are printed so that two
+   runs can be compared. The timers, the card query and the bounds are
+   ``tools/chip_measure.py``'s. Print errors and times: kernel, plain
+   version, the least time the card could take (bound), and one library
+   call as a yardstick the port never calls: for K1
+   ``scaled_dot_product_attention`` with the bias as a float mask; for K2f
+   and K2b (and K3 beside them) the same call with ``dropout_p`` = p and,
+   for the backward, its autograd backward with the mask requiring grad
+   (same work, different dropout mask: SDPA draws its own; the backend
+   that ran is printed); for K4b's wgrad cuDNN's weight-only
+   ``convolution_backward`` of each branch; no one PyTorch call computes
+   the function of K4f, K4b, K5 or K6. Each path's calls per unit must
+   equal the launches its run makes (phases 4, 7, 9, 11).
 4. build the AutoPET-II model (``config/models_config_autopetii.json``) at
    full width with seeded weights on the card; run the eval forward on a
    seeded (1, 96, 96, 96, 2) tile and hold it against the same model and
@@ -91,8 +96,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 # the timers, the card query and the bounds, shared with the bench tools
 from chip_measure import (FP32_FLOP_PER_S, HBM_BYTES_PER_S,  # noqa: E402
-                          bound, card as card_line, cuda_ms,
-                          stage2_bwd_work, train_attention_work)
+                          bound, card as card_line, cuda_ms, sdpa_backend,
+                          stage2_bwd_work, stage2_fwd_work,
+                          train_attention_work)
 
 
 def taps_in_bounds(s, k):
@@ -305,12 +311,14 @@ def main() -> int:
     # -- phase 3: K2f, K2b, K3f, K3b (train attention, dropout 0.1) --------
     p_drop = 0.1                 # attn_drop: VeloxSegConfig's default
     seed = torch.tensor([1234, 0], dtype=torch.int32, device=dev)
-    sums = {}
+    sums, backends = {}, {}
 
     def train_attention(long, name, b, h, n, cqk, cv, L, weight,
                         unit="train_96"):
         """Hold K2 (``long`` False) or K3 against the plain versions and
-        time them; the backward must repeat bit for bit."""
+        time them, beside SDPA as the library yardstick; the forward's lse
+        must match its plain version and every output of the backward,
+        which takes the forward's out and lse, repeat bit for bit."""
         pa = pwa_attention
         fwd = pa.window_attention_train_fwd_long if long \
             else pa.window_attention_train_fwd
@@ -324,24 +332,47 @@ def main() -> int:
         do = randn(b, h, n, cv, L)
         scale = 1.0 / cqk ** 0.5
         qkvb = (q, k, v, bias, seed)
-        # K3f also writes each row's log-sum-exp, which K3b takes with out
-        got = fwd(*qkvb, scale, p_drop)
-        saved = got if long else ()
-        if long:
-            got = got[0]
-            require_close(f"K3f {name} lse", saved[1],
-                          pa.train_lse_plain(q, k, bias, scale), atol=1e-5,
-                          rtol=1e-5)
+        got, lse = saved = fwd(*qkvb, scale, p_drop)
+        require_close(f"{tag}f {name} lse", lse,
+                      pa.train_lse_plain(q, k, bias, scale), atol=1e-5,
+                      rtol=1e-5)
         ref = pa.window_attention_train_fwd_plain(*qkvb, scale, p_drop)
         torch.cuda.synchronize()
         require_close(f"{tag}f {name}", got, ref, atol=1e-4, rtol=1e-4)
         err = max_err(got, ref)
         del got, ref
-        work_f, work_b = train_attention_work(b, h, n, cqk, cv, L, long)
+        # the library yardstick: SDPA on the windows as a batch of
+        # (b·n, h) heads, the bias a float mask broadcast over the batch;
+        # the same work with its own dropout mask
+        q4, k4, v4, do4 = (t.permute(0, 2, 1, 4, 3).reshape(b * n, h, L, -1)
+                           .contiguous() for t in (q, k, v, do))
+        bias4 = bias.clone()
+        for t in (q4, k4, v4, bias4):
+            t.requires_grad_()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q4, k4, v4, bias4[None], dropout_p=p_drop, scale=scale)
+        with torch.no_grad():
+            lib_f = cuda_ms(sdpa, 5)
+            backend = sdpa_backend(sdpa)
+        y4 = sdpa()
+        if not bool(torch.isfinite(y4).all()):
+            raise AssertionError(f"SDPA {name}: non-finite output")
+
+        def sdpa_bwd():
+            return torch.autograd.grad(y4, (q4, k4, v4, bias4), do4,
+                                       retain_graph=True)
+        lib_b = cuda_ms(sdpa_bwd, 5)
+        del y4, q4, k4, v4, do4, bias4
+        backends[f"{tag} {name}"] = backend
+        print(f"[3] SDPA {name}: backend {backend} (same work, different "
+              f"dropout mask)", flush=True)
+        work_f, work_b = train_attention_work(b, h, n, cqk, cv, L)
         record(fname, name, weight, *work_f, err,
                cuda_ms(lambda: fwd(*qkvb, scale, p_drop)),
                cuda_ms(lambda: pa.window_attention_train_fwd_plain(
-                   *qkvb, scale, p_drop), 5), None, unit)
+                   *qkvb, scale, p_drop), 5), lib_f, unit)
 
         grads = bwd(*qkvb, do, scale, p_drop, *saved)
         again = bwd(*qkvb, do, scale, p_drop, *saved)
@@ -354,10 +385,8 @@ def main() -> int:
                           rtol=1e-4)
             gerrs.append(max_err(g, r))
         del refs
-        # K2b's dbias, and every output of K3b, is summed in a fixed order
-        repeat = zip(("dq", "dk", "dv", "dbias"), grads, again) if long \
-            else [("dbias", grads[3], again[3])]
-        for gname, g, g2 in repeat:
+        # every sum of K2b and K3b is taken in a fixed order
+        for gname, g, g2 in zip(("dq", "dk", "dv", "dbias"), grads, again):
             if not torch.equal(g, g2):
                 raise AssertionError(f"{tag}b {name}: {gname} differs "
                                      f"between calls")
@@ -367,13 +396,16 @@ def main() -> int:
                (max(e[0] for e in gerrs), max(e[1] for e in gerrs)),
                cuda_ms(lambda: bwd(*qkvb, do, scale, p_drop, *saved)),
                cuda_ms(lambda: pa.window_attention_train_bwd_plain(
-                   *qkvb, do, scale, p_drop), 5), None, unit)
+                   *qkvb, do, scale, p_drop), 5), lib_b, unit)
         del saved
         torch.cuda.empty_cache()
 
     # AutoPET-II, B = 2: K2 at every level
     for name, b, h, n, cqk, cv, L in k1_shapes(cfg_dict, range(4), batch):
         train_attention(False, name, b, h, n, cqk, cv, L, 1)
+    # Hecktor's L = 512 level, K2's largest window (on no main path)
+    for name, b, h, n, cqk, cv, L in k1_shapes(hk_dict, [1], batch):
+        train_attention(False, f"hecktor_{name}", b, h, n, cqk, cv, L, 0)
     # the 128³ flagship: K3 at level 1 (B = 2, then bench.py's B = 16), K2
     # at levels 0, 2, 3 (B = 16), and K2 at level 1 beside K3, not counted
     flag = k1_shapes(fcfg.to_dict(), range(4), big_batch)
@@ -433,17 +465,21 @@ def main() -> int:
                            x, ws, bs, groups), 5), None, unit)
                 del ref1
 
-                out = fused_jlc.jlc_stage2(out1, w1, b1, w2, b2)
+                out, mean, rstd = fused_jlc._jlc_stage2_fwd(out1, w1, b1, w2,
+                                                           b2)
+                again = fused_jlc._jlc_stage2_fwd(out1, w1, b1, w2, b2)
                 ref = fused_jlc.jlc_stage2_plain(out1, w1, b1, w2, b2)
                 torch.cuda.synchronize()
                 require_close(f"K5f {name}", out, ref, atol=1e-4, rtol=1e-4)
-                n_bytes = 4 * (2 * vox + w1.numel() + b1.numel()
-                               + w2.numel() + b2.numel())
-                # the two channel products, then stats (2) and normalize
-                # (2) per input, bias + GELU (5) per hidden, bias + residual
-                # (2)
-                n_flop = 4 * vox * e * c + 4 * vox + 5 * vox * e + 2 * vox
-                record("jlc_stage2", name, weight, n_bytes, n_flop,
+                # fixed-order sums: the output and the statistics repeat
+                for what, t, t2 in zip(("out", "mean", "rstd"),
+                                       (out, mean, rstd), again):
+                    if not torch.equal(t, t2):
+                        raise AssertionError(f"K5f {name}: {what} differs "
+                                             f"between calls")
+                del again, mean, rstd
+                record("jlc_stage2", name, weight,
+                       *stage2_fwd_work(b, c, e, s ** 3),
                        max_err(out, ref),
                        cuda_ms(lambda: fused_jlc.jlc_stage2(out1, w1, b1, w2,
                                                             b2)),
@@ -578,6 +614,7 @@ def main() -> int:
     print(f"[3] bit-identical on repeat; checksums {json.dumps(sums)}",
           flush=True)
     report["checksums"] = sums
+    report["sdpa_backends"] = backends
 
     # -- phase 4: full-width eval forward, card vs CPU -----------------------
     serving = {"pwa_attention": pwa_attention.window_attention,

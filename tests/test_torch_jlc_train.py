@@ -4,8 +4,9 @@ gradient and the K5b twin, then the conv's dgrad) against ``jax.grad``
 through the JAX Pallas block (``fused_jlc.jlc_block``, interpret mode, as
 ``tests/test_fused_jlc.py`` runs it) or, for volumes the 2×2×2 packing
 cannot take, through the JAX ``JLC`` module; the JLC module with its
-stage-2 dropout; and K4's launch geometry. The CUDA kernels against their
-plain versions are in ``test_torch_kernels.py``."""
+stage-2 dropout; K4's, K5f's and K5b's launch geometry; and K5f's and
+K5b's decompositions and padding. The CUDA kernels against their plain
+versions are in ``test_torch_kernels.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -281,7 +282,7 @@ def test_stage2_padding_adds_nothing(c, e):
     mean, rstd = (t.reshape(-1) for t in port._plane_stats(x))
     xp, w1p, b1p, w2p, gp, mp, rp = port.pad_stage2_bwd(x, w1, b1, w2, g,
                                                          mean, rstd)
-    cp, hp = port.stage2_bwd_widths(c, hid)
+    cp, hp = port.stage2_widths(c, hid)
     assert cp % 8 == 0 and hp % 4 == 0 and cp - c < 8 and hp - hid < 4
     assert xp.shape == (b, cp) + spatial and gp.shape == xp.shape
     assert w1p.shape == (hp, cp) and w2p.shape == (cp, hp)
@@ -313,3 +314,90 @@ def test_stage2_bwd_launch_refuses_stages_too_wide_for_a_block(c, hid):
     with pytest.raises(ValueError, match="no hidden slice"):
         port.stage2_bwd_launch(2, c, hid, 1000, 132)
     port.stage2_bwd_launch(2, 200, 2 * 200, 1000, 132)
+
+
+# (B, C, E·C, voxels) of every main path's K5f levels: the AutoPET-II
+# forward (4 tiles of 96³), its train step at conv_drop 0 (B = 2), the 128³
+# flagship step (B = 16)
+FWD_STAGE2_LEVELS = [(b, 16 * 2 ** i, e * 16 * 2 ** i, (s0 // 2 ** i) ** 3)
+                     for b, s0 in ((4, 24), (2, 24), (16, 32))
+                     for i, e in enumerate((3, 3, 2, 2))]
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("b,c,hid,s", FWD_STAGE2_LEVELS + [
+    (2, 16, 48, 105), (3, 8, 24, 27), (2, 200, 400, 64)])
+def test_stage2_fwd_launch_covers_every_voxel_and_unit_once(b, c, hid, s,
+                                                            sms):
+    lw = port.stage2_fwd_launch(b, c, hid, s, sms)
+    # tiles of a power of two from 32 to 256 voxels (dividing the 256
+    # threads), C·vt at most 4096 floats unless vt is at its floor
+    assert lw.vt in (32, 64, 128, 256)
+    assert c * lw.vt <= 4096 or lw.vt == 32
+    assert lw.hs % 4 == 0 and lw.hs * lw.slices == hid
+    # shared memory (floats): W1ᵀ and W2ᵀ slices, b1, b2, two stage
+    # buffers of ẑ, the hidden tile (csrc/jlc_stage2.cu)
+    floats = 2 * lw.hs * c + lw.hs + c + (2 * c + lw.hs) * (lw.vt + 4)
+    assert floats * 4 <= 232448
+    if c == 128:
+        assert lw.slices >= 2          # W1 + W2 (256 KB) exceed a block
+    # the chunks split the tiles in order, none of them empty
+    ranges = lw.tile_ranges()
+    assert [t for lo, hi in ranges for t in range(lo, hi)] \
+        == list(range(lw.tiles))
+    assert all(hi > lo for lo, hi in ranges)
+    # grid (chunk, slice): every (b, voxel, hidden row) in exactly one
+    # block; tile t holds flattened voxels [t·vt, (t + 1)·vt), voxel u
+    # being sample u // S, voxel u % S
+    seen = np.zeros((b * s, hid), np.int8)
+    for lo, hi in ranges:
+        for e0, e1 in lw.slice_rows():
+            for t in range(lo, hi):
+                assert t * lw.vt < b * s
+                seen[t * lw.vt:(t + 1) * lw.vt, e0:e1] += 1
+    assert (seen == 1).all()
+
+
+def _jax_jlc_forward(blk, c, groups, expansion, x):
+    sd = {f"encoder.encoder_conv.layer1.0.{k}": v
+          for k, v in blk.state_dict().items()}
+    params = convert_state_dict(sd)["encoder"]["conv_layer1"]["JLC_0"]
+    jblk = JaxJLC(kernel_sizes=(1, 3, 5), groups=groups,
+                  expansion_factor=expansion)
+    return np.asarray(jax.jit(lambda p, v: jblk.apply({"params": p}, v,
+                                                      True))(
+        params, jnp.asarray(x)))
+
+
+# widths K5f runs padded (C 12 → 16, 20 → 24 in two hidden slices, 6 → 8
+# with E·C 18 → 20) and a multiple of 8; odd volumes, so tiles span
+# samples
+@pytest.mark.parametrize("c,groups,e,spatial,sms", [
+    (12, 3, 3, (3, 5, 7), 132), (20, 5, 2, (5, 5, 3), 132),
+    (6, 2, 3, (3, 4, 5), 132), (16, 4, 3, (5, 7, 9), 1)])
+def test_stage2_split_form_with_padding_matches_jax_jlc_module(
+        c, groups, e, spatial, sms):
+    blk = randomize_(JLC(c, (1, 3, 5), groups, e), seed=c, scale=0.3)
+    x = normal((2, *spatial, c), seed=6)
+    convs = blk._convs()
+    expand, project = blk.channel_conv[1], blk.channel_conv[3]
+    hid = e * c
+    with torch.no_grad():
+        out1 = port.jlc_stage1_plain(cf(x).contiguous(),
+                                     [m.weight for m in convs],
+                                     [m.bias for m in convs], groups)
+        ins = port.pad_stage2_fwd(out1, expand.weight.reshape(hid, c),
+                                  expand.bias, project.weight.reshape(c, hid),
+                                  project.bias)
+        cp, hp = port.stage2_widths(c, hid)
+        assert ins[0].shape == (2, cp) + spatial and ins[1].shape == (hp, cp)
+        lw = port.stage2_fwd_launch(2, cp, hp, int(np.prod(spatial)), sms)
+        got = port.jlc_stage2_split_plain(
+            ins[0], ins[1][..., None, None, None], ins[2],
+            ins[3][..., None, None, None], ins[4], lw)
+    # the padded output planes stay 0; the real ones are the JAX module's
+    assert not got[:, c:].any()
+    ref = _jax_jlc_forward(blk, c, groups, e, x)
+    # fp32; sums in other orders (per slice and tile)
+    np.testing.assert_allclose(cl(got[:, :c]), ref, rtol=0,
+                               atol=1e-4 * float(np.abs(ref).max()))

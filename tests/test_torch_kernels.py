@@ -69,11 +69,54 @@ def test_jlc_kernels_match_plain(c, groups, expansion, s):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
+# K5f at every main path's JLC levels: (B, C, E, edge) of the AutoPET-II
+# forward (4 tiles) and of the 128³ flagship step (B = 16), the AutoPET-II
+# train step's L0 (B = 2, two hidden slices), and widths it runs padded
+K5F_SHAPES = [(b, 16 * 2 ** i, e, s0 // 2 ** i)
+              for b, s0 in ((4, 24), (16, 32))
+              for i, e in enumerate((3, 3, 2, 2))] + [
+    (2, 16, 3, 24), (2, 12, 3, 5), (3, 6, 3, 7), (2, 20, 2, 6)]
+
+
+@pytest.mark.parametrize("b,c,e,s", K5F_SHAPES)
+def test_jlc_stage2_kernel_at_main_path_shapes(b, c, e, s):
+    dev = cuda_or_skip()
+    hid = e * c
+    x = torch.from_numpy(normal((b, c, s, s, s), seed=31, scale=1.5)).to(dev)
+    w1 = torch.from_numpy(normal((hid, c, 1, 1, 1), 32,
+                                 (2.0 / c) ** 0.5)).to(dev)
+    b1 = torch.from_numpy(normal((hid,), 33, 0.1)).to(dev)
+    w2 = torch.from_numpy(normal((c, hid, 1, 1, 1), 34,
+                                 (2.0 / hid) ** 0.5)).to(dev)
+    b2 = torch.from_numpy(normal((c,), 35, 0.1)).to(dev)
+    n2 = fused_jlc.jlc_stage2.launches
+    with torch.no_grad():
+        out, mean, rstd = fused_jlc._jlc_stage2_fwd(x, w1, b1, w2, b2)
+        again = fused_jlc._jlc_stage2_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert fused_jlc.jlc_stage2.launches == n2 + 2
+    ref = fused_jlc.jlc_stage2_plain(x, w1, b1, w2, b2)
+    m, r = fused_jlc._plane_stats(x)
+    # fp32 (TF32 off); other summation orders, double-precision statistics
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(mean, m.reshape(-1), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, r.reshape(-1), rtol=1e-5, atol=1e-6)
+    # fixed-order sums: the output and the statistics repeat bit for bit
+    for a, a2 in zip((out, mean, rstd), again):
+        assert torch.equal(a, a2)
+
+
 # (B, h, N, Cqk, Cv, L) of the train attention at AutoPET (B = 2), plus a
 # Hecktor L1 window and a ragged window count
 TRAIN_ATTN = [(2, 1, 585, 4, 4, 54), (2, 2, 9, 8, 8, 432),
               (2, 2, 9, 8, 16, 54), (2, 4, 1, 16, 32, 54),
               (2, 2, 7, 8, 8, 512)]
+# K2's main-path shapes: AutoPET-II 96³ at B = 2 (L0-L3) and the 128³
+# flagship at B = 16 (L0, L2, L3), and Hecktor's L = 512 window
+K2_MAIN_PATH = [(2, 1, 585, 4, 4, 54), (2, 2, 9, 8, 8, 432),
+                (2, 2, 9, 8, 16, 54), (2, 4, 1, 16, 32, 54),
+                (16, 1, 585, 4, 4, 128), (16, 2, 9, 8, 16, 128),
+                (16, 4, 1, 16, 32, 128), (2, 2, 9, 8, 8, 512)]
 
 
 def _train_inputs(dev, b, h, n, c_qk, c_v, l, seed=0):
@@ -93,12 +136,12 @@ def test_train_attention_kernels_match_plain(b, h, n, c_qk, c_v, l, p):
     scale = 1.0 / np.sqrt(c_qk)
     f0 = pwa_attention.window_attention_train_fwd.launches
     b0 = pwa_attention.window_attention_train_bwd.launches
-    out = pwa_attention.window_attention_train_fwd(q, k, v, bias, seed,
-                                                   scale, p)
+    out, lse = pwa_attention.window_attention_train_fwd(q, k, v, bias, seed,
+                                                        scale, p)
     grads = pwa_attention.window_attention_train_bwd(q, k, v, bias, seed,
-                                                     do, scale, p)
+                                                     do, scale, p, out, lse)
     again = pwa_attention.window_attention_train_bwd(q, k, v, bias, seed,
-                                                     do, scale, p)
+                                                     do, scale, p, out, lse)
     torch.cuda.synchronize()
     assert pwa_attention.window_attention_train_fwd.launches == f0 + 1
     assert pwa_attention.window_attention_train_bwd.launches == b0 + 2
@@ -108,11 +151,54 @@ def test_train_attention_kernels_match_plain(b, h, n, c_qk, c_v, l, p):
                                                           seed, do, scale, p)
     # fp32; the same mask on both sides, sums taken in other orders
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(
+        lse, pwa_attention.train_lse_plain(q, k, bias, scale), rtol=1e-5,
+        atol=1e-5)
     for got, r in zip(grads, refs):
         scale_r = float(r.abs().max())
         torch.testing.assert_close(got, r, rtol=1e-4, atol=1e-4 * scale_r)
     # dbias is reduced in a fixed order: bit-identical between calls
     assert torch.equal(grads[3], again[3])
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,n,c_qk,c_v,l", K2_MAIN_PATH)
+def test_train_attention_backward_at_main_path_shapes(b, h, n, c_qk, c_v, l,
+                                                      p):
+    dev = cuda_or_skip()
+    q, k, v, bias, do = _train_inputs(dev, b, h, n, c_qk, c_v, l, seed=3)
+    seed = torch.tensor([99, 2], dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(c_qk)
+    out, lse = pwa_attention.window_attention_train_fwd(q, k, v, bias, seed,
+                                                        scale, p)
+    grads = pwa_attention.window_attention_train_bwd(q, k, v, bias, seed,
+                                                     do, scale, p, out, lse)
+    again = pwa_attention.window_attention_train_bwd(q, k, v, bias, seed,
+                                                     do, scale, p, out, lse)
+    lw = pwa_attention.train_bwd_launch(b, h, n, l, c_qk, c_v,
+                                        torch.cuda.get_device_properties(
+                                            dev).multi_processor_count)
+    refs = pwa_attention.window_attention_train_bwd_tiled_plain(
+        q, k, v, bias, seed, do, out, lse, scale, p, lw.tile, lw.per)
+    # the same P, D and mask from the same out and lse; sums in other
+    # orders
+    for got, r in zip(grads, refs):
+        torch.testing.assert_close(got, r, rtol=1e-4,
+                                   atol=1e-4 * float(r.abs().max()))
+    # no atomics: all four outputs repeat bit for bit
+    for a, a2 in zip(grads, again):
+        assert torch.equal(a, a2)
+
+
+def test_train_attention_backward_needs_the_forward():
+    dev = cuda_or_skip()
+    q, k, v, bias, do = _train_inputs(dev, 1, 1, 2, 4, 4, 54)
+    seed = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    # K2f's lse is one float per row: one of another shape is refused
+    with pytest.raises(ValueError, match="lse"):
+        pwa_attention.window_attention_train_bwd(
+            q, k, v, bias, seed, do, 0.5, 0.1, do,
+            torch.zeros(1, 1, 2, 53, device=dev))
 
 
 # (B, h, N, Cqk, Cv, L) of the long-window train attention: the 128³
@@ -167,8 +253,8 @@ def test_long_train_attention_backward_matches_its_decomposition(l, p):
         q, k, v, bias, seed, scale, p)
     grads = pwa_attention.window_attention_train_bwd_long(
         q, k, v, bias, seed, do, scale, p, out, lse)
-    refs = pwa_attention.window_attention_train_bwd_long_plain(
-        q, k, v, bias, seed, do, out, lse, scale, p)
+    refs = pwa_attention.window_attention_train_bwd_tiled_plain(
+        q, k, v, bias, seed, do, out, lse, scale, p, 128, 2 * 3)
     # the same P, D and mask from the same out and lse; sums in other
     # orders
     for got, r in zip(grads, refs):

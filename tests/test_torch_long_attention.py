@@ -129,8 +129,9 @@ def test_long_bwd_decomposition_matches_jax_vjp():
     ts = [torch.from_numpy(a) for a in (q, k, v, bias, do)]
     st = torch.tensor(seed, dtype=torch.int32)
     out, lse = port.window_attention_train_fwd_long(*ts[:4], st, scale, p)
-    grads = port.window_attention_train_bwd_long_plain(
-        *ts[:4], st, ts[4], out, lse, scale, p)
+    # K3b's tiles of 128, all windows of a head in one chunk
+    grads = port.window_attention_train_bwd_tiled_plain(
+        *ts[:4], st, ts[4], out, lse, scale, p, 128, 2)
     sj = jnp.asarray([seed], jnp.int32)
     ref, vjp = jax.vjp(lambda *a: _train_xla(*a, sj, scale, p),
                        *map(jnp.asarray, (q, k, v, bias)))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time K5b (JLC stage-2 backward), K3b (long-window train-attention
-backward) and K3f at the training paths' shapes, for one checkout of the
-port.
+"""Time the training paths' redesigned kernels for one checkout of the
+port: K2b and K2f (train attention, L <= 512), K5f (JLC stage-2 forward),
+K5b (its backward), K3b and K3f (long-window train attention).
 
     python3 tools/bench_train_bwd.py [--root DIR] [--tag NAME] [--out DIR]
 
@@ -9,18 +9,22 @@ port.
 one), so that an older commit unpacked beside it can be timed in the same
 call on the same card (run old, new, new, old). Each kernel is reached as
 the train step reaches it, through the autograd entry points that every
-checkout of the port has: K5b as the backward of ``jlc_stage2`` (with what
-that checkout's forward saved for it), K3b as the backward of
-``window_attention_train`` and K3f as its forward. Shapes: K5b at the four
-JLC levels of the AutoPET-II 96³ train step (B = 2) and of the 128³
-flagship step (B = 16); K3f and K3b at the flagship's level 1 (h 2, 9
-windows, Cqk = Cv = 8, L = 1024) at B = 16 and B = 2, attention dropout
-0.1. Seeded inputs, fp32, TF32 off. Per shape and function: ms per call
-from CUDA events over 20 back-to-back calls after a warm-up (L2 warm), the
-device ms per call (the sum of its kernels' times in ``torch.profiler``
-over 10 calls), and this checkout's bound as ``chip_smoke.py`` counts it
-(``tools/chip_measure.py``). Prints the card and one JSON line per shape;
-writes ``<out>/bench_train_bwd_<tag>.json`` (default ``runs``). Needs CUDA.
+checkout of the port has: K2f and K3f as the forward of
+``window_attention_train`` (no grad), K2b and K3b as its backward (with
+what that checkout's forward saved for it), K5f as ``jlc_stage2`` (no grad)
+and K5b as its backward. Shapes: K2 at AutoPET-II 96³'s four levels (B = 2,
+L 54 and 432), the 128³ flagship's levels 0, 2, 3 (B = 16, L 128) and
+Hecktor's L = 512 level (B = 2); K5f at the four JLC levels of the serving
+forward (4 tiles of 96³) and of the flagship step (B = 16); K5b at the four
+JLC levels of the 96³ train step (B = 2) and of the flagship step; K3f and
+K3b at the flagship's level 1 (h 2, 9 windows, Cqk = Cv = 8, L = 1024) at
+B = 16 and B = 2. Attention dropout 0.1; seeded inputs, fp32, TF32 off. Per
+shape and function: ms per call from CUDA events over 20 back-to-back
+calls after a warm-up (L2 warm), the device ms per call (the sum of its
+kernels' times in ``torch.profiler`` over 10 calls), and the bound as
+``chip_smoke.py`` counts it (``tools/chip_measure.py``). Prints the card
+and one JSON line per shape; writes ``<out>/bench_train_bwd_<tag>.json``
+(default ``runs``). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import os
 import sys
 
 from chip_measure import (bound, card, cuda_ms, device_ms, stage2_bwd_work,
-                          train_attention_work)
+                          stage2_fwd_work, train_attention_work)
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -68,16 +72,67 @@ def main() -> int:
         return lambda: torch.autograd.grad(y, leaves, g, retain_graph=True)
 
     rows = []
+    p, seed = 0.1, torch.tensor([1234, 0], dtype=torch.int32, device=dev)
+    # K2f, K2b: (path, level, B, h, N, Cqk, Cv, L)
+    for path, lvl, b, h, n, cq, cv, L in (
+            ("train_96", 0, 2, 1, 585, 4, 4, 54),
+            ("train_96", 1, 2, 2, 9, 8, 8, 432),
+            ("train_96", 2, 2, 2, 9, 8, 16, 54),
+            ("train_96", 3, 2, 4, 1, 16, 32, 54),
+            ("train_flagship", 0, 16, 1, 585, 4, 4, 128),
+            ("train_flagship", 2, 16, 2, 9, 8, 16, 128),
+            ("train_flagship", 3, 16, 4, 1, 16, 32, 128),
+            ("hecktor", 1, 2, 2, 9, 8, 8, 512)):
+        q, k = (randn(b, h, n, cq, L, grad=True) for _ in range(2))
+        v = randn(b, h, n, cv, L, grad=True)
+        bias = randn(h, L, L, scale=0.5, grad=True)
+        do = randn(b, h, n, cv, L)
+        scale = 1.0 / cq ** 0.5
+        work_f, work_b = train_attention_work(b, h, n, cq, cv, L)
+        row = dict(tag=args.tag, card=name, kernel="K2", path=path,
+                   level=lvl, shape=[b, h, n, cq, cv, L], p=p,
+                   k2f_bound_ms=bound(*work_f)[0],
+                   k2b_bound_ms=bound(*work_b)[0])
+        with torch.no_grad():
+            ms(row, "k2f", lambda: pwa_attention.window_attention_train(
+                q, k, v, bias, seed, scale, p))
+        y = pwa_attention.window_attention_train(q, k, v, bias, seed, scale,
+                                                 p)
+        ms(row, "k2b", backward(y, (q, k, v, bias), do))
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        del q, k, v, do, bias, y
+        torch.cuda.empty_cache()
+
+    def stage2_inputs(b, c, e, s, grad):
+        x = randn(b, c, s, s, s, grad=grad)
+        w1 = randn(e * c, c, 1, 1, 1, scale=(2.0 / c) ** 0.5, grad=grad)
+        b1 = randn(e * c, scale=0.1, grad=grad)
+        w2 = randn(c, e * c, 1, 1, 1, scale=(2.0 / (e * c)) ** 0.5,
+                   grad=grad)
+        return x, w1, b1, w2, randn(c, scale=0.1, grad=grad)
+
+    # K5f: (path, B, spatial of level 0); C = 16·2^i, E·C = (3, 3, 2, 2)·C
+    for path, b, s0 in (("serving", 4, 24), ("train_flagship", 16, 32)):
+        for i, e in enumerate((3, 3, 2, 2)):
+            c, s = 16 * 2 ** i, s0 // 2 ** i
+            ins = stage2_inputs(b, c, e, s, False)
+            row = dict(tag=args.tag, card=name, kernel="K5f", path=path,
+                       level=i, shape=[b, c, s, s, s], hid=e * c,
+                       bound_ms=bound(*stage2_fwd_work(b, c, e, s ** 3))[0])
+            with torch.no_grad():
+                ms(row, "k5f", lambda: fused_jlc.jlc_stage2(*ins))
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            del ins
+            torch.cuda.empty_cache()
+
     # K5b: (path, B, spatial of level 0); C = 16·2^i, E·C = (3, 3, 2, 2)·C
     for path, b, s0 in (("train_96", 2, 24), ("train_flagship", 16, 32)):
         for i, e in enumerate((3, 3, 2, 2)):
             c, s = 16 * 2 ** i, s0 // 2 ** i
-            x, g = randn(b, c, s, s, s, grad=True), randn(b, c, s, s, s)
-            w1 = randn(e * c, c, 1, 1, 1, scale=(2.0 / c) ** 0.5, grad=True)
-            b1 = randn(e * c, scale=0.1, grad=True)
-            w2 = randn(c, e * c, 1, 1, 1, scale=(2.0 / (e * c)) ** 0.5,
-                       grad=True)
-            b2 = randn(c, scale=0.1, grad=True)
+            x, w1, b1, w2, b2 = stage2_inputs(b, c, e, s, True)
+            g = randn(b, c, s, s, s)
             y = fused_jlc.jlc_stage2(x, w1, b1, w2, b2)
             row = dict(tag=args.tag, card=name, kernel="K5b", path=path,
                        level=i, shape=[b, c, s, s, s], hid=e * c,
@@ -89,14 +144,13 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     # K3f, K3b: the flagship's level 1
-    p, h, n, cq, L = 0.1, 2, 9, 8, 1024
-    seed = torch.tensor([1234, 0], dtype=torch.int32, device=dev)
+    h, n, cq, L = 2, 9, 8, 1024
     for b in (16, 2):
         q, k, v = (randn(b, h, n, cq, L, grad=True) for _ in range(3))
         bias = randn(h, L, L, scale=0.5, grad=True)
         do = randn(b, h, n, cq, L)
         scale = 1.0 / cq ** 0.5
-        work_f, work_b = train_attention_work(b, h, n, cq, cq, L, True)
+        work_f, work_b = train_attention_work(b, h, n, cq, cq, L)
         row = dict(tag=args.tag, card=name, kernel="K3", path="train_flagship",
                    level=1, shape=[b, h, n, cq, L], p=p,
                    k3f_bound_ms=bound(*work_f)[0],

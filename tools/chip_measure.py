@@ -63,29 +63,59 @@ def bound(n_bytes, n_flop):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def train_attention_work(b, h, n, cqk, cv, L, long):
-    """Bytes and fp32 operations of the train attention's forward (K2f, or
-    with ``long`` K3f) and backward (K2b, K3b) on (b, h, n) windows of L
-    tokens: ``((fwd_bytes, fwd_flop), (bwd_bytes, bwd_flop))``. K3f also
-    writes each row's log-sum-exp, and K3b reads it with K3f's output.
+def train_attention_work(b, h, n, cqk, cv, L):
+    """Bytes and fp32 operations of the train attention's forward (K2f, K3f)
+    and backward (K2b, K3b) on (b, h, n) windows of L tokens: ``((fwd_bytes,
+    fwd_flop), (bwd_bytes, bwd_flop))``. Both forwards write each row's
+    log-sum-exp, and both backwards read it with the forward's output.
     Every product runs on the fp32 pipes (no tensor cores)."""
     scores, rows = b * h * n * L * L, b * h * n * L
     qk, vv, bias = b * h * n * cqk * L, b * h * n * cv * L, h * L * L
-    # q, k, v and bias in, out written, the 8-byte seed; the lse rows
-    f_bytes = 4 * (2 * qk + 2 * vv + bias + (rows if long else 0)) + 8
+    # q, k, v and bias in, out and the lse rows written, the 8-byte seed
+    f_bytes = 4 * (2 * qk + 2 * vv + bias + rows) + 8
     # QKᵀ and PV, softmax as K1 (5 per score), and the mask: the hash's 14
     # integer operations and the select, per score, counted at the fp32
     # rate (the card's int32 rate is not higher)
     f_flop = 2 * scores * (cqk + cv) + 5 * scores + rows * cv + 16 * scores
-    # q, k, v, dO in, dq, dk, dv out, bias in and dbias out; K3b also
-    # reads K3f's out and lse
-    b_bytes = 4 * (2 * (2 * qk + vv) + 2 * bias + vv
-                   + (vv + rows if long else 0)) + 8
-    # QKᵀ recomputed once, dOᵀV, dV, dQ, dK; softmax, dS (3) and the mask
-    # (16) per score; dbias summed over the windows
-    b_flop = (2 * scores * (3 * cqk + 2 * cv) + 5 * scores + 3 * scores
+    # q, k, v, dO, out and lse in, dq, dk, dv out, bias in and dbias out
+    b_bytes = 4 * (2 * (2 * qk + vv) + 2 * bias + 2 * vv + rows) + 8
+    # dOᵀV, dV, dQ, dK (QKᵀ is the forward's, not counted again); softmax,
+    # dS (3) and the mask (16) per score; dbias summed over the windows
+    b_flop = (2 * scores * (2 * cqk + 2 * cv) + 5 * scores + 3 * scores
               + 16 * scores + scores)
     return (f_bytes, f_flop), (b_bytes, b_flop)
+
+
+def sdpa_backend(fn) -> str:
+    """Which backend of ``scaled_dot_product_attention`` one call of ``fn``
+    ran: the names of the device kernels it launched, mapped to the
+    backend (flash, efficient, cudnn) or, for none of those, math."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    low = " ".join(names).lower()
+    for key, backend in (("flash", "flash"), ("fmha", "efficient"),
+                         ("efficient", "efficient"), ("cudnn", "cudnn")):
+        if key in low:
+            return backend
+    return "math"
+
+
+def stage2_fwd_work(b, c, e, s):
+    """Bytes and fp32 operations of K5f on (b, c) planes of ``s`` voxels at
+    expansion ``e``: out1 in and out written once, the weights and biases
+    in."""
+    vox = b * c * s
+    n_bytes = 4 * (2 * vox + 2 * e * c * c + e * c + c)
+    # the two channel products, then stats (2) and normalize (2) per input,
+    # bias + GELU (5) per hidden, bias + residual (2)
+    n_flop = 4 * vox * e * c + 4 * vox + 5 * vox * e + 2 * vox
+    return n_bytes, n_flop
 
 
 def stage2_bwd_work(b, c, e, s):

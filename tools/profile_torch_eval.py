@@ -36,12 +36,11 @@ from chip_measure import card as card_line
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # substrings of the port's own kernel names (csrc/*.cu)
-PORT_KERNELS = ("pwa_attention_kernel", "pwa_attention_bwd_kernel",
-                "dbias_reduce", "pwa_long_", "wkv_kernel",
-                "jlc_branch_conv", "jlc_conv_stats", "jlc_branch_wgrad",
-                "jlc_wgrad_reduce", "plane_stats_kernel",
+PORT_KERNELS = ("pwa_attention_kernel", "pwa_bwd_", "pwa_long_",
+                "wkv_kernel", "jlc_branch_conv", "jlc_conv_stats",
+                "jlc_branch_wgrad", "jlc_wgrad_reduce", "plane_stats_kernel",
                 "jlc_stage1_apply", "jlc_stage1_bwd_planes",
-                "jlc_channel_mlp", "jlc_mlp_bwd_tiles",
+                "jlc_stage2_mlp", "jlc_stage2_sum", "jlc_mlp_bwd_tiles",
                 "jlc_stage2_bwd_planes")
 
 # (family, substrings of the kernel names), first match wins: the port's
@@ -49,7 +48,7 @@ PORT_KERNELS = ("pwa_attention_kernel", "pwa_attention_bwd_kernel",
 # "wgrad", "reduce") their names also hold
 FAMILIES = (
     ("K1/K2f attention (pwa_attention_kernel)", ("pwa_attention_kernel",)),
-    ("K2b attention backward", ("pwa_attention_bwd_kernel", "dbias_reduce")),
+    ("K2b attention backward", ("pwa_bwd_",)),
     ("K3f long-window attention", ("pwa_long_fwd_kernel",)),
     ("K3b long-window attention backward", ("pwa_long_bwd",)),
     ("K6 WKV recurrence", ("wkv_kernel",)),
@@ -60,7 +59,7 @@ FAMILIES = (
                                        "jlc_conv_stats")),
     ("K4f apply", ("jlc_stage1_apply",)),
     ("K4b planes", ("jlc_stage1_bwd_planes",)),
-    ("K5f MLP", ("jlc_channel_mlp",)),
+    ("K5f MLP", ("jlc_stage2_mlp", "jlc_stage2_sum")),
     ("K5b", ("jlc_mlp_bwd_tiles", "jlc_stage2_bwd_planes")),
     ("optimizer (foreach AdamW)", ("multi_tensor", "foreach")),
     ("cuDNN/cuBLAS convs and GEMMs", ("conv", "cudnn", "xmma", "gemm",

@@ -43,6 +43,39 @@ __device__ __forceinline__ uint32_t keep_hash(uint32_t gid, uint32_t seed) {
   return x;
 }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Copies from global to shared memory that do not hold up the thread
+// (cp.async, 4 or 16 bytes), zero-filled where `valid` is false; complete
+// after cp_async_wait_all. Staging loops issue all their copies before
+// waiting once, instead of one load's latency per element.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src,
+                                               bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A 16-byte load or store of shared memory (16-byte aligned).
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void sts4(float* p, float a, float b, float c,
+                                     float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+
 // Sum two doubles over a block of kStatsThreads threads in a fixed order
 // (warp shuffles, then a fixed tree over the warps); every thread gets
 // the totals. Deterministic: no atomics.
@@ -86,16 +119,39 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // of S floats into its mean and rsqrt(max(var, 0) + eps). Sums run in
 // double, in a fixed order (strided per thread, then a fixed tree), so a
 // run repeats bit for bit and E[x^2] - E[x]^2 loses nothing to fp32
-// cancellation. Launch with kStatsThreads threads and one block per plane.
+// cancellation. Where S is a multiple of 4 each thread keeps four float4
+// loads in flight (a plane of 32³ floats is 128 KB). Launch with
+// kStatsThreads threads and one block per plane.
+__device__ __forceinline__ void add_stats(double& s1, double& s2, float4 v) {
+  const double a = v.x, b = v.y, c = v.z, d = v.w;
+  s1 = s1 + a + b + c + d;
+  s2 = s2 + a * a + b * b + c * c + d * d;
+}
+
 __global__ void __launch_bounds__(kStatsThreads)
 plane_stats_kernel(const float* __restrict__ x, int64_t S, float eps,
                    float* __restrict__ mean, float* __restrict__ rstd) {
   const float* p = x + static_cast<int64_t>(blockIdx.x) * S;
   double s1 = 0.0, s2 = 0.0;
-  for (int64_t i = threadIdx.x; i < S; i += blockDim.x) {
-    const double v = p[i];
-    s1 += v;
-    s2 += v * v;
+  if ((S & 3) == 0) {
+    const float4* p4 = reinterpret_cast<const float4*>(p);
+    const int64_t n4 = S / 4, bd = blockDim.x;
+    int64_t i = threadIdx.x;
+    for (; i + 3 * bd < n4; i += 4 * bd) {
+      const float4 a = p4[i], b = p4[i + bd], c = p4[i + 2 * bd],
+                   d = p4[i + 3 * bd];
+      add_stats(s1, s2, a);
+      add_stats(s1, s2, b);
+      add_stats(s1, s2, c);
+      add_stats(s1, s2, d);
+    }
+    for (; i < n4; i += bd) add_stats(s1, s2, p4[i]);
+  } else {
+    for (int64_t i = threadIdx.x; i < S; i += blockDim.x) {
+      const double v = p[i];
+      s1 += v;
+      s2 += v * v;
+    }
   }
   for (int off = 16; off > 0; off >>= 1) {
     s1 += __shfl_down_sync(0xffffffffu, s1, off);

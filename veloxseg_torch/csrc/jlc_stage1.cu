@@ -128,21 +128,6 @@ struct RadixWalk {
   }
 };
 
-// A 4-byte copy from global to shared memory that does not hold up the
-// thread (cp.async), zero-filled where `valid` is false; the copies are
-// complete after cp_async_wait_all. The staging loops issue all their
-// loads before waiting once, instead of one load's latency per element.
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
-                                             bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Stage channels [cbase, cbase + nc) of x (sample and group folded into
 // cbase) of the tile at (z0, y0, x0) plus the halo into xs, planes
 // ``plane`` floats apart; zero outside the volume. Asynchronous: wait with

@@ -4,24 +4,32 @@
 //   out = out1 + W2 · GELU(W1 · InstanceNorm(out1) + b1) + b2
 //
 // Replaces: veloxseg_tpu/ops/fused_jlc.py:_k2_kernel (177-192), called
-// through _k2_fwd (297-312). Two launches:
+// through _k2_fwd (297-312). Two launches, three where the hidden
+// dimension is split:
 //   1. plane_stats_kernel (common.cuh): deterministic per-(b, c) mean and
-//      rstd of out1 (eps 1e-5, max(var, 0)).
-//   2. jlc_channel_mlp: one block per tile of kTile voxels of one sample.
-//      It normalizes the tile into shared memory as z[c][v], computes the
-//      hidden layer h[e][v] = GELU(b1[e] + sum_c W1[e][c] z[c][v]) into
-//      shared memory, then out[c][v] = out1 + b2[c] + sum_e W2[c][e] h[e][v].
-//      The tile width is one warp, so the 32 lanes of a warp share one
-//      weight index (a broadcast read through L1) and read z and h at
-//      consecutive addresses. The matrix products stay in this kernel, as
-//      they were inside the TPU kernel's body.
+//      rstd of out1 (eps 1e-5, max(var, 0)), sums in double in a fixed
+//      order; K5b takes them.
+//   2. jlc_stage2_mlp: the channel MLP on tiles of VT voxels of the
+//      flattened (b, voxel) index (a tile may span samples: the plane
+//      statistics are a per-(b, c) lookup), VT·C = 4096 floats (VT 32 to
+//      256). Block (k, s) walks a contiguous range of tiles with hidden
+//      slice s (E·C split in `slices` parts of HS rows where W1 and W2 do
+//      not fit a block, or where too few tiles would leave SMs idle); it
+//      stages W1ᵀ and W2ᵀ of its slice once, the next tile's out1 arrives by
+//      cp.async while one is computed. Per tile: ẑ = IN(out1) in shared
+//      memory as [C][VT + 4]; h = GELU(W1·ẑ + b1) in 4 hidden × 4 voxel
+//      register tiles, then W2·h in 4 channel × 4 voxel tiles, each float4
+//      shared-memory load feeding 4 FMAs. With one slice it writes out =
+//      out1 + (W2·h + b2); with more each slice writes its part of W2·h.
+//   3. jlc_stage2_sum (slices > 1 only): out = out1 + (Σ_s part_s + b2), the
+//      slices added in order.
+// No float atomics: the output and the statistics repeat bit for bit.
 //
-// What bounds it on this card: the function reads out1 once and writes out
-// once, and does 4·C·E·C FLOP per voxel (E = 2..3); at the AutoPET shapes
-// that is ~7 MB and ~0.2 GFLOP per call at L0, so HBM bytes bound it. The
-// stats pass reads out1 a second time. The weights are not staged in shared
-// memory: at L3 (C = 128, E = 2) W1 and W2 are 256 KB of fp32, more than a
-// block may hold, so they stream through L1/L2 as warp-uniform loads.
+// What bounds it on this card: operations and bytes about equally. It does
+// 4·C·E·C FLOP per voxel (E = 2..3) on the fp32 FMA pipes and reads out1
+// once and writes out once (the stats pass reads out1 a second time): at
+// the flagship's level 0 (B 16, C 16, 32³) 1.6 GFLOP on 67 MB. The matrix
+// products stay in this kernel, as they were inside the TPU kernel's body.
 //
 // K5b replaces veloxseg_tpu/ops/fused_jlc.py:_k2_bwd_kernel (194-245),
 // called through _k2_bwd (315-343). Given g, the cotangent of out, it
@@ -59,68 +67,235 @@
 // out1, g, dx once (dz adds a round trip).
 #include "common.cuh"
 
-constexpr int kTile = 32;        // voxels per block (one warp wide)
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
 constexpr int kMlpThreads = 256;
 
-__global__ void __launch_bounds__(kMlpThreads)
-jlc_channel_mlp(const float* __restrict__ x, const float* __restrict__ w1,
-                const float* __restrict__ b1, const float* __restrict__ w2,
-                const float* __restrict__ b2, const float* __restrict__ mean,
-                const float* __restrict__ rstd, float* __restrict__ out,
-                int C, int HID, int64_t S) {
-  extern __shared__ float sm[];
-  float* zs = sm;                 // [C][kTile]
-  float* hs = sm + C * kTile;     // [HID][kTile]
-  const int b = blockIdx.y;
-  const int64_t v0 = (int64_t)blockIdx.x * kTile;
-  const float* xb = x + (int64_t)b * C * S;
-  float* ob = out + (int64_t)b * C * S;
+// Shared memory of a K5f MLP block, in floats (host and device agree;
+// ops/fused_jlc.py:stage2_fwd_launch keeps it within a block's 227 KB):
+// W1ᵀ and W2ᵀ slices, b1 and b2, two stage buffers of ẑ, the hidden tile.
+__host__ __device__ inline int mlp_fwd_smem_floats(int C, int HS, int VT) {
+  return 2 * HS * C + HS + C + 2 * C * (VT + 4) + HS * (VT + 4);
+}
 
-  for (int i = threadIdx.x; i < C * kTile; i += blockDim.x) {
-    const int c = i / kTile, t = i - c * kTile;
-    const int64_t v = v0 + t;
-    float z = 0.f;
-    if (v < S) z = (xb[c * S + v] - mean[b * C + c]) * rstd[b * C + c];
-    zs[i] = z;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < HID * kTile; i += blockDim.x) {
-    const int e = i / kTile, t = i - e * kTile;
-    const float* we = w1 + (int64_t)e * C;
-    float acc = 0.f;
-    for (int c = 0; c < C; ++c) acc = fmaf(__ldg(we + c), zs[c * kTile + t], acc);
-    hs[i] = gelu_exact(acc + __ldg(b1 + e));
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < C * kTile; i += blockDim.x) {
-    const int c = i / kTile, t = i - c * kTile;
-    const int64_t v = v0 + t;
-    if (v >= S) continue;
-    const float* wc = w2 + (int64_t)c * HID;
-    float acc = 0.f;
-    for (int e = 0; e < HID; ++e) acc = fmaf(__ldg(wc + e), hs[e * kTile + t], acc);
-    ob[c * S + v] = xb[c * S + v] + (acc + __ldg(b2 + c));
+// Issue the copies of tile `tile`'s out1 into zs ([C][VT + 4]); voxels past
+// B·S read 0. Thread tid always handles voxel (group) tid % (VT or VT/4):
+// VT divides 256.
+__device__ __forceinline__ void stage_fwd_tile(float* zs,
+                                               const float* __restrict__ x,
+                                               int64_t tile, int C, int VT,
+                                               int64_t S, int64_t BS) {
+  const int VS = VT + 4;
+  if ((S & 3) == 0) {  // 16-byte copies: a group of 4 lies in one sample
+    const int g = VT / 4, t = (threadIdx.x % g) * 4;
+    const int64_t u = tile * VT + t;
+    const bool ok = u < BS;
+    const int64_t b = ok ? u / S : 0, v = ok ? u - b * S : 0;
+    const float* src = x + b * C * S + v;
+    for (int c = threadIdx.x / g; c < C; c += kMlpThreads / g)
+      cp_async_f32x4(zs + c * VS + t, src + c * S, ok);
+  } else {
+    const int t = threadIdx.x % VT;
+    const int64_t u = tile * VT + t;
+    const bool ok = u < BS;
+    const int64_t b = ok ? u / S : 0, v = ok ? u - b * S : 0;
+    const float* src = x + b * C * S + v;
+    for (int c = threadIdx.x / VT; c < C; c += kMlpThreads / VT)
+      cp_async_f32(zs + c * VS + t, src + c * S, ok);
   }
 }
 
-// x: (B, C, D, H, W) = out1; w1: (HID, C); b1: (HID,); w2: (C, HID);
-// b2: (C,); mean, rstd: B·C floats each (scratch); out: like x.
+// K5f launch 2. Block (blockIdx.x = chunk k, blockIdx.y = slice s) walks
+// tiles [k·per, min(tiles, (k + 1)·per)); tile i holds flattened voxels
+// u = i·VT + t, sample u / S, voxel u % S. part: slices·B·C·S floats (only
+// with more than one slice).
+__global__ void __launch_bounds__(kMlpThreads)
+jlc_stage2_mlp(const float* __restrict__ x, const float* __restrict__ w1,
+               const float* __restrict__ b1, const float* __restrict__ w2,
+               const float* __restrict__ b2, const float* __restrict__ mean,
+               const float* __restrict__ rstd, float* __restrict__ out,
+               float* __restrict__ part, int B, int C, int HID, int HS,
+               int64_t S, int VT, int tiles, int per) {
+  extern __shared__ __align__(16) float sm[];
+  const int VS = VT + 4;
+  float* w1t = sm;                   // [C][HS]  W1ᵀ slice
+  float* w2t = w1t + HS * C;         // [HS][C]  W2ᵀ slice
+  float* stg = w2t + HS * C;         // 2 × [C][VS] out1 → ẑ
+  float* hs = stg + 2 * C * VS;      // [HS][VS] GELU(W1·ẑ + b1)
+  float* b1s = hs + HS * VS;         // [HS]
+  float* b2s = b1s + HS;             // [C]
+  const int tid = threadIdx.x;
+  const int s = blockIdx.y, nsl = gridDim.y, e0 = s * HS;
+  const int i0 = blockIdx.x * per, i1 = min(tiles, i0 + per);
+  const int64_t BS = static_cast<int64_t>(B) * S;
+
+  if (i0 < i1) stage_fwd_tile(stg, x, i0, C, VT, S, BS);
+  for (int i = tid; i < HS * C; i += kMlpThreads) {
+    const int e = i / C, c = i - e * C;
+    w1t[c * HS + e] = w1[static_cast<int64_t>(e0 + e) * C + c];
+  }
+  for (int i = tid; i < HS * C; i += kMlpThreads) {
+    const int c = i / HS, e = i - c * HS;
+    w2t[e * C + c] = w2[static_cast<int64_t>(c) * HID + e0 + e];
+  }
+  for (int i = tid; i < HS; i += kMlpThreads) b1s[i] = b1[e0 + i];
+  for (int i = tid; i < C; i += kMlpThreads) b2s[i] = b2[i];
+
+  const int g4 = VT / 4;             // 4-voxel groups of a tile
+  for (int it = i0; it < i1; ++it) {
+    float* zs = stg + ((it - i0) & 1) * C * VS;
+    cp_async_wait_all();
+    __syncthreads();  // this tile is staged; the last one is done with the
+                      // other buffer and with hs
+    if (it + 1 < i1)
+      stage_fwd_tile(stg + ((it + 1 - i0) & 1) * C * VS, x, it + 1, C, VT, S,
+                     BS);
+    {  // out1 → ẑ in place; voxels past B·S stay 0
+      const int t = tid % VT;
+      const int64_t u = static_cast<int64_t>(it) * VT + t;
+      if (u < BS) {
+        const int b = static_cast<int>(u / S);
+        for (int c = tid / VT; c < C; c += kMlpThreads / VT) {
+          float* p = zs + c * VS + t;
+          *p = (*p - mean[b * C + c]) * rstd[b * C + c];
+        }
+      }
+    }
+    __syncthreads();
+    // h = GELU(W1·ẑ + b1): 4 hidden × 4 voxels per job
+    for (int j = tid; j < (HS / 4) * g4; j += kMlpThreads) {
+      const int e4 = j / g4, t4 = j - e4 * g4;
+      float a[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) a[r][k] = 0.f;
+      for (int c = 0; c < C; ++c) {
+        const float4 wv = lds4(w1t + c * HS + e4 * 4);
+        const float4 zv = lds4(zs + c * VS + t4 * 4);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            a[r][k] = fmaf(f4(wv, r), f4(zv, k), a[r][k]);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int e = e4 * 4 + r;
+        const float bb = b1s[e];
+        sts4(hs + e * VS + t4 * 4, gelu_exact(a[r][0] + bb),
+             gelu_exact(a[r][1] + bb), gelu_exact(a[r][2] + bb),
+             gelu_exact(a[r][3] + bb));
+      }
+    }
+    __syncthreads();
+    // W2·h: 4 channels × 4 voxels per job
+    for (int j = tid; j < (C / 4) * g4; j += kMlpThreads) {
+      const int c4 = j / g4, t4 = j - c4 * g4;
+      float a[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) a[r][k] = 0.f;
+      for (int e = 0; e < HS; ++e) {
+        const float4 wv = lds4(w2t + e * C + c4 * 4);
+        const float4 hv = lds4(hs + e * VS + t4 * 4);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            a[r][k] = fmaf(f4(wv, r), f4(hv, k), a[r][k]);
+      }
+      const int64_t u = static_cast<int64_t>(it) * VT + t4 * 4;
+      if ((S & 3) == 0) {  // the group of 4 lies in one sample
+        if (u >= BS) continue;
+        const int64_t b = u / S, v = u - b * S;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int c = c4 * 4 + r;
+          const int64_t o = (b * C + c) * S + v;
+          if (nsl == 1) {
+            const float4 xv = *reinterpret_cast<const float4*>(x + o);
+            const float bb = b2s[c];
+            *reinterpret_cast<float4*>(out + o) = make_float4(
+                xv.x + (a[r][0] + bb), xv.y + (a[r][1] + bb),
+                xv.z + (a[r][2] + bb), xv.w + (a[r][3] + bb));
+          } else {
+            *reinterpret_cast<float4*>(part + s * BS * C + o) =
+                make_float4(a[r][0], a[r][1], a[r][2], a[r][3]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (u + k >= BS) break;
+          const int64_t b = (u + k) / S, v = u + k - b * S;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int c = c4 * 4 + r;
+            const int64_t o = (b * C + c) * S + v;
+            if (nsl == 1) out[o] = x[o] + (a[r][k] + b2s[c]);
+            else part[s * BS * C + o] = a[r][k];
+          }
+        }
+      }
+    }
+  }
+}
+
+// K5f launch 3 (slices > 1): out = out1 + (Σ_s part_s + b2), in slice order.
+__global__ void jlc_stage2_sum(const float* __restrict__ x,
+                               const float* __restrict__ part,
+                               const float* __restrict__ b2,
+                               float* __restrict__ out, int C, int64_t S,
+                               int64_t n, int nsl) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float a = part[i];
+    for (int s = 1; s < nsl; ++s) a += part[s * n + i];
+    out[i] = x[i] + (a + b2[(i / S) % C]);
+  }
+}
+
+// K5f. x = out1: (B, C, D, H, W); w1: (HID, C); b1: (HID,); w2: (C, HID);
+// b2: (C,); mean, rstd: B·C floats (written; K5b takes them); out: like x;
+// part: slices·B·C·S floats of scratch (slices > 1). The launch geometry
+// (ops/fused_jlc.py:stage2_fwd_launch): HS hidden rows per slice, VT voxels
+// per tile (32 to 256, a power of two), chunks of `per` tiles.
 extern "C" int vs_jlc_stage2(const float* x, const float* w1, const float* b1,
                              const float* w2, const float* b2, float* mean,
-                             float* rstd, float* out, int B, int C, int HID,
-                             int S, void* stream_ptr) {
+                             float* rstd, float* out, float* part, int B,
+                             int C, int HID, int S, int HS, int VT,
+                             int chunks, int per, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B == 0 || S == 0) return cudaSuccess;
+  const int64_t bs = static_cast<int64_t>(B) * S;
+  const int64_t tiles = (bs + VT - 1) / VT;
+  if (C % 4 || HS % 4 || HS <= 0 || HID % HS ||
+      (VT != 32 && VT != 64 && VT != 128 && VT != 256) || chunks < 1 ||
+      per < 1 || static_cast<int64_t>(chunks - 1) * per >= tiles ||
+      static_cast<int64_t>(chunks) * per < tiles)
+    return cudaErrorInvalidValue;
   plane_stats_kernel<<<B * C, kStatsThreads, 0, stream>>>(x, S, 1e-5f, mean,
                                                           rstd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)(C + HID) * kTile * sizeof(float);
-  err = allow_smem(jlc_channel_mlp, smem);
+  const size_t smem = (size_t)mlp_fwd_smem_floats(C, HS, VT) * sizeof(float);
+  err = allow_smem(jlc_stage2_mlp, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((S + kTile - 1) / kTile), B);
-  jlc_channel_mlp<<<grid, kMlpThreads, smem, stream>>>(
-      x, w1, b1, w2, b2, mean, rstd, out, C, HID, S);
+  const int nsl = HID / HS;
+  jlc_stage2_mlp<<<dim3(chunks, nsl), kMlpThreads, smem, stream>>>(
+      x, w1, b1, w2, b2, mean, rstd, out, part, B, C, HID, HS, S, VT,
+      static_cast<int>(tiles), per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsl == 1) return err;
+  const int64_t n = bs * C;
+  const int64_t want = (n + 255) / 256;
+  jlc_stage2_sum<<<static_cast<unsigned>(want < 4096 ? want : 4096), 256, 0,
+                   stream>>>(x, part, b2, out, C, S, n, nsl);
   return cudaGetLastError();
 }
 
@@ -129,38 +304,6 @@ constexpr int kVT = 64;          // voxels per K5b tile
 constexpr int kVS = kVT + 4;     // row stride of [row][voxel] tiles (float4,
                                  // and rows 4 banks apart)
 constexpr int kMaxSliceWork = 8192;  // HS·C: at most 4 weight jobs a thread
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float a, float b, float c,
-                                    float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ float f4(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// Copies from global to shared memory that do not hold up the thread
-// (cp.async, 4 or 16 bytes), zero-filled where `valid` is false; complete
-// after cp_async_wait_all.
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
-                                             bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src,
-                                               bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Shared memory of a K5b tiles block, in floats (host and device agree;
 // ops/fused_jlc.py:stage2_bwd_launch keeps it within a block's 227 KB).
@@ -285,10 +428,10 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
         for (int k = 0; k < 4; ++k) zp[i][k] = gw[i][k] = 0.f;
       for (int c = 0; c < C; ++c) {
-        const float4 wa = ld4(w1t + c * HS + e4 * 4);
-        const float4 wb = ld4(w2s + c * HS + e4 * 4);
-        const float4 yv = ld4(ys + c * kVS + t4 * 4);
-        const float4 gv = ld4(gs + c * kVS + t4 * 4);
+        const float4 wa = lds4(w1t + c * HS + e4 * 4);
+        const float4 wb = lds4(w2s + c * HS + e4 * 4);
+        const float4 yv = lds4(ys + c * kVS + t4 * 4);
+        const float4 gv = lds4(gs + c * kVS + t4 * 4);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -307,8 +450,8 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
           z[k] = gelu_exact(p);
           d[k] = gw[i][k] * gelu_grad(p);
         }
-        st4(z1s + e * kVS + t4 * 4, z[0], z[1], z[2], z[3]);
-        st4(d1s + e * kVS + t4 * 4, d[0], d[1], d[2], d[3]);
+        sts4(z1s + e * kVS + t4 * 4, z[0], z[1], z[2], z[3]);
+        sts4(d1s + e * kVS + t4 * 4, d[0], d[1], d[2], d[3]);
       }
     }
     __syncthreads();
@@ -324,8 +467,8 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
         for (int k = 0; k < 4; ++k) a[i][k] = 0.f;
       for (int e = 0; e < HS; ++e) {
-        const float4 wv = ld4(w1n + e * C + c4 * 4);
-        const float4 dv = ld4(d1s + e * kVS + t4 * 4);
+        const float4 wv = lds4(w1n + e * C + c4 * 4);
+        const float4 dv = lds4(d1s + e * kVS + t4 * 4);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -338,13 +481,13 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
         const int c = c4 * 4 + i;
         float* dst = dz + ((int64_t)(s * B + b) * C + c) * S + v;
         if ((S & 3) == 0) {
-          if (v < S) st4(dst, a[i][0], a[i][1], a[i][2], a[i][3]);
+          if (v < S) sts4(dst, a[i][0], a[i][1], a[i][2], a[i][3]);
         } else {
 #pragma unroll
           for (int k = 0; k < 4; ++k)
             if (v + k < S) dst[k] = a[i][k];
         }
-        const float4 yv = ld4(ys + c * kVS + t4 * 4);
+        const float4 yv = lds4(ys + c * kVS + t4 * 4);
         float s1 = (a[i][0] + a[i][1]) + (a[i][2] + a[i][3]);
         float s2 = fmaf(a[i][0], yv.x, a[i][1] * yv.y) +
                    fmaf(a[i][2], yv.z, a[i][3] * yv.w);
@@ -376,8 +519,8 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
         float4 av[4], bv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          av[i] = ld4(A + (a4 + i * h4n) * kVS + t);
-          bv[i] = ld4(Bm + (c4 + i * c4n) * kVS + t);
+          av[i] = lds4(A + (a4 + i * h4n) * kVS + t);
+          bv[i] = lds4(Bm + (c4 + i * c4n) * kVS + t);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -394,12 +537,12 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
     }
     if (tid < HS) {
       for (int t = 0; t < kVT; t += 4) {
-        const float4 d = ld4(d1s + tid * kVS + t);
+        const float4 d = lds4(d1s + tid * kVS + t);
         db1a += (d.x + d.y) + (d.z + d.w);
       }
     } else if (s == 0 && tid < HS + C) {
       for (int t = 0; t < kVT; t += 4) {
-        const float4 d = ld4(gs + (tid - HS) * kVS + t);
+        const float4 d = lds4(gs + (tid - HS) * kVS + t);
         db2a += (d.x + d.y) + (d.z + d.w);
       }
     }

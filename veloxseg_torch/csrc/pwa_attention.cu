@@ -10,7 +10,9 @@
 // (h, L, L). K2f keeps each weight where keep_hash(gid, seed) >= thresh
 // and scales it by 1/(1 − p), else drops it; gid = (wid·L + row)·L + col
 // with wid = ((offset + b)·h + head)·N + n over the TRUE window count N
-// (_train_xla, 666-673), so the mask does not depend on any blocking.
+// (_train_xla, 666-673), so the mask does not depend on any blocking. K2f
+// also writes each row's log-sum-exp of its logits (lse), which K2b takes
+// with out (pwa_attention_bwd.cu).
 //
 // What bounds it on this card: the L×L scores. At the AutoPET 96³ shapes
 // (L = 54 and 432, Cqk <= 16, Cv <= 32) the function is a few hundred MFLOP
@@ -38,8 +40,8 @@ pwa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ bias,
                      const int* __restrict__ seed, float* __restrict__ out,
-                     int H, int N, int L, float scale, uint32_t thresh,
-                     float inv_keep) {
+                     float* __restrict__ lse, int H, int N, int L,
+                     float scale, uint32_t thresh, float inv_keep) {
   extern __shared__ float smem[];
   float* ks = smem;                // [L][CQK]
   float* vs = smem + L * CQK;      // [L][CV]
@@ -104,6 +106,7 @@ pwa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CV; ++c) acc[c] = fmaf(p, vm[c], acc[c]);
   }
+  if (lse) lse[w * L + l] = mx + logf(sum);  // K2f: the row's lse, for K2b
   const float inv = (DROP ? inv_keep : 1.f) / sum;
 #pragma unroll
   for (int c = 0; c < CV; ++c) ow[c * L + l] = acc[c] * inv;
@@ -112,7 +115,7 @@ pwa_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int CQK, int CV, bool DROP>
 static cudaError_t launch(const float* q, const float* k, const float* v,
                           const float* bias, const int* seed, float* out,
-                          int B, int H, int N, int L, float scale,
+                          float* lse, int B, int H, int N, int L, float scale,
                           uint32_t thresh, float inv_keep,
                           cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(L) * (CQK + CV) * sizeof(float);
@@ -121,14 +124,14 @@ static cudaError_t launch(const float* q, const float* k, const float* v,
   const int threads = L >= 128 ? 128 : ((L + 31) / 32) * 32;
   const dim3 grid(static_cast<unsigned>(B) * H * N, (L + threads - 1) / threads);
   pwa_attention_kernel<CQK, CV, DROP><<<grid, threads, smem, stream>>>(
-      q, k, v, bias, seed, out, H, N, L, scale, thresh, inv_keep);
+      q, k, v, bias, seed, out, lse, H, N, L, scale, thresh, inv_keep);
   return cudaGetLastError();
 }
 
 #define VS_CASE(CQ, CVV, DROP)                                             \
   if (Cqk == CQ && Cv == CVV)                                              \
-    return launch<CQ, CVV, DROP>(q, k, v, bias, seed, out, B, H, N, L,     \
-                                 scale, thresh, inv_keep, stream);
+    return launch<CQ, CVV, DROP>(q, k, v, bias, seed, out, lse, B, H, N,   \
+                                 L, scale, thresh, inv_keep, stream);
 #define VS_ALL_WIDTHS(DROP)                                                \
   VS_CASE(4, 4, DROP) VS_CASE(4, 8, DROP) VS_CASE(4, 16, DROP)             \
   VS_CASE(4, 32, DROP) VS_CASE(8, 4, DROP) VS_CASE(8, 8, DROP)             \
@@ -143,6 +146,7 @@ extern "C" int vs_pwa_attention(const float* q, const float* k,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B * H * N == 0 || L == 0) return cudaSuccess;
   const int* seed = nullptr;
+  float* lse = nullptr;
   const uint32_t thresh = 0;
   const float inv_keep = 1.f;
   VS_ALL_WIDTHS(false)
@@ -150,12 +154,13 @@ extern "C" int vs_pwa_attention(const float* q, const float* k,
 }
 
 // K2f. seed: int32 [seed, batch_offset] on the device; thresh = 0 means
-// no dropout (every hash is >= 0), which takes the instance without it.
+// no dropout (every hash is >= 0), which takes the instance without it;
+// lse: (B, H, N, L), each row's log-sum-exp of its logits.
 extern "C" int vs_pwa_attention_train(const float* q, const float* k,
                                       const float* v, const float* bias,
-                                      const int* seed, float* out, int B,
-                                      int H, int N, int Cqk, int Cv, int L,
-                                      float scale, unsigned int thresh,
+                                      const int* seed, float* out, float* lse,
+                                      int B, int H, int N, int Cqk, int Cv,
+                                      int L, float scale, unsigned int thresh,
                                       float inv_keep, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (B * H * N == 0 || L == 0) return cudaSuccess;

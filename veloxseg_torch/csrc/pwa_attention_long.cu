@@ -181,7 +181,6 @@ pwa_long_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // K3b
 // ---------------------------------------------------------------------------
 
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBT = 128;             // dbias tile edge (rows and columns)
 constexpr int kBHalf = kBT / 2;      // columns per pass over a tile
 constexpr int kBThreads = 256;       // 16 × 16: 8 rows × 4 columns a pass
@@ -189,24 +188,6 @@ constexpr int kTS = kBT + 4;         // row stride of the [c][128] token tiles
 constexpr int kBS = kBT + 4;         // row stride of the bias tile
 constexpr int kDS = kBHalf + 4;      // row stride of the dS and W tiles
 constexpr int kWinFloats = 4 * 8 * kTS + 2 * kBT;  // one window's stage
-
-// A 4-byte copy from global to shared memory that does not hold up the
-// thread (cp.async), zero-filled where `valid` is false; complete after
-// cp_async_wait_all.
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
-                                             bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 // K3b launch 1: per window and row, the forward's log-sum-exp in base 2
 // and D = Σ_c dO·out (= Σ_j P·dP); stats: [window][2][L].

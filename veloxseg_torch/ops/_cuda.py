@@ -42,9 +42,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "pwa_attention": {
         "vs_pwa_attention": [_P] * 5 + [_I] * 6 + [_F, _P],
-        "vs_pwa_attention_train": [_P] * 6 + [_I] * 6 + [_F, _U, _F, _P]},
+        "vs_pwa_attention_train": [_P] * 7 + [_I] * 6 + [_F, _U, _F, _P]},
     "pwa_attention_bwd": {
-        "vs_pwa_attention_train_bwd": [_P] * 11 + [_I] * 7
+        "vs_pwa_attention_train_bwd": [_P] * 15 + [_I] * 9
         + [_F, _U, _F, _P]},
     "pwa_attention_long": {
         "vs_pwa_attention_long_train": [_P] * 7 + [_I] * 6 + [_F, _U, _F, _P],
@@ -53,7 +53,7 @@ SIGNATURES = {
     "jlc_stage1": {"vs_jlc_stage1": [_P] * 9 + [_I] * 12 + [_P],
                    "vs_jlc_stage1_bwd": [_P] * 13 + [_I] * 14 + [_P],
                    "vs_jlc_branch_wgrad": [_P] * 6 + [_I] * 11 + [_P]},
-    "jlc_stage2": {"vs_jlc_stage2": [_P] * 8 + [_I] * 4 + [_P],
+    "jlc_stage2": {"vs_jlc_stage2": [_P] * 9 + [_I] * 8 + [_P],
                    "vs_jlc_stage2_bwd": [_P] * 15 + [_I] * 10 + [_P]},
     "wkv": {"vs_wkv": [_P] * 5 + [_I] * 3 + [_P]},
 }

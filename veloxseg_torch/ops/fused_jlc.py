@@ -48,6 +48,7 @@ _TAPS = 125 + 27 + 1  # the k = 5, 3, 1 taps of one weight-gradient slab row
 _CONV_THREADS = 512  # the most threads of a K4 conv block
 _EDGE = 8  # the longest tile edge
 _TILE = 64  # voxels per K5b tile (csrc/jlc_stage2.cu:kVT)
+_SMEM_FLOATS = 232448 // 4  # the most shared memory a block may hold
 
 
 def _gelu_grad(x: torch.Tensor) -> torch.Tensor:
@@ -376,29 +377,160 @@ def _stage2_mats(out1, w1, w2):
     return w1m, w2m, hid
 
 
+class Stage2FwdLaunch(NamedTuple):
+    """K5f's launch geometry for one shape (``csrc/jlc_stage2.cu`` checks
+    it): the hidden rows per slice (``hs``; E·C in ``slices`` parts), the
+    voxels per tile (``vt``) of the flattened (b, voxel) index and the
+    tiles, and the chunks of ``per`` tiles each MLP block walks."""
+    hs: int
+    slices: int
+    vt: int
+    tiles: int
+    chunks: int
+    per: int
+
+    def tile_ranges(self) -> List[Tuple[int, int]]:
+        """The tiles ``[lo, hi)`` of each chunk; tile ``i`` holds the
+        flattened voxels ``[i·vt, (i + 1)·vt)``, voxel ``u`` being sample
+        ``u // S``, voxel ``u % S`` (the kernel's own arithmetic)."""
+        return [(i * self.per, min(self.tiles, (i + 1) * self.per))
+                for i in range(self.chunks)]
+
+    def slice_rows(self) -> List[Tuple[int, int]]:
+        """The hidden rows ``[lo, hi)`` of each slice."""
+        return [(i * self.hs, (i + 1) * self.hs) for i in range(self.slices)]
+
+
+_K5F_TILE_FLOATS = 4096  # C·VT of a K5f tile (csrc/jlc_stage2.cu)
+_K5F_MIN_SLICE = 16      # fewest hidden rows a slice is cut to
+
+
+def _k5f_smem_floats(c: int, hs: int, vt: int) -> int:
+    """Shared memory of a K5f MLP block (``mlp_fwd_smem_floats``): W1ᵀ and
+    W2ᵀ slices, b1 and b2, two stage buffers of ẑ, the hidden tile."""
+    return 2 * hs * c + hs + c + (2 * c + hs) * (vt + 4)
+
+
+@functools.lru_cache(maxsize=None)
+def stage2_fwd_launch(b: int, c: int, hid: int, s: int,
+                      sms: int) -> Stage2FwdLaunch:
+    """K5f's tiling. Tiles of ``vt`` voxels with C·vt = 4096 floats (vt a
+    power of two from 32 to 256), so that the 4 × 4 jobs of W2·h are about
+    one per thread. The hidden dimension is split into the fewest slices
+    whose weights fit a block beside the tiles and that give at least one
+    block per SM, but not below 16 rows (at 128 channels: two slices of 128
+    fit; the 3³-8³ levels take 8 or 16 slices). About two blocks per SM walk
+    the tiles, none of them empty."""
+    if c % 4 or hid % 4:
+        raise ValueError(f"K5f takes C and E·C multiples of 4; got C={c}, "
+                         f"E·C={hid}")
+    vt = min(256, max(32, 1 << (_K5F_TILE_FLOATS // c).bit_length() - 1))
+    tiles = -(-b * s // vt)
+    valid = [n for n in range(1, hid // 4 + 1)
+             if hid % n == 0 and (hid // n) % 4 == 0
+             and _k5f_smem_floats(c, hid // n, vt) <= _SMEM_FLOATS]
+    if not valid:
+        raise ValueError(f"K5f: no hidden slice of E·C={hid} fits C={c}")
+    cands = [n for n in valid if hid // n >= min(_K5F_MIN_SLICE, hid)] \
+        or valid[:1]
+    slices = next((n for n in cands if tiles * n >= sms), cands[-1])
+    per = -(-tiles // max(1, min(tiles, -(-2 * sms // slices))))
+    return Stage2FwdLaunch(hid // slices, slices, vt, tiles, -(-tiles // per),
+                           per)
+
+
+def jlc_stage2_split_plain(out1, w1, b1, w2, b2, lw: Stage2FwdLaunch):
+    """K5f's decomposition in torch ops (the tests hold it against JAX):
+    the flattened (b, voxel) index in tiles of ``lw.vt`` (zero past the
+    end), each hidden slice's part of W2·GELU(W1·ẑ + b1) per tile, the
+    slices added in order, then out1 + (Σ + b2)."""
+    b, c = out1.shape[:2]
+    hid = w1.shape[0]
+    mean, rstd = _plane_stats(out1)
+    z = ((out1 - mean) * rstd).reshape(b, c, -1)
+    s = z.shape[-1]
+    pad = lw.tiles * lw.vt - b * s
+    zt = F.pad(z.transpose(0, 1).reshape(c, -1), (0, pad))
+    zt = zt.reshape(c, lw.tiles, lw.vt).transpose(0, 1)      # (tiles, c, vt)
+    w1m, w2m = w1.reshape(hid, c), w2.reshape(c, hid)
+    acc = None
+    for e0, e1 in lw.slice_rows():
+        h = F.gelu(torch.einsum("ec,ict->iet", w1m[e0:e1], zt)
+                   + b1[e0:e1, None])
+        y = torch.einsum("ce,iet->ict", w2m[:, e0:e1], h)
+        acc = y if acc is None else acc + y
+    y = acc.transpose(0, 1).reshape(c, -1)[:, :b * s]
+    y = y.reshape(c, b, s).transpose(0, 1).reshape(out1.shape)
+    return out1 + (y + b2.reshape(1, c, *([1] * (out1.dim() - 2))))
+
+
+def stage2_widths(c: int, hid: int) -> Tuple[int, int]:
+    """The widths K5f and K5b run at: C up to a multiple of 8, E·C up to
+    one of 4 (``csrc/jlc_stage2.cu``)."""
+    return -(-c // 8) * 8, -(-hid // 4) * 4
+
+
+def _pad_planes(t: torch.Tensor, cp: int) -> torch.Tensor:
+    """``t`` (B, C, ...) widened to ``cp`` channels with zero planes."""
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, cp - t.shape[1])).contiguous()
+
+
+def _pad_weights(w1m, b1, w2m, cp: int, hp: int):
+    """``w1m`` (E·C, C), ``b1``, ``w2m`` (C, E·C) widened to ``hp`` hidden
+    rows and ``cp`` channels with zeros."""
+    dh, dc = hp - w1m.shape[0], cp - w1m.shape[1]
+    return (F.pad(w1m, (0, dc, 0, dh)), F.pad(b1, (0, dh)),
+            F.pad(w2m, (0, dh, 0, dc)))
+
+
+def pad_stage2_fwd(out1, w1m, b1, w2m, b2):
+    """K5f's inputs widened to :func:`stage2_widths` with zero channels and
+    hidden rows. A zero plane normalizes to ẑ = 0; a zero hidden row has
+    W1·ẑ + b1 = 0, GELU(0) = 0 and no weight to the outputs; a zero channel
+    of W2 and b2 leaves its output plane 0. The real channels see the same
+    sums."""
+    cp, hp = stage2_widths(out1.shape[1], w1m.shape[0])
+    return (_pad_planes(out1, cp), *_pad_weights(w1m, b1, w2m, cp, hp),
+            F.pad(b2, (0, cp - b2.shape[0])))
+
+
 def _jlc_stage2_fwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                     w2: torch.Tensor, b2: torch.Tensor):
     """K5f (or the plain version for a CPU tensor): ``(out, mean, rstd)``,
-    the plane statistics K5f took (B·C floats each; None on the CPU)."""
+    the plane statistics K5f took (B·C floats each; None on the CPU).
+    Widths the kernel does not take run padded (:func:`pad_stage2_fwd`)."""
     if out1.device.type == "cpu":
         return jlc_stage2_plain(out1, w1, b1, w2, b2), None, None
     b, c, d, h, w = out1.shape
+    s = d * h * w
     w1m, w2m, hid = _stage2_mats(out1, w1, w2)
     _check_cuda(out1, w1m, b1, w2m, b2)
     if b1.shape != (hid,) or b2.shape != (c,):
         raise ValueError(f"K5f bias shapes {tuple(b1.shape)}, "
                          f"{tuple(b2.shape)} do not match C={c}")
-    mean = torch.empty((b * c,), device=out1.device)
+    ins = (out1, w1m, b1, w2m, b2)
+    cp, hp = stage2_widths(c, hid)
+    if (cp, hp) != (c, hid):
+        ins = pad_stage2_fwd(*ins)
+    dev = out1.device
+    lw = stage2_fwd_launch(b, cp, hp, s, _cuda.sm_count(dev))
+    mean = torch.empty((b * cp,), device=dev)
     rstd = torch.empty_like(mean)
-    out = torch.empty_like(out1)
+    out = torch.empty((b, cp, d, h, w), device=dev)
+    part = torch.empty((lw.slices * b * cp * s if lw.slices > 1 else 1,),
+                       device=dev)
     lib = _cuda.lib("jlc_stage2")
-    with torch.cuda.device(out1.device):
+    with torch.cuda.device(dev):
         err = lib.vs_jlc_stage2(
-            out1.data_ptr(), w1m.data_ptr(), b1.data_ptr(), w2m.data_ptr(),
-            b2.data_ptr(), mean.data_ptr(), rstd.data_ptr(), out.data_ptr(),
-            b, c, hid, d * h * w, _cuda.stream_ptr(out1.device))
+            *(t.data_ptr() for t in ins), mean.data_ptr(), rstd.data_ptr(),
+            out.data_ptr(), part.data_ptr(), b, cp, hp, s, lw.hs, lw.vt,
+            lw.chunks, lw.per, _cuda.stream_ptr(dev))
     _cuda.check(lib, err, "jlc_stage2")
     jlc_stage2.launches += 1
+    if cp != c:
+        out = out[:, :c].contiguous()
+        mean, rstd = (t.reshape(b, cp)[:, :c].reshape(-1).contiguous()
+                      for t in (mean, rstd))
     return out, mean, rstd
 
 
@@ -434,7 +566,6 @@ class Stage2BwdLaunch(NamedTuple):
 _K5B_THREADS = 256
 _K5B_SLICE_WORK = 8192  # HS·C: at most 4 weight jobs of 4×4 a thread
 _K5B_ROW = _TILE + 4    # row stride of its [row][voxel] tiles
-_SMEM_FLOATS = 232448 // 4  # the most a block may hold
 
 
 def _k5b_smem_floats(c: int, hs: int, tp: int) -> int:
@@ -523,28 +654,17 @@ def jlc_stage2_bwd_split_plain(out1, w1, b1, w2, g, lw: Stage2BwdLaunch):
             dw2.reshape(w2.shape), db2)
 
 
-def stage2_bwd_widths(c: int, hid: int) -> Tuple[int, int]:
-    """The widths K5b runs at: C up to a multiple of 8, E·C up to one of
-    4 (``csrc/jlc_stage2.cu``)."""
-    return -(-c // 8) * 8, -(-hid // 4) * 4
-
-
 def pad_stage2_bwd(out1, w1m, b1, w2m, g, mean, rstd):
-    """K5b's inputs widened to :func:`stage2_bwd_widths` with zero
-    channels and hidden rows (``w1m`` (E·C, C), ``w2m`` (C, E·C); the new
-    planes get mean 0, rstd 1). A zero plane normalizes to ŷ = 0 under a
-    zero g, and a zero hidden row has z1p = 0 and no weight to or from the
-    others: neither adds to any sum, and their own gradients are 0."""
+    """K5b's inputs widened to :func:`stage2_widths` with zero channels and
+    hidden rows (the new planes get mean 0, rstd 1). A zero plane
+    normalizes to ŷ = 0 under a zero g, and a zero hidden row has z1p = 0
+    and no weight to or from the others: neither adds to any sum, and their
+    own gradients are 0."""
     b, c = out1.shape[:2]
-    hid = w1m.shape[0]
-    cp, hp = stage2_bwd_widths(c, hid)
-    dc, dh = cp - c, hp - hid
-
-    def planes(t):
-        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, dc)).contiguous()
-
-    return (planes(out1), F.pad(w1m, (0, dc, 0, dh)), F.pad(b1, (0, dh)),
-            F.pad(w2m, (0, dh, 0, dc)), planes(g),
+    cp, hp = stage2_widths(c, w1m.shape[0])
+    dc = cp - c
+    return (_pad_planes(out1, cp), *_pad_weights(w1m, b1, w2m, cp, hp),
+            _pad_planes(g, cp),
             F.pad(mean.reshape(b, c), (0, dc)).reshape(-1),
             F.pad(rstd.reshape(b, c), (0, dc), value=1.0).reshape(-1))
 
@@ -567,7 +687,7 @@ def jlc_stage2_bwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"K5b: b1 {tuple(b1.shape)}, g {tuple(g.shape)} or "
                          f"the B·C statistics do not match C={c}, E·C={hid}")
     ins = (out1, w1m, b1, w2m, g, mean, rstd)
-    cp, hp = stage2_bwd_widths(c, hid)
+    cp, hp = stage2_widths(c, hid)
     if (cp, hp) != (c, hid):
         ins = pad_stage2_bwd(*ins)
     lw = stage2_bwd_launch(b, cp, hp, s, _cuda.sm_count(out1.device))

@@ -26,6 +26,9 @@ a CUDA tensor; there is no fallback between the two.
 
 from __future__ import annotations
 
+import functools
+from typing import List, NamedTuple, Tuple
+
 import torch
 
 from . import _cuda
@@ -189,59 +192,173 @@ def window_attention_train_bwd_plain(q, k, v, bias, seed, do, scale: float,
 
 
 def window_attention_train_fwd(q, k, v, bias, seed, scale: float,
-                               p: float) -> torch.Tensor:
-    """K2f: train attention forward; (B, h, N, Cv, L) out."""
+                               p: float):
+    """K2f: train attention forward; (B, h, N, Cv, L) out and each row's
+    log-sum-exp (B, h, N, L), which K2b takes. Its plain version is
+    :func:`window_attention_train_fwd_plain` with :func:`train_lse_plain`."""
     if q.device.type == "cpu":
-        return window_attention_train_fwd_plain(q, k, v, bias, seed, scale, p)
+        return (window_attention_train_fwd_plain(q, k, v, bias, seed, scale,
+                                                 p),
+                train_lse_plain(q, k, bias, scale))
     seed = seed.reshape(-1).contiguous()
     b, h, n, c_qk, c_v, l = _check(q, k, v, bias, seed=seed)
     out = torch.empty_like(v)
+    lse = torch.empty((b, h, n, l), device=q.device)
     lib = _cuda.lib("pwa_attention")
     with torch.cuda.device(q.device):
         err = lib.vs_pwa_attention_train(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            seed.data_ptr(), out.data_ptr(), b, h, n, c_qk, c_v, l,
-            float(scale), drop_threshold(p) if p > 0.0 else 0,
+            seed.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, n, c_qk,
+            c_v, l, float(scale), drop_threshold(p) if p > 0.0 else 0,
             1.0 / (1.0 - p), _cuda.stream_ptr(q.device))
     _cuda.check(lib, err, "pwa_attention_train")
     window_attention_train_fwd.launches += 1
-    return out
+    return out, lse
 
 
 window_attention_train_fwd.launches = 0
 
-def bwd_chunks(b: int, h: int, n: int, sms: int) -> int:
-    """Window chunks per head of K2b: about two blocks per SM in all, none
-    of them empty."""
+
+def train_lse_plain(q, k, bias, scale: float) -> torch.Tensor:
+    """Each row's log-sum-exp of its logits, (B, h, N, L): what K2f and K3f
+    write beside their output for K2b and K3b."""
+    scores = torch.einsum("bhncl,bhncm->bhnlm", q, k) * scale
+    return torch.logsumexp(scores + bias[None, :, None], dim=-1)
+
+
+class TrainBwdLaunch(NamedTuple):
+    """K2b's launch geometry for one shape (``csrc/pwa_attention_bwd.cu``
+    checks it): the tile edge and the tiles along each edge of a window's
+    (L, L) scores, and the chunks of ``per`` windows of each head that its
+    blocks walk (window ``j`` of a head is sample ``j // N``, window
+    ``j % N``)."""
+    tile: int
+    tiles: int
+    chunks: int
+    per: int
+
+    def window_ranges(self, bn: int) -> List[Tuple[int, int]]:
+        """The windows ``[lo, hi)`` of each chunk of a head's ``bn``."""
+        return [(i * self.per, min(bn, (i + 1) * self.per))
+                for i in range(self.chunks)]
+
+
+_SMEM_FLOATS = 232448 // 4  # the most a block may hold
+_PASS_ROW = 64 + 4          # row stride of K2b's dS and W tiles
+
+
+def _k2b_smem_floats(tile: int, c_qk: int, c_v: int) -> int:
+    """Shared memory of a K2b tiles block (``tiles_smem``): the bias tile,
+    two stages of a window's tokens and statistics, the dS and W tiles."""
+    stage = (2 * c_qk + 2 * c_v) * (tile + 4) + 2 * tile
+    return tile * (tile + 4) + 2 * stage + 2 * tile * _PASS_ROW
+
+
+@functools.lru_cache(maxsize=None)
+def train_bwd_launch(b: int, h: int, n: int, l: int, c_qk: int, c_v: int,
+                     sms: int) -> TrainBwdLaunch:
+    """K2b's tiling. The tile edge is 64 up to L = 64 (one tile a window)
+    and 128 beyond (64 where a 128 block's shared memory would not fit:
+    Cqk 16 with Cv 32); blocks of 128-tiles take a whole SM, two 64-tile
+    blocks share one. The windows of each head are split into the chunks
+    that fill those slots in the fewest rounds of the longest chunk, and of
+    those the fewest chunks (fewer dbias partials)."""
+    tile = 64 if l <= 64 or _k2b_smem_floats(128, c_qk, c_v) > _SMEM_FLOATS \
+        else 128
+    tiles = -(-l // tile)
+    slots = sms * (1 if tile == 128 else 2)
     bn = b * n
-    per = -(-bn // max(1, min(bn, -(-2 * sms // h))))
-    return -(-bn // per)
+    best = None
+    for per in range(1, bn + 1):
+        chunks = -(-bn // per)
+        cost = -(-chunks * tiles * tiles * h // slots) * per
+        if best is None or cost <= best[0]:
+            best = (cost, per)
+    per = best[1]
+    return TrainBwdLaunch(tile, tiles, -(-bn // per), per)
+
+
+def window_attention_train_bwd_tiled_plain(q, k, v, bias, seed, do, out, lse,
+                                           scale: float, p: float,
+                                           tile: int, per: int):
+    """K2b's and K3b's decomposition in torch ops: P from the forward's
+    ``lse``, D = rowsum(dO ⊙ out), each (row tile I, column tile J) of
+    edge ``tile`` forming dS once; dq summed over the J partials, dk and dv
+    over the I partials, in tile order; dbias per chunk of ``per`` windows
+    of a head (windows numbered ``b·N + n``), the chunks added in order."""
+    b, h, n, _, l = q.shape
+    prob = torch.exp(torch.einsum("bhncl,bhncm->bhnlm", q, k) * scale
+                     + bias[None, :, None] - lse[..., None])
+    if p > 0.0:
+        s, off = _seed_pair(seed)
+        keep = keep_mask(window_ids(b, h, n, l, off, q.device), p, s)
+        inv = 1.0 / (1.0 - p)
+    d = (do * out).sum(dim=3)                                   # (b,h,n,L)
+    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
+    dbias = torch.zeros_like(bias)
+    bn = b * n
+    for i0 in range(0, l, tile):
+        for j0 in range(0, l, tile):
+            pr = prob[..., i0:i0 + tile, j0:j0 + tile]
+            dw = torch.einsum("bhncl,bhncm->bhnlm", do[..., i0:i0 + tile],
+                              v[..., j0:j0 + tile])
+            if p > 0.0:
+                kp = keep[..., i0:i0 + tile, j0:j0 + tile]
+                dw = torch.where(kp, dw * inv, 0.0)
+                wt = torch.where(kp, pr * inv, 0.0)
+            else:
+                wt = pr
+            ds = pr * (dw - d[..., i0:i0 + tile, None])
+            dq[..., i0:i0 + tile] += torch.einsum("bhncm,bhnlm->bhncl",
+                                                  k[..., j0:j0 + tile], ds)
+            dk[..., j0:j0 + tile] += torch.einsum("bhncl,bhnlm->bhncm",
+                                                  q[..., i0:i0 + tile], ds)
+            dv[..., j0:j0 + tile] += torch.einsum("bhnlm,bhncl->bhncm", wt,
+                                                  do[..., i0:i0 + tile])
+            # (h, windows, tile, tile), the windows of a head in order
+            ds_w = ds.transpose(0, 1).reshape(h, bn, *ds.shape[-2:])
+            for lo in range(0, bn, per):
+                dbias[:, i0:i0 + tile, j0:j0 + tile] += \
+                    ds_w[:, lo:lo + per].sum(dim=1)
+    return dq * scale, dk * scale, dv, dbias
 
 
 def window_attention_train_bwd(q, k, v, bias, seed, do, scale: float,
-                               p: float):
-    """K2b: (dq, dk, dv, dbias) of the train attention."""
+                               p: float, out, lse):
+    """K2b: (dq, dk, dv, dbias) of the train attention, every sum in a fixed
+    order, from K2f's ``out`` and ``lse`` of the same inputs. Its plain
+    version recomputes the softmax and takes neither."""
     if q.device.type == "cpu":
         return window_attention_train_bwd_plain(q, k, v, bias, seed, do,
                                                 scale, p)
     seed = seed.reshape(-1).contiguous()
-    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, do, seed=seed)
-    if do.shape != v.shape:
-        raise ValueError(f"do {tuple(do.shape)} differs from v "
+    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, do, out, lse, seed=seed)
+    if do.shape != v.shape or out.shape != v.shape \
+            or lse.shape != (b, h, n, l):
+        raise ValueError(f"do {tuple(do.shape)}, out {tuple(out.shape)} or "
+                         f"lse {tuple(lse.shape)} does not match v "
                          f"{tuple(v.shape)}")
-    chunks = bwd_chunks(b, h, n, _cuda.sm_count(q.device))
+    if b * n == 0:
+        raise ValueError("no windows")
+    lw = train_bwd_launch(b, h, n, l, c_qk, c_v, _cuda.sm_count(q.device))
+    dev = q.device
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(bias)
-    part = torch.empty((h, chunks, l, l), device=q.device)
+    stats = torch.empty((b, h, n, 2, l), device=dev)
+    part = torch.empty((lw.tiles * (2 * q.numel() + v.numel())
+                        if lw.tiles > 1 else 1,), device=dev)
+    partb = torch.empty((lw.chunks * bias.numel() if lw.chunks > 1 else 1,),
+                        device=dev)
     lib = _cuda.lib("pwa_attention_bwd")
-    with torch.cuda.device(q.device):
+    with torch.cuda.device(dev):
         err = lib.vs_pwa_attention_train_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            seed.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), part.data_ptr(), dbias.data_ptr(), b, h, n, c_qk,
-            c_v, l, chunks, float(scale),
+            seed.data_ptr(), do.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+            stats.data_ptr(), part.data_ptr(), partb.data_ptr(), b, h, n,
+            c_qk, c_v, l, lw.tile, lw.chunks, lw.per, float(scale),
             drop_threshold(p) if p > 0.0 else 0, 1.0 / (1.0 - p),
-            _cuda.stream_ptr(q.device))
+            _cuda.stream_ptr(dev))
     _cuda.check(lib, err, "pwa_attention_train_bwd")
     window_attention_train_bwd.launches += 1
     return dq, dk, dv, dbias
@@ -262,18 +379,11 @@ _K2_MAX_L = 512
 
 def uses_long_kernel(l: int) -> bool:
     """Whether train attention at window length ``l`` takes K3 (True) or
-    K2 (False): K3 for L > 512, where K2b's per-block (L, L) dbias slab
-    would pass 1 MB. Every window of the dataset configs (L <= 512,
-    Hecktor's largest) takes K2; bench.py's 128³ level 1 (L = 1024) takes
-    K3."""
+    K2 (False): K3 for L > 512, where the JAX package too leaves its
+    whole-window kernels for the row-blocked ones. Every window of the
+    dataset configs (L <= 512, Hecktor's largest) takes K2; bench.py's 128³
+    level 1 (L = 1024) takes K3."""
     return l > _K2_MAX_L
-
-
-def train_lse_plain(q, k, bias, scale: float) -> torch.Tensor:
-    """Each row's log-sum-exp of its logits, (B, h, N, L): what K3f writes
-    beside its output for K3b."""
-    scores = torch.einsum("bhncl,bhncm->bhnlm", q, k) * scale
-    return torch.logsumexp(scores + bias[None, :, None], dim=-1)
 
 
 def window_attention_train_fwd_long(q, k, v, bias, seed, scale: float,
@@ -310,47 +420,10 @@ _LONG_TILE = 128  # dbias tile edge of K3b (csrc/pwa_attention_long.cu:kBT)
 
 def long_bwd_tiles(l: int) -> int:
     """K3b's row (and column) tiles of 128: its grid is tiles × tiles ×
-    heads, and dq, dk, dv have this many partials each."""
+    heads, each block walking all the head's windows, and dq, dk, dv have
+    this many partials each (its plain form is
+    :func:`window_attention_train_bwd_tiled_plain` at tile 128, one chunk)."""
     return -(-l // _LONG_TILE)
-
-
-def window_attention_train_bwd_long_plain(q, k, v, bias, seed, do, out, lse,
-                                          scale: float, p: float):
-    """K3b's decomposition in torch ops: P from the forward's ``lse``,
-    D = rowsum(dO ⊙ out), each (row tile I, column tile J) of 128 forming
-    dS once; dq summed over the J partials, dk and dv over the I
-    partials, dbias over the windows, in tile order."""
-    b, h, n, _, l = q.shape
-    prob = torch.exp(torch.einsum("bhncl,bhncm->bhnlm", q, k) * scale
-                     + bias[None, :, None] - lse[..., None])
-    if p > 0.0:
-        s, off = _seed_pair(seed)
-        keep = keep_mask(window_ids(b, h, n, l, off, q.device), p, s)
-        inv = 1.0 / (1.0 - p)
-    d = (do * out).sum(dim=3)                                   # (b,h,n,L)
-    dq, dk, dv = (torch.zeros_like(t) for t in (q, k, v))
-    dbias = torch.zeros_like(bias)
-    t = _LONG_TILE
-    for i0 in range(0, l, t):
-        for j0 in range(0, l, t):
-            pr = prob[..., i0:i0 + t, j0:j0 + t]
-            dw = torch.einsum("bhncl,bhncm->bhnlm", do[..., i0:i0 + t],
-                              v[..., j0:j0 + t])
-            if p > 0.0:
-                kp = keep[..., i0:i0 + t, j0:j0 + t]
-                dw = torch.where(kp, dw * inv, 0.0)
-                wt = torch.where(kp, pr * inv, 0.0)
-            else:
-                wt = pr
-            ds = pr * (dw - d[..., i0:i0 + t, None])
-            dq[..., i0:i0 + t] += torch.einsum("bhncm,bhnlm->bhncl",
-                                               k[..., j0:j0 + t], ds)
-            dk[..., j0:j0 + t] += torch.einsum("bhncl,bhnlm->bhncm",
-                                               q[..., i0:i0 + t], ds)
-            dv[..., j0:j0 + t] += torch.einsum("bhnlm,bhncl->bhncm", wt,
-                                               do[..., i0:i0 + t])
-            dbias[:, i0:i0 + t, j0:j0 + t] = ds.sum(dim=(0, 2))
-    return dq * scale, dk * scale, dv, dbias
 
 
 def window_attention_train_bwd_long(q, k, v, bias, seed, do, scale: float,
@@ -395,34 +468,28 @@ window_attention_train_bwd_long.launches = 0
 
 
 class _TrainAttention(torch.autograd.Function):
-    """Saves the inputs; the backward recomputes the softmax and the mask
-    (``_wat_fwd`` / ``_wat_bwd``). K2 or K3 by :func:`uses_long_kernel` of
-    the window length; K3 also saves K3f's output and log-sum-exp for K3b
-    (the plain backward on the CPU takes neither)."""
+    """Saves the inputs with the forward's output and log-sum-exp, which
+    the backward kernel takes (``_wat_fwd`` / ``_wat_bwd``; the plain
+    backward on the CPU recomputes the softmax and takes neither). K2 or K3
+    by :func:`uses_long_kernel` of the window length."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, p):
         ctx.scale, ctx.p = scale, p
         ctx.long = uses_long_kernel(q.shape[-1])
-        if ctx.long:
-            out, lse = window_attention_train_fwd_long(q, k, v, bias, seed,
-                                                       scale, p)
-            ctx.save_for_backward(q, k, v, bias, seed, out, lse)
-            return out
-        ctx.save_for_backward(q, k, v, bias, seed)
-        return window_attention_train_fwd(q, k, v, bias, seed, scale, p)
+        fwd = window_attention_train_fwd_long if ctx.long \
+            else window_attention_train_fwd
+        out, lse = fwd(q, k, v, bias, seed, scale, p)
+        ctx.save_for_backward(q, k, v, bias, seed, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, seed, *saved = ctx.saved_tensors
-        if ctx.long:
-            grads = window_attention_train_bwd_long(
-                q, k, v, bias, seed, do.contiguous(), ctx.scale, ctx.p,
-                *saved)
-        else:
-            grads = window_attention_train_bwd(q, k, v, bias, seed,
-                                               do.contiguous(), ctx.scale,
-                                               ctx.p)
+        bwd = window_attention_train_bwd_long if ctx.long \
+            else window_attention_train_bwd
+        q, k, v, bias, seed, out, lse = ctx.saved_tensors
+        grads = bwd(q, k, v, bias, seed, do.contiguous(), ctx.scale, ctx.p,
+                    out, lse)
         return (*grads, None, None, None)
 
 
