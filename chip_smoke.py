@@ -18,8 +18,10 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    training at its B = 16, level 1 at L = 1024): K3f and K3b (also at
    B = 2), K2f and K2b at the three L = 128 levels and, beside K3, at
    L = 1024, K4f, K5f, K4b and K5b at its four JLC levels. U-RWKV: K6 at
-   its bottleneck's (4, 216, 128). K4b is held against its plain version
-   in dy and in the branch weights' gradient; its weight-gradient launches
+   its bottleneck's (4, 216, 128). K2f and K3f are one kernel
+   (``csrc/pwa_attention_train.cu``); its launch geometry is printed.
+   K4b is held against its plain version in dy and in the branch
+   weights' gradient; its weight-gradient launches
    are also timed alone ("jlc_branch_wgrad", on K4b's own dy). K2f and K3f
    also write each row's log-sum-exp (held against its plain version), and
    K2b and K3b take it with the forward's output; K2b also runs at
@@ -341,6 +343,9 @@ def main() -> int:
         require_close(f"{tag}f {name}", got, ref, atol=1e-4, rtol=1e-4)
         err = max_err(got, ref)
         del got, ref
+        geometry = pa.train_fwd_launch(b, h, n, L, cqk, cv,
+                                       _cuda.sm_count(dev))
+        print(f"[3] {tag}f {name}: geometry {geometry}", flush=True)
         # the library yardstick: SDPA on the windows as a batch of
         # (b·n, h) heads, the bias a float mask broadcast over the batch;
         # the same work with its own dropout mask
@@ -980,13 +985,14 @@ def main() -> int:
                        "veloxseg_tpu/ops/fused_jlc.py:111"),
         "jlc_stage2": ("veloxseg_torch/csrc/jlc_stage2.cu",
                        "veloxseg_tpu/ops/fused_jlc.py:177"),
-        "pwa_attention_train_fwd": ("veloxseg_torch/csrc/pwa_attention.cu",
-                                    "veloxseg_tpu/ops/pwa_attention.py:322"),
+        "pwa_attention_train_fwd": (
+            "veloxseg_torch/csrc/pwa_attention_train.cu",
+            "veloxseg_tpu/ops/pwa_attention.py:322"),
         "pwa_attention_train_bwd": (
             "veloxseg_torch/csrc/pwa_attention_bwd.cu",
             "veloxseg_tpu/ops/pwa_attention.py:344"),
         "pwa_attention_train_fwd_long": (
-            "veloxseg_torch/csrc/pwa_attention_long.cu",
+            "veloxseg_torch/csrc/pwa_attention_train.cu",
             "veloxseg_tpu/ops/pwa_attention.py:410"),
         "pwa_attention_train_bwd_long": (
             "veloxseg_torch/csrc/pwa_attention_long.cu",

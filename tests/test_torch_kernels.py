@@ -273,6 +273,73 @@ def test_long_train_attention_backward_needs_the_forward():
             torch.zeros(1, 1, 2, 1000, device=dev))
 
 
+# K2f (L <= 512) and K3f (L > 512) are one kernel: every main-path shape
+# of both routes
+TRAIN_FWD = [(False, *s) for s in K2_MAIN_PATH] + [
+    (True, *s) for s in LONG_ATTN]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("long,b,h,n,c_qk,c_v,l", TRAIN_FWD)
+def test_train_forward_at_main_path_shapes(long, b, h, n, c_qk, c_v, l, p):
+    dev = cuda_or_skip()
+    q, k, v, bias, _ = _train_inputs(dev, b, h, n, c_qk, c_v, l, seed=8)
+    seed = torch.tensor([4321, 1], dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(c_qk)
+    pa = pwa_attention
+    assert pa.uses_long_kernel(l) == long
+    fwd = pa.window_attention_train_fwd_long if long \
+        else pa.window_attention_train_fwd
+    lw = pa.train_fwd_launch(
+        b, h, n, l, c_qk, c_v,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    f0 = fwd.launches
+    out, lse = fwd(q, k, v, bias, seed, scale, p)
+    again = fwd(q, k, v, bias, seed, scale, p)
+    torch.cuda.synchronize()
+    assert fwd.launches == f0 + 2
+    ref = pa.window_attention_train_fwd_plain(q, k, v, bias, seed, scale, p)
+    # fp32, the same mask on both sides, sums in other orders and exp2
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, pa.train_lse_plain(q, k, bias, scale),
+                               rtol=1e-5, atol=1e-5)
+    # the kernel's own decomposition, in the same order
+    mo, ml = pa.window_attention_train_fwd_tiled_plain(
+        q, k, v, bias, seed, scale, p, lw.rows, 64, lw.per)
+    torch.testing.assert_close(out, mo, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(lse, ml, rtol=1e-5, atol=1e-5)
+    # no atomics: out and lse repeat bit for bit
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+# geometries the model may not pick: a ragged last chunk (21 windows in
+# chunks of 4) and a partial last batch of window slots (4 windows 3 at a
+# time), one slab and several, each width class of rows per lane
+@pytest.mark.parametrize("c_qk,c_v,l,slabs,windows,per", [
+    (8, 8, 432, 2, 3, 4), (4, 4, 54, 1, 4, 4), (16, 32, 128, 4, 2, 3),
+    (8, 16, 1000, 1, 8, 4)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_train_forward_at_other_geometries(c_qk, c_v, l, slabs, windows,
+                                           per, p):
+    dev = cuda_or_skip()
+    b, h, n = 3, 2, 7
+    q, k, v, bias, _ = _train_inputs(dev, b, h, n, c_qk, c_v, l, seed=9)
+    seed = torch.tensor([4321, 1], dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(c_qk)
+    pa = pwa_attention
+    rows = slabs * 8 * pa._fwd_rows_per_lane(c_qk, c_v)
+    lw = pa.TrainFwdLaunch(slabs, windows, -(-b * n // per), per, rows)
+    assert pa._k2f_smem_floats(slabs, windows, l, c_qk, c_v) * 4 <= 232448
+    out, lse = pa._train_fwd_kernel(
+        pa.window_attention_train_fwd, "vs_pwa_attention_train",
+        pa.KERNEL_WIDTHS, q, k, v, bias, seed, scale, p, launch=lw)
+    torch.cuda.synchronize()
+    ref = pa.window_attention_train_fwd_plain(q, k, v, bias, seed, scale, p)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, pa.train_lse_plain(q, k, bias, scale),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_long_train_attention_refuses_other_widths():
     dev = cuda_or_skip()
     q, k, v, bias, do = _train_inputs(dev, 1, 1, 2, 16, 32, 1024)

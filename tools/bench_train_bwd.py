@@ -4,6 +4,7 @@ port: K2b and K2f (train attention, L <= 512), K5f (JLC stage-2 forward),
 K5b (its backward), K3b and K3f (long-window train attention).
 
     python3 tools/bench_train_bwd.py [--root DIR] [--tag NAME] [--out DIR]
+                                     [--sweep]
 
 ``--root`` is the checkout whose ``veloxseg_torch`` is timed (default: this
 one), so that an older commit unpacked beside it can be timed in the same
@@ -22,9 +23,20 @@ B = 16 and B = 2. Attention dropout 0.1; seeded inputs, fp32, TF32 off. Per
 shape and function: ms per call from CUDA events over 20 back-to-back
 calls after a warm-up (L2 warm), the device ms per call (the sum of its
 kernels' times in ``torch.profiler`` over 10 calls), and the bound as
-``chip_smoke.py`` counts it (``tools/chip_measure.py``). Prints the card
+``chip_smoke.py`` counts it (``tools/chip_measure.py``). Beside K2f and K3f
+the library yardstick is timed the same way: ``scaled_dot_product_attention``
+forward on its ``efficient`` backend, the windows as a batch of (B·N, h)
+heads, the bias a float mask, ``dropout_p`` 0.1 (the same work with its own
+dropout mask; ``sdpa_fwd_ms`` and ``sdpa_fwd_device_ms``). Prints the card
 and one JSON line per shape; writes ``<out>/bench_train_bwd_<tag>.json``
 (default ``runs``). Needs CUDA.
+
+``--sweep`` (a checkout whose ``pwa_attention`` has
+``train_fwd_candidates``) times instead the train forward (K2f, K3f) at
+each of its shapes under every launch geometry its model considers, each
+with the model's cost, so that
+the model can be checked against the card; it writes
+``<out>/sweep_train_fwd_<tag>.json``.
 """
 
 from __future__ import annotations
@@ -45,8 +57,10 @@ def main() -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--out", default=os.path.join(HERE, "runs"))
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("bench_train_bwd: CUDA is not available", file=sys.stderr)
         return 2
@@ -68,21 +82,39 @@ def main() -> int:
         row[key + "_ms"] = cuda_ms(fn)
         row[key + "_device_ms"] = device_ms(fn)
 
+    def sdpa_fwd(row, q, k, v, bias, scale):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        b, h, n, _, L = q.shape
+        q4, k4, v4 = (t.detach().permute(0, 2, 1, 4, 3)
+                      .reshape(b * n, h, L, -1).contiguous()
+                      for t in (q, k, v))
+        mask = bias.detach()[None]
+
+        def call():
+            return F.scaled_dot_product_attention(q4, k4, v4, mask,
+                                                  dropout_p=p, scale=scale)
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            ms(row, "sdpa_fwd", call)
+
     def backward(y, leaves, g):
         return lambda: torch.autograd.grad(y, leaves, g, retain_graph=True)
 
     rows = []
     p, seed = 0.1, torch.tensor([1234, 0], dtype=torch.int32, device=dev)
+    k2_shapes = (("train_96", 0, 2, 1, 585, 4, 4, 54),
+                 ("train_96", 1, 2, 2, 9, 8, 8, 432),
+                 ("train_96", 2, 2, 2, 9, 8, 16, 54),
+                 ("train_96", 3, 2, 4, 1, 16, 32, 54),
+                 ("train_flagship", 0, 16, 1, 585, 4, 4, 128),
+                 ("train_flagship", 2, 16, 2, 9, 8, 16, 128),
+                 ("train_flagship", 3, 16, 4, 1, 16, 32, 128),
+                 ("hecktor", 1, 2, 2, 9, 8, 8, 512))
+    if args.sweep:
+        return sweep(args, name, dev, randn, p, seed, k2_shapes + (
+            ("train_flagship", 1, 16, 2, 9, 8, 8, 1024),
+            ("train_flagship", 1, 2, 2, 9, 8, 8, 1024)))
     # K2f, K2b: (path, level, B, h, N, Cqk, Cv, L)
-    for path, lvl, b, h, n, cq, cv, L in (
-            ("train_96", 0, 2, 1, 585, 4, 4, 54),
-            ("train_96", 1, 2, 2, 9, 8, 8, 432),
-            ("train_96", 2, 2, 2, 9, 8, 16, 54),
-            ("train_96", 3, 2, 4, 1, 16, 32, 54),
-            ("train_flagship", 0, 16, 1, 585, 4, 4, 128),
-            ("train_flagship", 2, 16, 2, 9, 8, 16, 128),
-            ("train_flagship", 3, 16, 4, 1, 16, 32, 128),
-            ("hecktor", 1, 2, 2, 9, 8, 8, 512)):
+    for path, lvl, b, h, n, cq, cv, L in k2_shapes:
         q, k = (randn(b, h, n, cq, L, grad=True) for _ in range(2))
         v = randn(b, h, n, cv, L, grad=True)
         bias = randn(h, L, L, scale=0.5, grad=True)
@@ -96,6 +128,7 @@ def main() -> int:
         with torch.no_grad():
             ms(row, "k2f", lambda: pwa_attention.window_attention_train(
                 q, k, v, bias, seed, scale, p))
+            sdpa_fwd(row, q, k, v, bias, scale)
         y = pwa_attention.window_attention_train(q, k, v, bias, seed, scale,
                                                  p)
         ms(row, "k2b", backward(y, (q, k, v, bias), do))
@@ -158,6 +191,7 @@ def main() -> int:
         with torch.no_grad():
             ms(row, "k3f", lambda: pwa_attention.window_attention_train(
                 q, k, v, bias, seed, scale, p))
+            sdpa_fwd(row, q, k, v, bias, scale)
         y = pwa_attention.window_attention_train(q, k, v, bias, seed, scale,
                                                  p)
         ms(row, "k3b", backward(y, (q, k, v, bias), do))
@@ -167,6 +201,43 @@ def main() -> int:
         torch.cuda.empty_cache()
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"bench_train_bwd_{args.tag}.json"),
+              "w") as f:
+        json.dump(rows, f, indent=1)
+    return 0
+
+
+def sweep(args, name, dev, randn, p, seed, shapes):
+    """Device ms of the train forward at each shape under each launch
+    geometry of ``train_fwd_candidates``, beside the model's cost."""
+    import torch
+    from veloxseg_torch.ops import _cuda, pwa_attention as pa
+    sms = _cuda.sm_count(dev)
+    rows = []
+    for path, lvl, b, h, n, cq, cv, L in shapes:
+        q, k = randn(b, h, n, cq, L), randn(b, h, n, cq, L)
+        v, bias = randn(b, h, n, cv, L), randn(h, L, L, scale=0.5)
+        long = pa.uses_long_kernel(L)
+        fwd = pa.window_attention_train_fwd_long if long \
+            else pa.window_attention_train_fwd
+        name_c = "vs_pwa_attention_long_train" if long \
+            else "vs_pwa_attention_train"
+        widths = pa.LONG_KERNEL_WIDTHS if long else pa.KERNEL_WIDTHS
+        chosen = pa.train_fwd_launch(b, h, n, L, cq, cv, sms)
+        for cost, lw in sorted(pa.train_fwd_candidates(b, h, n, L, cq, cv,
+                                                       sms)):
+            def call(lw=lw):
+                pa._train_fwd_kernel(fwd, name_c, widths, q, k, v, bias,
+                                     seed, 1.0 / cq ** 0.5, p, launch=lw)
+            row = dict(tag=args.tag, card=name, path=path, level=lvl,
+                       shape=[b, h, n, cq, cv, L], launch=list(lw),
+                       chosen=lw == chosen, model_us=cost / 1755.0,
+                       device_ms=device_ms(call))
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        del q, k, v, bias
+        torch.cuda.empty_cache()
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, f"sweep_train_fwd_{args.tag}.json"),
               "w") as f:
         json.dump(rows, f, indent=1)
     return 0

@@ -36,8 +36,8 @@ from chip_measure import card as card_line
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # substrings of the port's own kernel names (csrc/*.cu)
-PORT_KERNELS = ("pwa_attention_kernel", "pwa_bwd_", "pwa_long_",
-                "wkv_kernel", "jlc_branch_conv", "jlc_conv_stats",
+PORT_KERNELS = ("pwa_attention_kernel", "pwa_train_fwd", "pwa_bwd_",
+                "pwa_long_", "wkv_kernel", "jlc_branch_conv", "jlc_conv_stats",
                 "jlc_branch_wgrad", "jlc_wgrad_reduce", "plane_stats_kernel",
                 "jlc_stage1_apply", "jlc_stage1_bwd_planes",
                 "jlc_stage2_mlp", "jlc_stage2_sum", "jlc_mlp_bwd_tiles",
@@ -47,9 +47,9 @@ PORT_KERNELS = ("pwa_attention_kernel", "pwa_bwd_", "pwa_long_",
 # own kernels come before the library families, whose substrings ("conv",
 # "wgrad", "reduce") their names also hold
 FAMILIES = (
-    ("K1/K2f attention (pwa_attention_kernel)", ("pwa_attention_kernel",)),
+    ("K1 eval attention (pwa_attention_kernel)", ("pwa_attention_kernel",)),
+    ("K2f/K3f train attention forward", ("pwa_train_fwd",)),
     ("K2b attention backward", ("pwa_bwd_",)),
-    ("K3f long-window attention", ("pwa_long_fwd_kernel",)),
     ("K3b long-window attention backward", ("pwa_long_bwd",)),
     ("K6 WKV recurrence", ("wkv_kernel",)),
     ("K4f/K4b branch conv (jlc_branch_conv)", ("jlc_branch_conv",)),

@@ -33,8 +33,12 @@ __device__ __forceinline__ float gelu_grad(float x) {
 // veloxseg_tpu/ops/pwa_attention.py:_keep_mask, bit for bit: uint32
 // arithmetic wraps as jnp.uint32 does. An element is kept where the
 // hash is >= the wrapper's threshold min(2^32 - 1, int(p * 2^32)).
-__device__ __forceinline__ uint32_t keep_hash(uint32_t gid, uint32_t seed) {
-  uint32_t x = gid * 0x9E3779B9u + seed * 0x85EBCA6Bu;
+// The hash is split so that a kernel walking a row's columns can add
+// kHashGid per column to gid·kHashGid + seed·kHashSeed (uint32 arithmetic
+// distributes) and run only the avalanche per element.
+constexpr uint32_t kHashGid = 0x9E3779B9u, kHashSeed = 0x85EBCA6Bu;
+
+__device__ __forceinline__ uint32_t hash_avalanche(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
@@ -43,7 +47,12 @@ __device__ __forceinline__ uint32_t keep_hash(uint32_t gid, uint32_t seed) {
   return x;
 }
 
+__device__ __forceinline__ uint32_t keep_hash(uint32_t gid, uint32_t seed) {
+  return hash_avalanche(gid * kHashGid + seed * kHashSeed);
+}
+
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Copies from global to shared memory that do not hold up the thread
 // (cp.async, 4 or 16 bytes), zero-filled where `valid` is false; complete

@@ -1,18 +1,15 @@
-// K1: eval paired-window attention, and K2f: train paired-window attention
-// with counter-hash weight dropout; fp32.
+// K1: eval paired-window attention; fp32.
 //
 // Replaces: veloxseg_tpu/ops/pwa_attention.py:_attn_kernel (56-74), called
-// through window_attention_pallas (77-133), and _train_fwd_kernel
-// (322-342), called through _train_fwd_pallas (572-602). For every
-// (batch, head, window) it computes out = V · softmax(scale · Qᵀ K +
-// bias_h)ᵀ over the L tokens of the window, in the (B, h, N, C, L) token
-// layout: q, k are (Cqk, L) and v, out (Cv, L) per window; bias is
-// (h, L, L). K2f keeps each weight where keep_hash(gid, seed) >= thresh
-// and scales it by 1/(1 − p), else drops it; gid = (wid·L + row)·L + col
-// with wid = ((offset + b)·h + head)·N + n over the TRUE window count N
-// (_train_xla, 666-673), so the mask does not depend on any blocking. K2f
-// also writes each row's log-sum-exp of its logits (lse), which K2b takes
-// with out (pwa_attention_bwd.cu).
+// through window_attention_pallas (77-133). For every (batch, head, window)
+// it computes out = V · softmax(scale · Qᵀ K + bias_h)ᵀ over the L tokens
+// of the window, in the (B, h, N, C, L) token layout: q, k are (Cqk, L)
+// and v, out (Cv, L) per window; bias is (h, L, L).
+//
+// The kernel below was K2f's too until the train forward got its own
+// (pwa_attention_train.cu); its DROP and lse paths are that kernel's and
+// run no more (K1 takes DROP false and no lse). K1 is to become the
+// no-dropout, no-lse instance of the train forward (ROADMAP).
 //
 // What bounds it on this card: the L×L scores. At the AutoPET 96³ shapes
 // (L = 54 and 432, Cqk <= 16, Cv <= 32) the function is a few hundred MFLOP
@@ -25,13 +22,11 @@
 // with q in registers. The row's scores are recomputed in a second pass
 // instead of stored (an L = 432 row does not fit registers and a full L×L
 // tile does not fit shared memory), so the softmax is exact (max pass,
-// then exp-sum-and-accumulate pass) and never touches HBM. The dropout
-// hash costs ~14 integer operations per score, in the second pass only.
-// The bias row is read from global memory (L1/L2-resident: one head is
-// 746 KB at L = 432) and not staged. Reads of q and writes of out are
-// coalesced across the threads of a warp (consecutive query rows). Ragged
-// N needs no padding: the grid has exactly B·h·N windows. Tensor cores are
-// not used (wgmma and TMA come later).
+// then exp-sum-and-accumulate pass) and never touches HBM. The bias row is
+// read from global memory (L1/L2-resident: one head is 746 KB at L = 432)
+// and not staged. Reads of q and writes of out are coalesced across the
+// threads of a warp (consecutive query rows). Ragged N needs no padding:
+// the grid has exactly B·h·N windows. Tensor cores are not used.
 #include "common.cuh"
 
 template <int CQK, int CV, bool DROP>
@@ -150,24 +145,5 @@ extern "C" int vs_pwa_attention(const float* q, const float* k,
   const uint32_t thresh = 0;
   const float inv_keep = 1.f;
   VS_ALL_WIDTHS(false)
-  return cudaErrorInvalidValue;
-}
-
-// K2f. seed: int32 [seed, batch_offset] on the device; thresh = 0 means
-// no dropout (every hash is >= 0), which takes the instance without it;
-// lse: (B, H, N, L), each row's log-sum-exp of its logits.
-extern "C" int vs_pwa_attention_train(const float* q, const float* k,
-                                      const float* v, const float* bias,
-                                      const int* seed, float* out, float* lse,
-                                      int B, int H, int N, int Cqk, int Cv,
-                                      int L, float scale, unsigned int thresh,
-                                      float inv_keep, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (B * H * N == 0 || L == 0) return cudaSuccess;
-  if (thresh == 0) {
-    VS_ALL_WIDTHS(false)
-  } else {
-    VS_ALL_WIDTHS(true)
-  }
   return cudaErrorInvalidValue;
 }

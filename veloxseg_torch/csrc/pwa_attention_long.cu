@@ -1,14 +1,14 @@
-// K3f and K3b: the train paired-window attention (K2f/K2b's function) for
-// long windows, with on-chip memory bounded whatever L is; fp32.
+// K3b: the backward of the train paired-window attention (K2b's function)
+// for long windows, with on-chip memory bounded whatever L is; fp32.
 //
-// Replaces: veloxseg_tpu/ops/pwa_attention.py:_train_fwd_rb_kernel
-// (410-448) and _train_bwd_rb_kernel (451-530), called through
-// _train_fwd_pallas (594-602) and _train_bwd_pallas (635-649) when a
-// window's full backward does not fit VMEM (L = 1024 at bench.py's 128³
-// configuration). Per window, with P = softmax(scale · QᵀK + bias_h), the
-// counter-hash keep mask M (common.cuh:keep_hash over the global id
-// (wid·L + row)·L + col, wid over the true window count N, as K2 and
-// _train_xla number them) and W = M·P/(1 − p):
+// Replaces: veloxseg_tpu/ops/pwa_attention.py:_train_bwd_rb_kernel
+// (451-530), called through _train_bwd_pallas (635-649) when a window's
+// full backward does not fit VMEM (L = 1024 at bench.py's 128³
+// configuration). Its forward, K3f, is the train forward of every window
+// length (pwa_attention_train.cu). Per window, with P = softmax(scale ·
+// QᵀK + bias_h), the counter-hash keep mask M (common.cuh:keep_hash over
+// the global id (wid·L + row)·L + col, wid over the true window count N,
+// as K2 and _train_xla number them) and W = M·P/(1 − p):
 //   forward   out = V·Wᵀ
 //   backward  dV = dO·W,  dP = M·(dOᵀV)/(1 − p),
 //             dS = P ⊙ (dP − rowsum(P ⊙ dP)),
@@ -17,164 +17,33 @@
 // What bounds it on this card: one window's scores are L² fp32 (4 MB at
 // L = 1024), which fit neither registers nor shared memory, and at these
 // widths (Cqk = Cv = 8) the function is a few GFLOP of fp32 work on a
-// few tens of MB, so operations bound it. K2 stages a whole window's
-// tokens in shared memory and its backward keeps a (chunks, L, L) dbias
-// slab in device memory; here nothing on chip grows with L:
-//   K3f      one block per (window, block of kRows query rows), one thread
-//            per row with its q in registers; K, V and the block's bias
-//            rows stream through shared memory in tiles of kTile columns;
-//            the softmax is exact and online (running max and sum, the
-//            kept-weight accumulator rescaled when the max grows).
-//            It also writes each row's log-sum-exp (lse) for K3b.
-//   K3b, three launches, none with atomics, so every sum (dbias too) is
-//   taken in a fixed order and repeats bit for bit. It takes K3f's out and
-//   lse, so P = exp(s − lse) needs no pass of its own and D = Σ_j P·dP =
-//   dO·out (with W = M·P/(1 − p)); each score, mask and dS is computed once:
-//     prep     per row, lse in base 2 and D.
-//     tiles    one block per (head, 128 rows, 128 columns of dbias) walks
-//              the head's B·N windows in order with the dbias tile in
-//              registers (8 × 4 × 2 per thread) and the bias tile in shared
-//              memory; per window (tokens double-buffered by cp.async) and
-//              64-column half, each thread forms 8 × 4 scores from the
-//              staged q, k, dO, v (each shared-memory load feeds 4 or 8
-//              FMAs), then dq (over the tile's columns) and dk, dv (over
-//              its rows) are products over the dS and W tiles in shared
-//              memory, written as per-tile partials.
-//     reduce   dq, dk, dv: the ⌈L/128⌉ partials added in tile order.
-//   At the flagship (L = 1024, 288 windows) the grid is 2 × 8 × 8 = 128
-//   blocks and the partials are 3 × 8 × 9.4 MB, written and read once.
+// few tens of MB, so operations bound it. K2b keeps a (chunks, L, L) dbias
+// slab in device memory; here nothing on chip grows with L. Three
+// launches, none with atomics, so every sum (dbias too) is taken in a
+// fixed order and repeats bit for bit. It takes K3f's out and lse, so
+// P = exp(s − lse) needs no pass of its own and D = Σ_j P·dP = dO·out (with
+// W = M·P/(1 − p)); each score, mask and dS is computed once:
+//   prep     per row, lse in base 2 and D.
+//   tiles    one block per (head, 128 rows, 128 columns of dbias) walks
+//            the head's B·N windows in order with the dbias tile in
+//            registers (8 × 4 × 2 per thread) and the bias tile in shared
+//            memory; per window (tokens double-buffered by cp.async) and
+//            64-column half, each thread forms 8 × 4 scores from the
+//            staged q, k, dO, v (each shared-memory load feeds 4 or 8
+//            FMAs), then dq (over the tile's columns) and dk, dv (over
+//            its rows) are products over the dS and W tiles in shared
+//            memory, written as per-tile partials.
+//   reduce   dq, dk, dv: the ⌈L/128⌉ partials added in tile order.
+// At the flagship (L = 1024, 288 windows) the grid is 2 × 8 × 8 = 128
+// blocks and the partials are 3 × 8 × 9.4 MB, written and read once.
 // Tensor cores are not used (ROADMAP: 3×TF32).
 #include "common.cuh"
-
-constexpr int kRows = 128;      // query rows per K3f block
-constexpr int kTile = 32;       // streamed columns per tile
-
-// Stage a (C, tile) slice of one window's (C, L) tokens as [tile][C]
-// (rows read as broadcasts); columns past L read 0.
-template <int C>
-__device__ __forceinline__ void stage_tokens(float* dst,
-                                             const float* __restrict__ src,
-                                             int L, int m0) {
-  for (int i = threadIdx.x; i < C * kTile; i += blockDim.x) {
-    const int c = i / kTile, j = i - c * kTile;
-    const int m = m0 + j;
-    dst[j * C + c] = m < L ? src[static_cast<int64_t>(c) * L + m] : 0.f;
-  }
-}
-
-// Stage bias rows [l0, l0 + kRows) × columns [m0, m0 + kTile) of one head,
-// row-major with a padded stride (kTile + 1) so that the threads of a warp,
-// one row each, read different banks.
-__device__ __forceinline__ void stage_bias(float* dst,
-                                           const float* __restrict__ bh,
-                                           int L, int l0, int m0) {
-  for (int i = threadIdx.x; i < kRows * kTile; i += blockDim.x) {
-    const int r = i / kTile, j = i - r * kTile;
-    const int l = l0 + r, m = m0 + j;
-    dst[r * (kTile + 1) + j] =
-        (l < L && m < L) ? bh[static_cast<int64_t>(l) * L + m] : 0.f;
-  }
-}
 
 // Global window id of window w (over B·H·N), shifted by the batch offset.
 __device__ __forceinline__ uint32_t global_wid(int64_t w, uint32_t off,
                                                int H, int N) {
   return static_cast<uint32_t>(w) +
          off * static_cast<uint32_t>(H) * static_cast<uint32_t>(N);
-}
-
-// One tile of a row's logits s[j] = scale·q·k_j + bias (−inf past L).
-template <int CQK>
-__device__ __forceinline__ float tile_logits(float (&s)[kTile],
-                                             const float (&qr)[CQK],
-                                             const float* ks,
-                                             const float* brow, int cols,
-                                             float scale) {
-  float tmax = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kTile; ++j) {
-    float d = 0.f;
-#pragma unroll
-    for (int c = 0; c < CQK; ++c) d = fmaf(qr[c], ks[j * CQK + c], d);
-    s[j] = j < cols ? fmaf(d, scale, brow[j]) : -INFINITY;
-    tmax = fmaxf(tmax, s[j]);
-  }
-  return tmax;
-}
-
-// ---------------------------------------------------------------------------
-// K3f
-// ---------------------------------------------------------------------------
-
-template <int CQK, int CV, bool DROP>
-__global__ void __launch_bounds__(kRows)
-pwa_long_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ bias,
-                    const int* __restrict__ seed, float* __restrict__ out,
-                    float* __restrict__ lse, int H, int N, int L,
-                    float scale, uint32_t thresh, float inv_keep) {
-  __shared__ float ks[kTile * CQK];
-  __shared__ float vs[kTile * CV];
-  __shared__ float bs[kRows * (kTile + 1)];
-  const int64_t w = blockIdx.x;
-  const int h = static_cast<int>((w / N) % H);
-  const int l0 = blockIdx.y * kRows;
-  const int l = l0 + threadIdx.x;
-  const bool row_ok = l < L;
-  const float* qw = q + w * CQK * L;
-  const float* kw = k + w * CQK * L;
-  const float* vw = v + w * CV * L;
-  const float* bh = bias + static_cast<int64_t>(h) * L * L;
-  const uint32_t uL = static_cast<uint32_t>(L);
-  uint32_t sd = 0, rowbase = 0;
-  if (DROP) {
-    sd = static_cast<uint32_t>(seed[0]);
-    rowbase = (global_wid(w, static_cast<uint32_t>(seed[1]), H, N) * uL +
-               static_cast<uint32_t>(l)) * uL;
-  }
-  float qr[CQK];
-#pragma unroll
-  for (int c = 0; c < CQK; ++c) qr[c] = row_ok ? qw[c * L + l] : 0.f;
-
-  float mx = -INFINITY, sum = 0.f, acc[CV];
-#pragma unroll
-  for (int c = 0; c < CV; ++c) acc[c] = 0.f;
-  for (int m0 = 0; m0 < L; m0 += kTile) {
-    __syncthreads();  // the previous tile is done with shared memory
-    stage_tokens<CQK>(ks, kw, L, m0);
-    stage_tokens<CV>(vs, vw, L, m0);
-    stage_bias(bs, bh, L, l0, m0);
-    __syncthreads();
-    const int cols = min(kTile, L - m0);
-    float s[kTile];
-    const float tmax = tile_logits<CQK>(s, qr, ks,
-                                        bs + threadIdx.x * (kTile + 1), cols,
-                                        scale);
-    if (tmax > mx) {  // rescale what was summed under the old max
-      const float f = expf(mx - tmax);
-      sum *= f;
-#pragma unroll
-      for (int c = 0; c < CV; ++c) acc[c] *= f;
-      mx = tmax;
-    }
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-      const float e = expf(s[j] - mx);  // 0 past L
-      sum += e;
-      if (DROP && keep_hash(rowbase + static_cast<uint32_t>(m0 + j), sd) <
-                      thresh)
-        continue;
-#pragma unroll
-      for (int c = 0; c < CV; ++c) acc[c] = fmaf(e, vs[j * CV + c], acc[c]);
-    }
-  }
-  if (!row_ok) return;
-  lse[w * L + l] = mx + logf(sum);  // the row's log-sum-exp, for K3b
-  const float inv = (DROP ? inv_keep : 1.f) / sum;
-  float* ow = out + w * CV * L;
-#pragma unroll
-  for (int c = 0; c < CV; ++c) ow[c * L + l] = acc[c] * inv;
 }
 
 // ---------------------------------------------------------------------------
@@ -462,18 +331,6 @@ __global__ void pwa_long_bwd_reduce(const float* __restrict__ part,
 // ---------------------------------------------------------------------------
 
 template <int CQK, int CV, bool DROP>
-static cudaError_t launch_fwd(const float* q, const float* k, const float* v,
-                              const float* bias, const int* seed, float* out,
-                              float* lse, int B, int H, int N, int L,
-                              float scale, uint32_t thresh, float inv_keep,
-                              cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>(B) * H * N, (L + kRows - 1) / kRows);
-  pwa_long_fwd_kernel<CQK, CV, DROP><<<grid, kRows, 0, stream>>>(
-      q, k, v, bias, seed, out, lse, H, N, L, scale, thresh, inv_keep);
-  return cudaGetLastError();
-}
-
-template <int CQK, int CV, bool DROP>
 static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
                               const float* bias, const int* seed,
                               const float* dout, const float* out,
@@ -509,39 +366,18 @@ static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
 // cudaErrorInvalidValue (ops/pwa_attention.py:LONG_KERNEL_WIDTHS).
 #define VS_ALL_WIDTHS(CASE, DROP) CASE(8, 8, DROP)
 
-#define VS_FWD_CASE(CQ, CVV, DROP)                                         \
-  if (Cqk == CQ && Cv == CVV)                                              \
-    return launch_fwd<CQ, CVV, DROP>(q, k, v, bias, seed, out, lse, B, H,  \
-                                     N, L, scale, thresh, inv_keep, stream);
 #define VS_BWD_CASE(CQ, CVV, DROP)                                         \
   if (Cqk == CQ && Cv == CVV)                                              \
     return launch_bwd<CQ, CVV, DROP>(q, k, v, bias, seed, dout, out, lse, \
                                      dq, dk, dv, stats, part, dbias, B, H, \
                                      N, L, scale, thresh, inv_keep, stream);
 
-// K3f. q, k: (B, H, N, Cqk, L); v, out: (B, H, N, Cv, L); bias: (H, L, L);
-// seed: int32 [seed, batch_offset] on the device; thresh = 0: no dropout;
-// lse: (B, H, N, L), each row's log-sum-exp of its logits.
-extern "C" int vs_pwa_attention_long_train(
-    const float* q, const float* k, const float* v, const float* bias,
-    const int* seed, float* out, float* lse, int B, int H, int N, int Cqk,
-    int Cv, int L, float scale, unsigned int thresh, float inv_keep,
-    void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (B * H * N == 0 || L == 0) return cudaSuccess;
-  if (thresh == 0) {
-    VS_ALL_WIDTHS(VS_FWD_CASE, false)
-  } else {
-    VS_ALL_WIDTHS(VS_FWD_CASE, true)
-  }
-  return cudaErrorInvalidValue;
-}
-
-// K3b. As K3f, plus dout like v, and K3f's out and lse of the same call;
-// dq, dk, dv like q, k, v; stats: B·H·N·2·L floats of scratch (lse in base
-// 2 and D per row); part: 3·⌈L/128⌉·B·H·N·Cqk·L floats of scratch (the
-// dq, dk, dv tile partials); dbias: (H, L, L), written whole. B·H·N must
-// be > 0.
+// K3b. q, k: (B, H, N, Cqk, L); v, dout: (B, H, N, Cv, L); bias: (H, L,
+// L); seed: int32 [seed, batch_offset] on the device; thresh = 0: no
+// dropout; out and lse: K3f's of the same call; dq, dk, dv like q, k,
+// v; stats: B·H·N·2·L floats of scratch (lse in base 2 and D per row);
+// part: 3·⌈L/128⌉·B·H·N·Cqk·L floats of scratch (the dq, dk, dv tile
+// partials); dbias: (H, L, L), written whole. B·H·N must be > 0.
 extern "C" int vs_pwa_attention_long_train_bwd(
     const float* q, const float* k, const float* v, const float* bias,
     const int* seed, const float* dout, const float* out, const float* lse,

@@ -7,10 +7,11 @@ custom VJP over ``_train_fwd_kernel`` and ``_train_bwd_kernel``, K2, and
 their row-blocked forms ``_train_fwd_rb_kernel`` and
 ``_train_bwd_rb_kernel``, K3). Token layout ``(B, h, N, C, L)``: per
 (batch, head, window), q/k are ``(Cqk, L)`` and v ``(Cv, L)``; the bias
-is ``(h, L, L)``. The CUDA kernels are ``csrc/pwa_attention.cu`` (K1,
-K2f), ``csrc/pwa_attention_bwd.cu`` (K2b) and
-``csrc/pwa_attention_long.cu`` (K3f, K3b); :func:`uses_long_kernel`
-picks K2 or K3.
+is ``(h, L, L)``. The CUDA kernels are ``csrc/pwa_attention.cu`` (K1),
+``csrc/pwa_attention_train.cu`` (K2f and K3f, one forward for every
+window length), ``csrc/pwa_attention_bwd.cu`` (K2b) and
+``csrc/pwa_attention_long.cu`` (K3b); :func:`uses_long_kernel` picks K2
+or K3.
 
 Train attention drops attention weights with a counter-based mask: a
 lowbias32 hash of the global (window, row, column) id and a per-call seed
@@ -27,6 +28,7 @@ a CUDA tensor; there is no fallback between the two.
 from __future__ import annotations
 
 import functools
+import math
 from typing import List, NamedTuple, Tuple
 
 import torch
@@ -191,29 +193,47 @@ def window_attention_train_bwd_plain(q, k, v, bias, seed, do, scale: float,
     return dq, dk, dv, ds.sum(dim=(0, 2))
 
 
+def _train_fwd_kernel(fn, name: str, widths, q, k, v, bias, seed,
+                      scale: float, p: float, launch=None):
+    """Launch the train forward (``csrc/pwa_attention_train.cu``) through
+    its entry point ``name`` on CUDA tensors; ``fn`` is the wrapper whose
+    launches are counted. ``launch``: a :class:`TrainFwdLaunch` in place
+    of :func:`train_fwd_launch`'s (the card tests and the bench's sweep)."""
+    seed = seed.reshape(-1).contiguous()
+    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, seed=seed, widths=widths)
+    if b * n == 0:
+        raise ValueError("no windows")
+    lw = launch or train_fwd_launch(b, h, n, l, c_qk, c_v,
+                                    _cuda.sm_count(q.device))
+    out = torch.empty_like(v)
+    lse = torch.empty((b, h, n, l), device=q.device)
+    lib = _cuda.lib("pwa_attention_train")
+    with torch.cuda.device(q.device):
+        err = getattr(lib, name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            seed.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, n, c_qk,
+            c_v, l, lw.slabs, lw.windows, lw.chunks, lw.per, float(scale),
+            drop_threshold(p) if p > 0.0 else 0, 1.0 / (1.0 - p),
+            _cuda.stream_ptr(q.device))
+    _cuda.check(lib, err, name)
+    fn.launches += 1
+    return out, lse
+
+
 def window_attention_train_fwd(q, k, v, bias, seed, scale: float,
                                p: float):
     """K2f: train attention forward; (B, h, N, Cv, L) out and each row's
     log-sum-exp (B, h, N, L), which K2b takes. Its plain version is
-    :func:`window_attention_train_fwd_plain` with :func:`train_lse_plain`."""
+    :func:`window_attention_train_fwd_plain` with :func:`train_lse_plain`;
+    :func:`window_attention_train_fwd_tiled_plain` mirrors the kernel's
+    decomposition."""
     if q.device.type == "cpu":
         return (window_attention_train_fwd_plain(q, k, v, bias, seed, scale,
                                                  p),
                 train_lse_plain(q, k, bias, scale))
-    seed = seed.reshape(-1).contiguous()
-    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, seed=seed)
-    out = torch.empty_like(v)
-    lse = torch.empty((b, h, n, l), device=q.device)
-    lib = _cuda.lib("pwa_attention")
-    with torch.cuda.device(q.device):
-        err = lib.vs_pwa_attention_train(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            seed.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, n, c_qk,
-            c_v, l, float(scale), drop_threshold(p) if p > 0.0 else 0,
-            1.0 / (1.0 - p), _cuda.stream_ptr(q.device))
-    _cuda.check(lib, err, "pwa_attention_train")
-    window_attention_train_fwd.launches += 1
-    return out, lse
+    return _train_fwd_kernel(window_attention_train_fwd,
+                             "vs_pwa_attention_train", KERNEL_WIDTHS, q, k, v,
+                             bias, seed, scale, p)
 
 
 window_attention_train_fwd.launches = 0
@@ -224,6 +244,224 @@ def train_lse_plain(q, k, bias, scale: float) -> torch.Tensor:
     write beside their output for K2b and K3b."""
     scores = torch.einsum("bhncl,bhncm->bhnlm", q, k) * scale
     return torch.logsumexp(scores + bias[None, :, None], dim=-1)
+
+
+_SMEM_FLOATS = 232448 // 4  # the most a block may hold
+
+
+def _chunk_ranges(bn: int, chunks: int, per: int) -> List[Tuple[int, int]]:
+    """The windows ``[lo, hi)`` of each of ``chunks`` chunks of ``per`` of a
+    head's ``bn`` windows (window ``j`` is sample ``j // N``, window
+    ``j % N``)."""
+    return [(i * per, min(bn, (i + 1) * per)) for i in range(chunks)]
+
+
+# csrc/pwa_attention_train.cu: columns of a stage (kTile) and of an online
+# softmax step (kStep), column lanes and row groups of a warp (kTX, kTY),
+# the most warps a block has
+_FWD_TILE, _FWD_STEP, _FWD_TX, _FWD_TY, _FWD_MAX_WARPS = 64, 32, 4, 8, 16
+# train_fwd_launch's model, fitted to the device times of a sweep of
+# geometries (tools/bench_train_bwd.py --sweep): the warps an SM needs to
+# issue at its full rate, the bytes a clock one SM loads from L2, and the
+# issue slots of one 16-byte copy of a tile's K or V
+_FWD_FULL_RATE_WARPS = 10
+_FWD_L2_BYTES_PER_CLOCK = 24
+_FWD_COPY_SLOTS = 40
+# the slabs and window slots a block may have (the grid the model was
+# fitted on)
+_FWD_SLABS, _FWD_WINDOWS = (1, 2, 3, 4, 6, 8), (1, 2, 4, 8)
+
+
+def _fwd_rows_per_lane(c_qk: int, c_v: int) -> int:
+    """Rows a lane of K2f/K3f owns (``rows_per_lane``): 4 at Cqk + Cv <= 8,
+    2 up to 24, else 1 (its registers hold RM·(Cqk + Cv + 8) floats)."""
+    return 4 if c_qk + c_v <= 8 else 2 if c_qk + c_v <= 24 else 1
+
+
+class TrainFwdLaunch(NamedTuple):
+    """K2f's and K3f's launch geometry for one shape
+    (``csrc/pwa_attention_train.cu`` checks it). A block owns ``rows`` =
+    ``slabs``·8·RM query rows of one head (RM: :func:`_fwd_rows_per_lane`)
+    and walks a chunk of ``per`` of that head's windows (``chunks``
+    chunks), ``windows`` at a time; warp (slab, window slot) takes one slab
+    of rows of one window, all its columns."""
+    slabs: int
+    windows: int
+    chunks: int
+    per: int
+    rows: int
+
+    def window_ranges(self, bn: int) -> List[Tuple[int, int]]:
+        return _chunk_ranges(bn, self.chunks, self.per)
+
+
+def _k2f_smem_floats(slabs: int, windows: int, l: int, c_qk: int,
+                     c_v: int) -> int:
+    """Shared memory of a K2f/K3f block (``fwd_smem_floats``): the bias
+    rows (stride ⌈L/64⌉·64 + 16/RM) and two stages of ``windows`` windows,
+    each a tile of K and V and the block's q rows."""
+    rm = _fwd_rows_per_lane(c_qk, c_v)
+    rows = slabs * _FWD_TY * rm
+    stride = -(-l // _FWD_TILE) * _FWD_TILE + 16 // rm
+    return rows * stride + 2 * windows * (_FWD_TILE * (c_qk + c_v)
+                                          + c_qk * rows)
+
+
+def _fwd_fits(slabs: int, windows: int, l: int, c_qk: int, c_v: int) -> bool:
+    """Whether the kernel takes this (slabs, windows) at window length l:
+    at most 16 warps, no slab wholly past L, and a block's shared
+    memory."""
+    rows_slab = _FWD_TY * _fwd_rows_per_lane(c_qk, c_v)
+    return (slabs * windows <= _FWD_MAX_WARPS
+            and (slabs - 1) * rows_slab < l
+            and _k2f_smem_floats(slabs, windows, l, c_qk, c_v)
+            <= _SMEM_FLOATS)
+
+
+def _fwd_cost(b: int, h: int, n: int, l: int, c_qk: int, c_v: int,
+              sms: int, lw: "TrainFwdLaunch") -> float:
+    """Modelled clocks of one launch (:func:`train_fwd_launch`)."""
+    rm = _fwd_rows_per_lane(c_qk, c_v)
+    warps = lw.slabs * lw.windows
+    floats = _k2f_smem_floats(lw.slabs, lw.windows, l, c_qk, c_v)
+    regs = min(128, 44 + rm * (c_qk + c_v + 11))
+    fit = min(_SMEM_FLOATS // floats, 32 // warps,
+              65536 // (32 * regs * warps))
+    blocks = h * -(-l // lw.rows) * lw.chunks
+    per_sm = min(fit, -(-blocks // sms))
+    rounds = -(-blocks // (sms * per_sm))
+    rate = 4 * min(1.0, per_sm * warps / _FWD_FULL_RATE_WARPS)
+    tiles = -(-l // _FWD_TILE)
+    # a lane's issue slots per window: per step its 8·RM scores at
+    # Cqk + Cv FMAs and ~25 more (bias, max, exp2, the hash, the select,
+    # the sum), per tile its share of the copies (its window slot's S
+    # warps share them); the lanes' merge
+    steps = _FWD_TILE // _FWD_STEP
+    copies = _FWD_COPY_SLOTS * (c_qk + c_v) * _FWD_TILE / (4 * 32 * lw.slabs)
+    lane_window = (tiles * (steps * 8 * rm * (c_qk + c_v + 25) + copies)
+                   + rm * (4 * c_v + 12))
+    batches = -(-lw.per // lw.windows)
+    issue = per_sm * warps * batches * lane_window / rate
+    # an SM's loads: each block's bias rows before it starts, then per
+    # window its K, V and q rows under the compute
+    bias = per_sm * 4 * lw.rows * l / _FWD_L2_BYTES_PER_CLOCK
+    tokens = (per_sm * lw.per * 4 * ((c_qk + c_v) * l + lw.rows * c_qk)
+              / _FWD_L2_BYTES_PER_CLOCK)
+    return rounds * (bias + max(issue, tokens))
+
+
+def train_fwd_candidates(b: int, h: int, n: int, l: int, c_qk: int,
+                         c_v: int, sms: int):
+    """(modelled clocks, :class:`TrainFwdLaunch`) of each (slabs, windows)
+    of the grid that the kernel takes, each with its best windows per chunk
+    (ties to fewer chunks)."""
+    bn = b * n
+    rows_slab = _FWD_TY * _fwd_rows_per_lane(c_qk, c_v)
+    pers = sorted({-(-bn // c) for c in range(1, bn + 1)})
+    out = []
+    for slabs in _FWD_SLABS:
+        for windows in _FWD_WINDOWS:
+            if windows > bn or not _fwd_fits(slabs, windows, l, c_qk, c_v):
+                continue
+            out.append(min(
+                ((_fwd_cost(b, h, n, l, c_qk, c_v, sms, lw), lw.chunks), lw)
+                for lw in (TrainFwdLaunch(slabs, windows, -(-bn // per), per,
+                                          slabs * rows_slab)
+                           for per in pers)))
+    return [(cost, lw) for (cost, _), lw in out]
+
+
+@functools.lru_cache(maxsize=None)
+def train_fwd_launch(b: int, h: int, n: int, l: int, c_qk: int, c_v: int,
+                     sms: int) -> TrainFwdLaunch:
+    """K2f's and K3f's geometry: the (slabs, windows at a time, windows
+    per chunk) of least modelled time. The model (:func:`_fwd_cost`): a
+    lane spends issue slots on each tile of each window of its chunk; an
+    SM holds as many blocks as its shared memory, 32 warps and its
+    registers allow, and issues 4 warp instructions a clock when it holds
+    ``_FWD_FULL_RATE_WARPS`` warps or more, proportionally fewer below;
+    each block loads its bias rows from L2 before it starts; blocks run in
+    rounds over the ``sms`` SMs. Ties go to fewer chunks (less bias staged
+    again)."""
+    return min(train_fwd_candidates(b, h, n, l, c_qk, c_v, sms),
+               key=lambda c: (c[0], c[1].chunks))[1]
+
+
+def window_attention_train_fwd_tiled_plain(q, k, v, bias, seed, scale: float,
+                                           p: float, rows: int, cols: int,
+                                           chunk: int):
+    """K2f's and K3f's decomposition in torch ops, returning (out, lse):
+    blocks of ``rows`` query rows of a head walk chunks of ``chunk`` of the
+    head's windows (window ``b·N + n``) in tiles of ``cols`` columns (the
+    kernel's 64), each in steps of 32; each row's columns are taken by 4
+    column lanes, lane x taking columns [4x, 4x + 4) and [16 + 4x,
+    16 + 4x + 4) of every step, with an online softmax in base 2
+    per lane (logit = (q·scale·log2e)·k + bias·log2e; per tile the running
+    max, the sum and the kept-weight accumulator rescaled once a step, then
+    exp2
+    weights added); the lanes' partials merged as the kernel's xor
+    shuffles add them ((0 + 1) + (2 + 3)); out = acc·(1/(1 − p))/sum and
+    lse = (max + log2 sum)·ln 2."""
+    b, h, n, c_qk, l = q.shape
+    c_v = v.shape[3]
+    log2e = 1.4426950408889634
+    keep_scale = 1.0 / (1.0 - p) if p > 0.0 else 1.0
+    if p > 0.0:
+        s, off = _seed_pair(seed)
+        keep = keep_mask(window_ids(b, h, n, l, off, q.device), p, s)
+    # (h, B·N, ...): the windows of a head in the order the blocks walk them
+    heads = lambda t: t.transpose(0, 1).reshape(h, b * n, *t.shape[3:])  # noqa
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    kp = heads(keep) if p > 0.0 else None
+    bias2 = bias * log2e
+    out = torch.empty_like(vh)
+    lse = torch.empty(h, b * n, l, device=q.device)
+    half = _FWD_STEP // 2
+    for lo, hi in _chunk_ranges(b * n, -(-(b * n) // chunk), chunk):
+        for r0 in range(0, l, rows):
+            r1 = min(l, r0 + rows)
+            logit = (torch.einsum("hwcl,hwcm->hwlm",
+                                  qh[:, lo:hi, :, r0:r1] * (scale * log2e),
+                                  kh[:, lo:hi]) + bias2[:, None, r0:r1])
+            parts = []
+            for x in range(_FWD_TX):
+                mx = logit.new_full(logit.shape[:-1], -1e30)
+                tot = logit.new_zeros(logit.shape[:-1])
+                acc = logit.new_zeros(*logit.shape[:-1], c_v)
+                steps = [u0 for t0 in range(0, l, cols)
+                         for u0 in range(t0, min(l, t0 + cols), _FWD_STEP)]
+                for u0 in steps:
+                    idx = [c for a in (u0 + 4 * x, u0 + half + 4 * x)
+                           for c in range(a, min(a + 4, l))]
+                    if not idx:
+                        continue
+                    sl = logit[..., idx]
+                    mn = torch.maximum(mx, sl.amax(dim=-1))
+                    f = torch.exp2(mx - mn)
+                    tot, acc, mx = tot * f, acc * f[..., None], mn
+                    e = torch.exp2(sl - mx[..., None])
+                    tot = tot + e.sum(dim=-1)
+                    if p > 0.0:
+                        e = torch.where(kp[:, lo:hi, r0:r1][..., idx], e,
+                                        0.0)
+                    acc = acc + torch.einsum("hwlm,hwcm->hwlc", e,
+                                             vh[:, lo:hi][..., idx])
+                parts.append((mx, tot, acc))
+            m = parts[0][0]
+            for mx, _, _ in parts[1:]:
+                m = torch.maximum(m, mx)
+            scaled = [(t * torch.exp2(mx - m),
+                       a * torch.exp2(mx - m)[..., None])
+                      for mx, t, a in parts]
+            tot = (scaled[0][0] + scaled[1][0]) + (scaled[2][0]
+                                                   + scaled[3][0])
+            acc = (scaled[0][1] + scaled[1][1]) + (scaled[2][1]
+                                                   + scaled[3][1])
+            out[:, lo:hi, :, r0:r1] = (acc * (keep_scale / tot)[..., None]
+                                       ).transpose(-1, -2)
+            lse[:, lo:hi, r0:r1] = (m + torch.log2(tot)) * math.log(2.0)
+    return tuple(t.reshape(h, b, n, *t.shape[2:]).transpose(0, 1)
+                 .contiguous() for t in (out, lse))
 
 
 class TrainBwdLaunch(NamedTuple):
@@ -238,12 +476,9 @@ class TrainBwdLaunch(NamedTuple):
     per: int
 
     def window_ranges(self, bn: int) -> List[Tuple[int, int]]:
-        """The windows ``[lo, hi)`` of each chunk of a head's ``bn``."""
-        return [(i * self.per, min(bn, (i + 1) * self.per))
-                for i in range(self.chunks)]
+        return _chunk_ranges(bn, self.chunks, self.per)
 
 
-_SMEM_FLOATS = 232448 // 4  # the most a block may hold
 _PASS_ROW = 64 + 4          # row stride of K2b's dS and W tiles
 
 
@@ -388,7 +623,9 @@ def uses_long_kernel(l: int) -> bool:
 
 def window_attention_train_fwd_long(q, k, v, bias, seed, scale: float,
                                     p: float):
-    """K3f: train attention forward with on-chip memory bounded in L;
+    """K3f: train attention forward for windows longer than 512 tokens, at
+    the widths K3b is built for; the same kernel as K2f, whose on-chip
+    memory grows with L only by its bias rows (32 rows of L at L = 1024).
     (B, h, N, Cv, L) out and each row's log-sum-exp (B, h, N, L), which
     K3b takes. Its plain version is K2's (the same function) with
     :func:`train_lse_plain`."""
@@ -396,21 +633,9 @@ def window_attention_train_fwd_long(q, k, v, bias, seed, scale: float,
         return (window_attention_train_fwd_plain(q, k, v, bias, seed, scale,
                                                  p),
                 train_lse_plain(q, k, bias, scale))
-    seed = seed.reshape(-1).contiguous()
-    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, seed=seed,
-                                   widths=LONG_KERNEL_WIDTHS)
-    out = torch.empty_like(v)
-    lse = torch.empty((b, h, n, l), device=q.device)
-    lib = _cuda.lib("pwa_attention_long")
-    with torch.cuda.device(q.device):
-        err = lib.vs_pwa_attention_long_train(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            seed.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, n, c_qk,
-            c_v, l, float(scale), drop_threshold(p) if p > 0.0 else 0,
-            1.0 / (1.0 - p), _cuda.stream_ptr(q.device))
-    _cuda.check(lib, err, "pwa_attention_long_train")
-    window_attention_train_fwd_long.launches += 1
-    return out, lse
+    return _train_fwd_kernel(window_attention_train_fwd_long,
+                             "vs_pwa_attention_long_train",
+                             LONG_KERNEL_WIDTHS, q, k, v, bias, seed, scale, p)
 
 
 window_attention_train_fwd_long.launches = 0
