@@ -18,8 +18,9 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    training at its B = 16, level 1 at L = 1024): K3f and K3b (also at
    B = 2), K2f and K2b at the three L = 128 levels and, beside K3, at
    L = 1024, K4f, K5f, K4b and K5b at its four JLC levels. U-RWKV: K6 at
-   its bottleneck's (4, 216, 128). K2f and K3f are one kernel
-   (``csrc/pwa_attention_train.cu``); its launch geometry is printed.
+   its bottleneck's (4, 216, 128). K1, K2f and K3f are one kernel
+   (``csrc/pwa_attention_train.cu``, K1 its instance without dropout and
+   lse); its launch geometry is printed for each, and K6's.
    K4b is held against its plain version in dy and in the branch
    weights' gradient; its weight-gradient launches
    are also timed alone ("jlc_branch_wgrad", on K4b's own dy). K2f and K3f
@@ -98,9 +99,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 # the timers, the card query and the bounds, shared with the bench tools
 from chip_measure import (FP32_FLOP_PER_S, HBM_BYTES_PER_S,  # noqa: E402
-                          bound, card as card_line, cuda_ms, sdpa_backend,
-                          stage2_bwd_work, stage2_fwd_work,
-                          train_attention_work)
+                          bound, card as card_line, cuda_ms,
+                          eval_attention_work, sdpa_backend, stage2_bwd_work,
+                          stage2_fwd_work, train_attention_work, wkv_work)
 
 
 def taps_in_bounds(s, k):
@@ -295,13 +296,11 @@ def main() -> int:
                                                      scale=scale)
             require_close(f"K1 {name} library", lib_out.transpose(-1, -2),
                           ref, atol=1e-3, rtol=1e-3)
-            n_bytes = 4 * (q.numel() + k.numel() + 2 * v.numel()
-                           + bias.numel())
-            # QKᵀ and PV products, plus scale, bias, max, exp, sum and the
-            # final divide per score / output
-            n_flop = (2 * b * h * n * L * L * (cqk + cv)
-                      + 5 * b * h * n * L * L + b * h * n * L * cv)
-            record("pwa_attention", name, weight, n_bytes, n_flop,
+            geometry = pwa_attention.eval_fwd_launch(b, h, n, L, cqk, cv,
+                                                     _cuda.sm_count(dev))
+            print(f"[3] K1 {name}: geometry {geometry}", flush=True)
+            record("pwa_attention", name, weight,
+                   *eval_attention_work(b, h, n, cqk, cv, L),
                    max_err(got, ref),
                    cuda_ms(lambda: pwa_attention.window_attention(
                        q, k, v, bias, scale)),
@@ -607,12 +606,13 @@ def main() -> int:
         got = wkv.wkv(w6, u6, k6, v6)
         ref = wkv.wkv_plain(w6, u6, k6, v6)
         torch.cuda.synchronize()
-        # fp32, the same recurrence; expf and fused multiply-adds
+        # fp32, the same recurrence cut into chunks; expf and fused
+        # multiply-adds
         require_close("K6", got, ref, atol=1e-5, rtol=1e-5)
-        # per (b, t, c): 24 operations (two maxima, four exponentials, the
-        # output's quotient and the state's update); k, v, y once, w, u
-        record("wkv", f"({b6},{t6},{c6})", 6,
-               4 * (3 * b6 * t6 * c6 + 2 * c6), 24 * b6 * t6 * c6,
+        print(f"[3] K6: geometry "
+              f"{wkv.wkv_launch(t6)}",
+              flush=True)
+        record("wkv", f"({b6},{t6},{c6})", 6, *wkv_work(b6, t6, c6),
                max_err(got, ref), cuda_ms(lambda: wkv.wkv(w6, u6, k6, v6)),
                cuda_ms(lambda: wkv.wkv_plain(w6, u6, k6, v6), 5), None,
                "urwkv_serving")
@@ -979,7 +979,7 @@ def main() -> int:
 
     # -- phase 13 -----------------------------------------------------------
     meta = {
-        "pwa_attention": ("veloxseg_torch/csrc/pwa_attention.cu",
+        "pwa_attention": ("veloxseg_torch/csrc/pwa_attention_train.cu",
                           "veloxseg_tpu/ops/pwa_attention.py:56"),
         "jlc_stage1": ("veloxseg_torch/csrc/jlc_stage1.cu",
                        "veloxseg_tpu/ops/fused_jlc.py:111"),

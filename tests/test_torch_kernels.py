@@ -40,6 +40,62 @@ def test_attention_kernel_matches_plain(l, c_qk, c_v):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
 
+# K1 at the AutoPET-II serving forward's four levels (4 tiles of 96³),
+# Hecktor's L = 512 and the flagship's L = 1024, at B = 4
+K1_SERVING = [(4, 1, 585, 4, 4, 54), (4, 2, 9, 8, 8, 432),
+              (4, 2, 9, 8, 16, 54), (4, 4, 1, 16, 32, 54),
+              (4, 2, 9, 8, 8, 512), (4, 2, 9, 8, 8, 1024)]
+
+
+@pytest.mark.parametrize("b,h,n,c_qk,c_v,l", K1_SERVING)
+def test_attention_kernel_at_serving_shapes(b, h, n, c_qk, c_v, l):
+    dev = cuda_or_skip()
+    q, k, v, bias = (torch.from_numpy(normal(s, 20 + i)).to(dev) for i, s in
+                     enumerate([(b, h, n, c_qk, l), (b, h, n, c_qk, l),
+                                (b, h, n, c_v, l), (h, l, l)]))
+    scale = 1.0 / np.sqrt(c_qk)
+    pa = pwa_attention
+    lw = pa.eval_fwd_launch(
+        b, h, n, l, c_qk, c_v,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    before = pa.window_attention.launches
+    out = pa.window_attention(q, k, v, bias, scale)
+    again = pa.window_attention(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    assert pa.window_attention.launches == before + 2
+    ref = pa.window_attention_plain(q, k, v, bias, scale)
+    # fp32 both ways; sums in another order and exp2
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+    # the kernel's own decomposition (the train forward's at p = 0)
+    seed = torch.zeros(2, dtype=torch.int32, device=dev)
+    mirror, _ = pa.window_attention_train_fwd_tiled_plain(
+        q, k, v, bias, seed, scale, 0.0, lw.rows, 64, lw.per)
+    torch.testing.assert_close(out, mirror, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, again)
+
+
+# K1 under geometries other than its pick, the bias staged and read
+# through L1 (ldg): a ragged last chunk, a partial window batch, L not a
+# multiple of 4 (4-byte staging), each width class of rows per lane
+@pytest.mark.parametrize("ldg", [False, True])
+@pytest.mark.parametrize("c_qk,c_v,l,slabs,windows,per", [
+    (4, 4, 54, 2, 2, 4), (8, 16, 54, 3, 4, 3), (16, 32, 50, 6, 1, 5),
+    (4, 8, 9, 1, 8, 21)])
+def test_attention_kernel_at_other_geometries(c_qk, c_v, l, slabs, windows,
+                                              per, ldg):
+    dev = cuda_or_skip()
+    b, h, n = 3, 2, 7
+    q, k, v, bias, _ = _train_inputs(dev, b, h, n, c_qk, c_v, l, seed=11)
+    scale = 1.0 / np.sqrt(c_qk)
+    pa = pwa_attention
+    rows = slabs * 8 * pa._fwd_rows_per_lane(c_qk, c_v)
+    lw = pa.TrainFwdLaunch(slabs, windows, -(-b * n // per), per, rows, ldg)
+    out = pa.window_attention(q, k, v, bias, scale, launch=lw)
+    torch.cuda.synchronize()
+    ref = pa.window_attention_plain(q, k, v, bias, scale)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+
+
 # AutoPET per-level (C, groups, expansion, spatial) of a 96³ tile, B = 4
 JLC_LEVELS = [(16, 4, 3, 24), (32, 4, 3, 12), (64, 8, 2, 6), (128, 8, 2, 3)]
 
@@ -369,6 +425,38 @@ def test_wkv_kernel_matches_plain(b, t, c):
     ref = wkv_ops.wkv_plain(w, u, k, v)
     # fp32; the same recurrence, expf and fused multiply-adds on the card
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def _wkv_inputs(dev, b, t, c):
+    w = torch.from_numpy(normal((c,), 0, 3.0) / t).to(dev)
+    u = torch.from_numpy(normal((c,), 1) / t).to(dev)
+    k, v = (torch.from_numpy(normal((b, t, c), s)).to(dev) for s in (2, 3))
+    return w, u, k, v
+
+
+# K6 under geometries other than its pick: the main path's shape in
+# chunks of 32, 8 and 1 (the sequential loop) and 16 channels a block;
+# ragged T (50 in chunks of 16: three empty) and a ragged last channel
+# group (40 = 32 + 8); T < chunks; C not a multiple of 4 (4-byte staging)
+@pytest.mark.parametrize("b,t,c,channels,chunks", [
+    (4, 216, 128, 4, 32), (4, 216, 128, 16, 8), (4, 216, 128, 8, 1),
+    (3, 50, 40, 16, 16), (2, 5, 12, 4, 16), (2, 30, 10, 8, 4)])
+def test_wkv_kernel_at_other_geometries(b, t, c, channels, chunks):
+    from veloxseg_torch.ops import wkv as wkv_ops
+    dev = cuda_or_skip()
+    w, u, k, v = _wkv_inputs(dev, b, t, c)
+    lw = wkv_ops.WkvLaunch(channels, chunks)
+    with torch.no_grad():
+        got = wkv_ops.wkv(w, u, k, v, launch=lw)
+        again = wkv_ops.wkv(w, u, k, v, launch=lw)
+    torch.cuda.synchronize()
+    # fp32; the same recurrence cut into chunks, expf on the card
+    torch.testing.assert_close(got, wkv_ops.wkv_plain(w, u, k, v),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, wkv_ops.wkv_chunked_plain(w, u, k, v,
+                                                              chunks),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("c,groups,expansion,s", JLC_LEVELS)

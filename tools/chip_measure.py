@@ -86,6 +86,24 @@ def train_attention_work(b, h, n, cqk, cv, L):
     return (f_bytes, f_flop), (b_bytes, b_flop)
 
 
+def eval_attention_work(b, h, n, cqk, cv, L):
+    """Bytes and fp32 operations of the eval attention (K1) on (b, h, n)
+    windows of L tokens: q, k, v and bias in, out written; QKᵀ and PV,
+    plus scale, bias, max, exp and sum per score and the final divide per
+    output."""
+    n_bytes = 4 * (b * h * n * L * (2 * cqk + 2 * cv) + h * L * L)
+    n_flop = (2 * b * h * n * L * L * (cqk + cv) + 5 * b * h * n * L * L
+              + b * h * n * L * cv)
+    return n_bytes, n_flop
+
+
+def wkv_work(b, t, c):
+    """Bytes and operations of the WKV forward (K6) on (b, t, c): k, v and
+    y once, w and u; per (b, t, c) 24 operations (two maxima, four
+    exponentials, the output's quotient and the state's update)."""
+    return 4 * (3 * b * t * c + 2 * c), 24 * b * t * c
+
+
 def sdpa_backend(fn) -> str:
     """Which backend of ``scaled_dot_product_attention`` one call of ``fn``
     ran: the names of the device kernels it launched, mapped to the

@@ -36,7 +36,7 @@ from chip_measure import card as card_line
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # substrings of the port's own kernel names (csrc/*.cu)
-PORT_KERNELS = ("pwa_attention_kernel", "pwa_train_fwd", "pwa_bwd_",
+PORT_KERNELS = ("pwa_train_fwd", "pwa_bwd_",
                 "pwa_long_", "wkv_kernel", "jlc_branch_conv", "jlc_conv_stats",
                 "jlc_branch_wgrad", "jlc_wgrad_reduce", "plane_stats_kernel",
                 "jlc_stage1_apply", "jlc_stage1_bwd_planes",
@@ -47,7 +47,11 @@ PORT_KERNELS = ("pwa_attention_kernel", "pwa_train_fwd", "pwa_bwd_",
 # own kernels come before the library families, whose substrings ("conv",
 # "wgrad", "reduce") their names also hold
 FAMILIES = (
-    ("K1 eval attention (pwa_attention_kernel)", ("pwa_attention_kernel",)),
+    # K1 is the train forward's instance <Cqk, Cv, DROP, LSE, LDG> with
+    # neither dropout nor lse (a key of several substrings needs them all)
+    ("K1 eval attention (pwa_train_fwd, no dropout, no lse)",
+     (("pwa_train_fwd", "false, false, true>"),
+      ("pwa_train_fwd", "false, false, false>"))),
     ("K2f/K3f train attention forward", ("pwa_train_fwd",)),
     ("K2b attention backward", ("pwa_bwd_",)),
     ("K3b long-window attention backward", ("pwa_long_bwd",)),
@@ -74,7 +78,8 @@ FAMILIES = (
 def family(name: str) -> str:
     low = name.lower()
     for fam, keys in FAMILIES:
-        if any(k.lower() in low for k in keys):
+        if any(all(p.lower() in low for p in ((k,) if isinstance(k, str)
+                                              else k)) for k in keys):
             return fam
     return "other"
 

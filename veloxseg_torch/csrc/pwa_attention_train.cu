@@ -1,29 +1,34 @@
-// K2f and K3f: the forward of the train paired-window attention with
-// counter-hash weight dropout, for every window length; fp32.
+// K1, K2f and K3f: the forward of the paired-window attention, eval (K1)
+// and train with counter-hash weight dropout (K2f, K3f), for every window
+// length; fp32.
 //
-// Replaces: veloxseg_tpu/ops/pwa_attention.py:_train_fwd_kernel (322-341,
-// K2f, L <= 512) and _train_fwd_rb_kernel (410-448, K3f, L > 512), called
-// through _train_fwd_pallas (572-602). Per (batch, head, window), in the
-// (B, h, N, C, L) token layout (q, k: (Cqk, L); v, out: (Cv, L); bias:
-// (h, L, L)):
+// Replaces: veloxseg_tpu/ops/pwa_attention.py:_attn_kernel (56-74, K1,
+// called through window_attention_pallas, 77-133), _train_fwd_kernel
+// (322-341, K2f, L <= 512) and _train_fwd_rb_kernel (410-448, K3f,
+// L > 512), called through _train_fwd_pallas (572-602). Per (batch, head,
+// window), in the (B, h, N, C, L) token layout (q, k: (Cqk, L); v, out:
+// (Cv, L); bias: (h, L, L)):
 //   out = V · (M ⊙ softmax(scale · QᵀK + bias_h) / (1 − p))ᵀ,
 // with the keep mask M = keep_hash(gid, seed) >= thresh over the global id
 // gid = (wid·L + row)·L + col, wid = ((offset + b)·h + head)·N + n over
 // the TRUE window count N (_train_xla, 666-673), and each row's
 // log-sum-exp lse of its logits, which K2b (pwa_attention_bwd.cu) and K3b
-// (pwa_attention_long.cu) take with out.
+// (pwa_attention_long.cu) take with out. K1 is the instance with neither:
+// DROP false compiles the hash out, LSE false writes nothing but out.
 //
 // What bounds it on this card: operations. Per score it costs Cqk + Cv
-// FMAs, the hash's ~11 integer instructions, an exp2 and ~5 more (bias,
-// max, sum, select, rescale); the tokens and the bias are a few MB. A
-// design where each thread owns one row and reads each key and value as a
-// broadcast is bound instead by shared memory: a 16-byte load takes four
-// wavefronts whatever its addresses, so Cqk + Cv wavefronts feed only 32
-// scores. Here each load feeds a register tile:
+// FMAs, the hash's ~11 integer instructions (train only), an exp2 and ~5
+// more (bias, max, sum, select, rescale); the tokens and the bias are a
+// few MB. A design where each thread owns one row and reads each key and
+// value as a broadcast is bound instead by shared memory: a 16-byte load
+// takes four wavefronts whatever its addresses, so Cqk + Cv wavefronts
+// feed only 32 scores. Here each load feeds a register tile:
 //   - A block is (row block, head, chunk of that head's windows). It
 //     stages its bias rows once in shared memory (cp.async) and reuses
 //     them for every window of its chunk; its S·W warps take S slabs of
-//     rows of W windows at a time.
+//     rows of W windows at a time. K1 may instead read the bias through
+//     L1 (LDG, for windows of one tile), so that a block waits on no bias
+//     rows and holds only its window stages.
 //   - A warp's 32 lanes are 8 row groups × 4 column lanes. A lane owns RM
 //     rows (4, 2 or 1 by the widths) and, of every step of 32 columns,
 //     columns [4x, 4x + 4) and [16 + 4x, 16 + 4x + 4) for lane x: per
@@ -76,10 +81,12 @@ __host__ __device__ inline int window_floats(int rows, int CQK, int CV) {
 }
 
 // Shared memory of a block, in floats (ops/pwa_attention.py:
-// _k2f_smem_floats): the bias rows and two stages of W windows.
-static size_t fwd_smem_floats(int S, int W, int L, int CQK, int CV) {
+// _k2f_smem_floats): the bias rows (none with LDG) and two stages of W
+// windows.
+static size_t fwd_smem_floats(int S, int W, int L, int CQK, int CV,
+                              bool ldg) {
   const int RM = rows_per_lane(CQK, CV), rows = S * kTY * RM;
-  return static_cast<size_t>(rows) * bias_stride(L, RM) +
+  return (ldg ? 0 : static_cast<size_t>(rows) * bias_stride(L, RM)) +
          2 * static_cast<size_t>(W) * window_floats(rows, CQK, CV);
 }
 
@@ -105,7 +112,7 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int n,
   }
 }
 
-template <int CQK, int CV, bool DROP>
+template <int CQK, int CV, bool DROP, bool LSE, bool LDG>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
 pwa_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -116,9 +123,9 @@ pwa_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      float inv_keep) {
   constexpr int RM = rows_per_lane(CQK, CV);
   extern __shared__ __align__(16) float smem[];
-  const int rows = S * kTY * RM, bst = bias_stride(L, RM);
+  const int rows = S * kTY * RM, bst = LDG ? 0 : bias_stride(L, RM);
   const int wf = window_floats(rows, CQK, CV);
-  float* bs = smem;                 // [rows][bst] bias
+  float* bs = smem;                 // [rows][bst] bias (none with LDG)
   float* stage = bs + rows * bst;   // 2 × W × [K | V | q]
   const int tid = threadIdx.x, nwarps = blockDim.x >> 5, lane = tid & 31;
   const int warp = tid >> 5, slab = warp % S, wl = warp / S;
@@ -128,8 +135,8 @@ pwa_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int j0 = blockIdx.z * per, j1 = min(B * N, j0 + per);
   const bool wide = (L & 3) == 0;  // rows of q, k, v, bias 16-byte aligned
   const int lb = (L + kTile - 1) / kTile * kTile;
-  {  // the bias rows, a warp a row
-    const float* bh = bias + static_cast<int64_t>(h) * L * L;
+  const float* bh = bias + static_cast<int64_t>(h) * L * L;
+  if (!LDG) {  // the bias rows, a warp a row
     for (int r = warp; r < rows; r += nwarps) {
       const bool ok = l0 + r < L;
       copy_row(bs + r * bst, bh + static_cast<int64_t>(ok ? l0 + r : 0) * L,
@@ -241,9 +248,19 @@ pwa_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const bool ragged = c0 - kTX * tx + kStep > L;  // the same for all
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
-        const float* brow = bs + (r0 + i) * bst + c0;
-        const float4 ba = lds4(brow), bb = lds4(brow + 16);
-        const float bj[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+        float bj[8];
+        if (LDG) {  // through L1, row and columns clamped into the head
+          const float* brow =
+              bh + static_cast<int64_t>(min(l0 + r0 + i, L - 1)) * L;
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj)
+            bj[jj] = __ldg(brow + min(c0 + (jj < 4 ? jj : 12 + jj), L - 1));
+        } else {
+          const float* brow = bs + (r0 + i) * bst + c0;
+          const float4 ba = lds4(brow), bb = lds4(brow + 16);
+          bj[0] = ba.x; bj[1] = ba.y; bj[2] = ba.z; bj[3] = ba.w;
+          bj[4] = bb.x; bj[5] = bb.y; bj[6] = bb.z; bj[7] = bb.w;
+        }
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
           s[i][jj] = fmaf(bj[jj], kLog2e, s[i][jj]);
@@ -311,7 +328,7 @@ pwa_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int l = l0 + r0 + i;
       if (j >= j1 || l >= L) continue;
       const int64_t w = window(j);
-      if (tx == 0) lse[w * L + l] = (m + log2f(tot)) * kLn2;
+      if (LSE && tx == 0) lse[w * L + l] = (m + log2f(tot)) * kLn2;
       const float inv = keep_scale / tot;
 #pragma unroll
       for (int c = 0; c < CV; ++c)
@@ -320,34 +337,35 @@ pwa_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int CQK, int CV, bool DROP>
+template <int CQK, int CV, bool DROP, bool LSE, bool LDG>
 static cudaError_t launch(const float* q, const float* k, const float* v,
                           const float* bias, const int* seed, float* out,
                           float* lse, int B, int H, int N, int L, int S,
                           int W, int chunks, int per, float scale,
                           uint32_t thresh, float inv_keep,
                           cudaStream_t stream) {
-  const size_t smem = fwd_smem_floats(S, W, L, CQK, CV) * sizeof(float);
-  cudaError_t err = allow_smem(pwa_train_fwd_kernel<CQK, CV, DROP>, smem);
+  auto kernel = pwa_train_fwd_kernel<CQK, CV, DROP, LSE, LDG>;
+  const size_t smem = fwd_smem_floats(S, W, L, CQK, CV, LDG) * sizeof(float);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int rows = S * kTY * rows_per_lane(CQK, CV);
   const dim3 grid(static_cast<unsigned>((L + rows - 1) / rows),
                   static_cast<unsigned>(H), static_cast<unsigned>(chunks));
-  pwa_train_fwd_kernel<CQK, CV, DROP><<<grid, 32 * S * W, smem, stream>>>(
-      q, k, v, bias, seed, out, lse, B, H, N, L, S, W, per, scale, thresh,
-      inv_keep);
+  kernel<<<grid, 32 * S * W, smem, stream>>>(q, k, v, bias, seed, out, lse,
+                                             B, H, N, L, S, W, per, scale,
+                                             thresh, inv_keep);
   return cudaGetLastError();
 }
 
 #define VS_CASE(CQ, CVV)                                                    \
   if (Cqk == CQ && Cv == CVV)                                               \
     return thresh == 0                                                      \
-               ? launch<CQ, CVV, false>(q, k, v, bias, seed, out, lse, B,   \
-                                        H, N, L, S, W, chunks, per, scale,  \
-                                        thresh, inv_keep, stream)           \
-               : launch<CQ, CVV, true>(q, k, v, bias, seed, out, lse, B, H, \
-                                       N, L, S, W, chunks, per, scale,      \
-                                       thresh, inv_keep, stream);
+               ? launch<CQ, CVV, false, true, false>(                       \
+                     q, k, v, bias, seed, out, lse, B, H, N, L, S, W,       \
+                     chunks, per, scale, thresh, inv_keep, stream)          \
+               : launch<CQ, CVV, true, true, false>(                        \
+                     q, k, v, bias, seed, out, lse, B, H, N, L, S, W,       \
+                     chunks, per, scale, thresh, inv_keep, stream);
 
 // The checks both entry points share: a launch geometry that covers every
 // row and window once, within a block's threads.
@@ -393,5 +411,32 @@ extern "C" int vs_pwa_attention_long_train(
   if (!geometry_ok(B, H, N, L, S, W, chunks, per))
     return cudaErrorInvalidValue;
   VS_CASE(8, 8)
+  return cudaErrorInvalidValue;
+}
+
+#define VS_EVAL_CASE(CQ, CVV)                                               \
+  if (Cqk == CQ && Cv == CVV)                                               \
+    return ldg ? launch<CQ, CVV, false, false, true>(                       \
+                     q, k, v, bias, nullptr, out, nullptr, B, H, N, L, S,   \
+                     W, chunks, per, scale, 0u, 1.f, stream)                \
+               : launch<CQ, CVV, false, false, false>(                      \
+                     q, k, v, bias, nullptr, out, nullptr, B, H, N, L, S,   \
+                     W, chunks, per, scale, 0u, 1.f, stream);
+
+// K1: the eval instance, every (Cqk, Cv) of KERNEL_WIDTHS at every L:
+// no dropout, no lse; the geometry as above (ops/pwa_attention.py:
+// eval_fwd_launch), ldg != 0: the bias read through L1, not staged.
+extern "C" int vs_pwa_attention(const float* q, const float* k,
+                                const float* v, const float* bias, float* out,
+                                int B, int H, int N, int Cqk, int Cv, int L,
+                                int S, int W, int chunks, int per, int ldg,
+                                float scale, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!geometry_ok(B, H, N, L, S, W, chunks, per))
+    return cudaErrorInvalidValue;
+  VS_EVAL_CASE(4, 4) VS_EVAL_CASE(4, 8) VS_EVAL_CASE(4, 16)
+  VS_EVAL_CASE(4, 32) VS_EVAL_CASE(8, 4) VS_EVAL_CASE(8, 8)
+  VS_EVAL_CASE(8, 16) VS_EVAL_CASE(8, 32) VS_EVAL_CASE(16, 4)
+  VS_EVAL_CASE(16, 8) VS_EVAL_CASE(16, 16) VS_EVAL_CASE(16, 32)
   return cudaErrorInvalidValue;
 }

@@ -29,8 +29,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pwa_attention", "pwa_attention_train", "pwa_attention_bwd",
-           "pwa_attention_long", "jlc_stage1", "jlc_stage2", "wkv")
+SOURCES = ("pwa_attention_train", "pwa_attention_bwd", "pwa_attention_long",
+           "jlc_stage1", "jlc_stage2", "wkv")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -40,9 +40,8 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # argtypes of each exported function (pointers, ints, floats, stream last)
 SIGNATURES = {
-    "pwa_attention": {
-        "vs_pwa_attention": [_P] * 5 + [_I] * 6 + [_F, _P]},
     "pwa_attention_train": {
+        "vs_pwa_attention": [_P] * 5 + [_I] * 11 + [_F, _P],
         "vs_pwa_attention_train": [_P] * 7 + [_I] * 10 + [_F, _U, _F, _P],
         "vs_pwa_attention_long_train": [_P] * 7 + [_I] * 10
         + [_F, _U, _F, _P]},
@@ -57,7 +56,7 @@ SIGNATURES = {
                    "vs_jlc_branch_wgrad": [_P] * 6 + [_I] * 11 + [_P]},
     "jlc_stage2": {"vs_jlc_stage2": [_P] * 9 + [_I] * 8 + [_P],
                    "vs_jlc_stage2_bwd": [_P] * 15 + [_I] * 10 + [_P]},
-    "wkv": {"vs_wkv": [_P] * 5 + [_I] * 3 + [_P]},
+    "wkv": {"vs_wkv": [_P] * 5 + [_I] * 5 + [_P]},
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -7,9 +7,9 @@ custom VJP over ``_train_fwd_kernel`` and ``_train_bwd_kernel``, K2, and
 their row-blocked forms ``_train_fwd_rb_kernel`` and
 ``_train_bwd_rb_kernel``, K3). Token layout ``(B, h, N, C, L)``: per
 (batch, head, window), q/k are ``(Cqk, L)`` and v ``(Cv, L)``; the bias
-is ``(h, L, L)``. The CUDA kernels are ``csrc/pwa_attention.cu`` (K1),
-``csrc/pwa_attention_train.cu`` (K2f and K3f, one forward for every
-window length), ``csrc/pwa_attention_bwd.cu`` (K2b) and
+is ``(h, L, L)``. The CUDA kernels are ``csrc/pwa_attention_train.cu``
+(K1, K2f and K3f: one forward for every window length, K1 its instance
+without dropout and lse), ``csrc/pwa_attention_bwd.cu`` (K2b) and
 ``csrc/pwa_attention_long.cu`` (K3b); :func:`uses_long_kernel` picks K2
 or K3.
 
@@ -29,13 +29,13 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _cuda
 
-# (Cqk, Cv) pairs K1 and K2 are instantiated for (csrc/pwa_attention.cu,
+# (Cqk, Cv) pairs K1 and K2 are instantiated for (csrc/pwa_attention_train.cu,
 # csrc/pwa_attention_bwd.cu).
 KERNEL_WIDTHS = {(cq, cv) for cq in (4, 8, 16) for cv in (4, 8, 16, 32)}
 
@@ -79,17 +79,28 @@ def _check(q, k, v, bias, *more, seed=None, widths=KERNEL_WIDTHS):
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """Eval window attention (K1); (B, h, N, Cv, L) out."""
+                     bias: torch.Tensor, scale: float,
+                     launch: Optional["TrainFwdLaunch"] = None
+                     ) -> torch.Tensor:
+    """Eval window attention (K1): the train forward's kernel without
+    dropout and lse; (B, h, N, Cv, L) out. ``launch``: a
+    :class:`TrainFwdLaunch` in place of :func:`eval_fwd_launch`'s (the card
+    tests and the bench's sweep). Its decomposition in torch ops is
+    :func:`window_attention_train_fwd_tiled_plain` at p = 0."""
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, scale)
     b, h, n, c_qk, c_v, l = _check(q, k, v, bias)
     out = torch.empty_like(v)
-    lib = _cuda.lib("pwa_attention")
+    if out.numel() == 0:
+        return out
+    lw = launch or eval_fwd_launch(b, h, n, l, c_qk, c_v,
+                                   _cuda.sm_count(q.device))
+    lib = _cuda.lib("pwa_attention_train")
     with torch.cuda.device(q.device):
         err = lib.vs_pwa_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, h, n, c_qk, c_v, l, float(scale),
+            out.data_ptr(), b, h, n, c_qk, c_v, l, lw.slabs, lw.windows,
+            lw.chunks, lw.per, int(lw.ldg), float(scale),
             _cuda.stream_ptr(q.device))
     _cuda.check(lib, err, "pwa_attention")
     window_attention.launches += 1
@@ -284,46 +295,50 @@ class TrainFwdLaunch(NamedTuple):
     ``slabs``·8·RM query rows of one head (RM: :func:`_fwd_rows_per_lane`)
     and walks a chunk of ``per`` of that head's windows (``chunks``
     chunks), ``windows`` at a time; warp (slab, window slot) takes one slab
-    of rows of one window, all its columns."""
+    of rows of one window, all its columns. ``ldg`` (K1 only): the block
+    reads the bias through L1 instead of staging its rows."""
     slabs: int
     windows: int
     chunks: int
     per: int
     rows: int
+    ldg: bool = False
 
     def window_ranges(self, bn: int) -> List[Tuple[int, int]]:
         return _chunk_ranges(bn, self.chunks, self.per)
 
 
 def _k2f_smem_floats(slabs: int, windows: int, l: int, c_qk: int,
-                     c_v: int) -> int:
-    """Shared memory of a K2f/K3f block (``fwd_smem_floats``): the bias
-    rows (stride ⌈L/64⌉·64 + 16/RM) and two stages of ``windows`` windows,
-    each a tile of K and V and the block's q rows."""
+                     c_v: int, ldg: bool = False) -> int:
+    """Shared memory of a K1/K2f/K3f block (``fwd_smem_floats``): the bias
+    rows (stride ⌈L/64⌉·64 + 16/RM; none with ``ldg``) and two stages of
+    ``windows`` windows, each a tile of K and V and the block's q rows."""
     rm = _fwd_rows_per_lane(c_qk, c_v)
     rows = slabs * _FWD_TY * rm
-    stride = -(-l // _FWD_TILE) * _FWD_TILE + 16 // rm
+    stride = 0 if ldg else -(-l // _FWD_TILE) * _FWD_TILE + 16 // rm
     return rows * stride + 2 * windows * (_FWD_TILE * (c_qk + c_v)
                                           + c_qk * rows)
 
 
-def _fwd_fits(slabs: int, windows: int, l: int, c_qk: int, c_v: int) -> bool:
+def _fwd_fits(slabs: int, windows: int, l: int, c_qk: int, c_v: int,
+              ldg: bool = False) -> bool:
     """Whether the kernel takes this (slabs, windows) at window length l:
     at most 16 warps, no slab wholly past L, and a block's shared
     memory."""
     rows_slab = _FWD_TY * _fwd_rows_per_lane(c_qk, c_v)
     return (slabs * windows <= _FWD_MAX_WARPS
             and (slabs - 1) * rows_slab < l
-            and _k2f_smem_floats(slabs, windows, l, c_qk, c_v)
+            and _k2f_smem_floats(slabs, windows, l, c_qk, c_v, ldg)
             <= _SMEM_FLOATS)
 
 
 def _fwd_cost(b: int, h: int, n: int, l: int, c_qk: int, c_v: int,
-              sms: int, lw: "TrainFwdLaunch") -> float:
-    """Modelled clocks of one launch (:func:`train_fwd_launch`)."""
+              sms: int, lw: "TrainFwdLaunch", hashed: bool = True) -> float:
+    """Modelled clocks of one launch (:func:`train_fwd_launch`); ``hashed``
+    False: K1, the instance without the hash."""
     rm = _fwd_rows_per_lane(c_qk, c_v)
     warps = lw.slabs * lw.windows
-    floats = _k2f_smem_floats(lw.slabs, lw.windows, l, c_qk, c_v)
+    floats = _k2f_smem_floats(lw.slabs, lw.windows, l, c_qk, c_v, lw.ldg)
     regs = min(128, 44 + rm * (c_qk + c_v + 11))
     fit = min(_SMEM_FLOATS // floats, 32 // warps,
               65536 // (32 * regs * warps))
@@ -333,40 +348,45 @@ def _fwd_cost(b: int, h: int, n: int, l: int, c_qk: int, c_v: int,
     rate = 4 * min(1.0, per_sm * warps / _FWD_FULL_RATE_WARPS)
     tiles = -(-l // _FWD_TILE)
     # a lane's issue slots per window: per step its 8·RM scores at
-    # Cqk + Cv FMAs and ~25 more (bias, max, exp2, the hash, the select,
-    # the sum), per tile its share of the copies (its window slot's S
-    # warps share them); the lanes' merge
+    # Cqk + Cv FMAs and ~25 more (bias, max, exp2, the hash's ~11, the
+    # select, the sum), per tile its share of the copies (its window
+    # slot's S warps share them); the lanes' merge
     steps = _FWD_TILE // _FWD_STEP
     copies = _FWD_COPY_SLOTS * (c_qk + c_v) * _FWD_TILE / (4 * 32 * lw.slabs)
-    lane_window = (tiles * (steps * 8 * rm * (c_qk + c_v + 25) + copies)
+    extra = 25 if hashed else 14
+    lane_window = (tiles * (steps * 8 * rm * (c_qk + c_v + extra) + copies)
                    + rm * (4 * c_v + 12))
     batches = -(-lw.per // lw.windows)
     issue = per_sm * warps * batches * lane_window / rate
-    # an SM's loads: each block's bias rows before it starts, then per
-    # window its K, V and q rows under the compute
-    bias = per_sm * 4 * lw.rows * l / _FWD_L2_BYTES_PER_CLOCK
+    # an SM's loads: each block's bias rows before it starts (none through
+    # L1), then per window its K, V and q rows under the compute
+    bias = 0 if lw.ldg else per_sm * 4 * lw.rows * l / _FWD_L2_BYTES_PER_CLOCK
     tokens = (per_sm * lw.per * 4 * ((c_qk + c_v) * l + lw.rows * c_qk)
               / _FWD_L2_BYTES_PER_CLOCK)
     return rounds * (bias + max(issue, tokens))
 
 
 def train_fwd_candidates(b: int, h: int, n: int, l: int, c_qk: int,
-                         c_v: int, sms: int):
+                         c_v: int, sms: int, ldg: bool = False,
+                         hashed: bool = True):
     """(modelled clocks, :class:`TrainFwdLaunch`) of each (slabs, windows)
     of the grid that the kernel takes, each with its best windows per chunk
-    (ties to fewer chunks)."""
+    (ties to fewer chunks). ``ldg``, ``hashed``: K1's options (the bias
+    through L1; no hash)."""
     bn = b * n
     rows_slab = _FWD_TY * _fwd_rows_per_lane(c_qk, c_v)
     pers = sorted({-(-bn // c) for c in range(1, bn + 1)})
     out = []
     for slabs in _FWD_SLABS:
         for windows in _FWD_WINDOWS:
-            if windows > bn or not _fwd_fits(slabs, windows, l, c_qk, c_v):
+            if windows > bn or not _fwd_fits(slabs, windows, l, c_qk, c_v,
+                                              ldg):
                 continue
             out.append(min(
-                ((_fwd_cost(b, h, n, l, c_qk, c_v, sms, lw), lw.chunks), lw)
+                ((_fwd_cost(b, h, n, l, c_qk, c_v, sms, lw, hashed),
+                  lw.chunks), lw)
                 for lw in (TrainFwdLaunch(slabs, windows, -(-bn // per), per,
-                                          slabs * rows_slab)
+                                          slabs * rows_slab, ldg)
                            for per in pers)))
     return [(cost, lw) for (cost, _), lw in out]
 
@@ -385,6 +405,19 @@ def train_fwd_launch(b: int, h: int, n: int, l: int, c_qk: int, c_v: int,
     again)."""
     return min(train_fwd_candidates(b, h, n, l, c_qk, c_v, sms),
                key=lambda c: (c[0], c[1].chunks))[1]
+
+
+@functools.lru_cache(maxsize=None)
+def eval_fwd_launch(b: int, h: int, n: int, l: int, c_qk: int, c_v: int,
+                    sms: int) -> TrainFwdLaunch:
+    """K1's geometry: of the train forward's grid, the geometry of least
+    modelled time without the hash. A window of one tile (L <= 64) reads
+    the bias through L1, and there ties go to more chunks (nothing is
+    staged again, more SMs run); longer windows stage it, ties to fewer
+    chunks."""
+    ldg = l <= _FWD_TILE
+    return min(train_fwd_candidates(b, h, n, l, c_qk, c_v, sms, ldg, False),
+               key=lambda c: (c[0], -c[1].chunks if ldg else c[1].chunks))[1]
 
 
 def window_attention_train_fwd_tiled_plain(q, k, v, bias, seed, scale: float,
