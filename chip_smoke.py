@@ -80,7 +80,24 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     first predictor call's output for that tile (the batch norms see the
     other tiles of the call), and those only the last tile covers the last
     call's, filled up with the first tile as the JAX package fills it.
-13. print one ``{"kernels": [...]}`` line (with ``excess_ms``, each path's
+13. the serving CLI (``veloxseg_torch.cli.test_main.main`` →
+    ``infer/driver.run_inference``) over synthetic NIfTI cases written by
+    the port's ``save_nifti`` (``tests/make_fixtures.py``'s blob lesions),
+    with seeded weights at the published widths saved as ``val_best.pth``
+    and ``train_rate`` = ``val_rate`` = 0: AutoPET-II VeloxSeg over two
+    192³ cases with ``--use_hd95 1`` (counts zeroed before, read after;
+    per case the seconds of read, window, argmax, metrics and HD95 from
+    the driver's log, and volumes/s end to end); case 0 again with the
+    driver's ``CPU_STITCH_THRESHOLD`` lowered and ``--specific_sample 0``
+    (the host-summed logits within 1e-5 × scale of the device-summed ones,
+    the same mask, the NIfTIs read back at the label's shape); one
+    96 × 96 × 80 case on the card and through ``run_inference(...,
+    device="cpu")`` (masks equal but where the CPU's top-2 margin is below
+    1e-4, metrics within 1e-4); U-RWKV on that case (K6 6 launches), and
+    Hecktor (``models_config_hecktor2022.json``) and BraTS
+    (``models_config_brats2021.json``) on one one-tile case each. Every
+    CSV has the JAX package's columns and every dice lies in [0, 1].
+14. print one ``{"kernels": [...]}`` line (with ``excess_ms``, each path's
     launches × (ms − bound) per call at that path's own shapes, summed),
     the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -92,6 +109,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import sys
 import time
 
@@ -155,6 +173,405 @@ def compare_grads(what, grads, step_losses):
     return dict(losses=step_losses, loss_rel=loss_rel, worst_ratio=worst,
                 worst_param=worst_key, largest_grad=g_all,
                 n_grads=len(grads[1]))
+
+
+# -- phase 13's synthetic cases and its CLI runs ----------------------------
+
+BINARY_COLUMNS = ["name", "fp_rate", "fn_rate", "precision", "recall", "f1",
+                  "iou", "dice", "time", "hd95"]
+BRATS_COLUMNS = ["name", "dice_avg", "dice_et", "dice_tc", "dice_wt", "time",
+                 "hd95_avg", "hd95_et", "hd95_tc", "hd95_wt"]
+LOG_SPLIT = re.compile(
+    r"(\S+): .* \| s: read ([\d.]+) window ([\d.]+) argmax ([\d.]+) "
+    r"metrics ([\d.]+) hd95 ([\d.]+)")
+
+
+def blob_volume(rng, shape, n_blobs=2):
+    """``tests/make_fixtures.py``'s synthetic case: noise with ellipsoid
+    lesions (+2.0) and their binary label."""
+    import numpy as np
+    vol = rng.standard_normal(shape).astype(np.float32) * 0.1
+    label = np.zeros(shape, dtype=np.int16)
+    zz, yy, xx = np.ogrid[tuple(slice(0, s) for s in shape)]
+    for _ in range(n_blobs):
+        c = [rng.integers(s // 4, 3 * s // 4) for s in shape]
+        r = rng.integers(3, max(4, min(shape) // 6))
+        mask = ((zz - c[0]) ** 2 + (yy - c[1]) ** 2 +
+                (xx - c[2]) ** 2) < r ** 2
+        vol[mask] += 2.0
+        label[mask] = 1
+    return vol, label
+
+
+def write_cases(root, dataset, shape, n, seed, spacing=(1.0, 1.0, 1.0)):
+    """``n`` synthetic cases of ``dataset`` as ``tests/make_fixtures.py``
+    lays them out, written by the port's ``save_nifti``; returns the train
+    config's ``dataset_path`` globs, keyed as the driver reads them."""
+    import numpy as np
+    from veloxseg_torch.data.nifti import save_nifti
+    from veloxseg_torch.train.trainer import PROFILES
+    profile = PROFILES[dataset]
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    for i in range(n):
+        vol, label = blob_volume(rng, shape)
+        if not profile.binary_label:
+            # classes 2 and 3 carved out of the lesions, as the fixtures do
+            idx = np.argwhere(label > 0)
+            third = max(len(idx) // 3, 1)
+            for cls, sl in ((2, slice(third, 2 * third)),
+                            (3, slice(2 * third, None))):
+                sel = idx[sl]
+                label[sel[:, 0], sel[:, 1], sel[:, 2]] = cls
+            images = [vol + rng.standard_normal(shape).astype(np.float32)
+                      * 0.1 for _ in profile.modality_names]
+        else:
+            # (ct, pet); float32, as the volumes are read: the fixtures'
+            # float64 CT takes zlib tens of times longer to write at 192³
+            ct = (rng.standard_normal(shape).astype(np.float32) * 0.2
+                  + label.astype(np.float32) * 1.5)
+            images = [ct, vol]
+        for mod, img in zip(profile.modality_names, images):
+            save_nifti(os.path.join(root, f"case{i:03d}_{mod}.nii.gz"), img,
+                       spacing)
+        save_nifti(os.path.join(root, f"case{i:03d}.nii.gz"), label,
+                   spacing)
+    globs = {key: os.path.join(root, f"case*_{mod}.nii.gz")
+             for key, mod in zip(profile.glob_keys, profile.modality_names)}
+    globs["label_path"] = os.path.join(root, "case???.nii.gz")
+    return globs
+
+
+def read_csv(path):
+    """(header, rows as dicts of str) of a metrics CSV."""
+    import csv
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    return rows[0], [dict(zip(rows[0], r)) for r in rows[1:]]
+
+
+def check_csv(path, columns, n_rows):
+    """The JAX columns in the JAX order, ``n_rows`` rows, every dice in
+    [0, 1]."""
+    header, rows = read_csv(path)
+    if header != columns or len(rows) != n_rows:
+        raise AssertionError(f"{path}: columns {header}, {len(rows)} rows; "
+                             f"want {columns}, {n_rows} rows")
+    for row in rows:
+        for c in columns:
+            if c.startswith("dice") and not 0.0 <= float(row[c]) <= 1.0:
+                raise AssertionError(f"{path}: {c} = {row[c]}")
+    return rows
+
+
+def compare_rows(what, card_lg, cpu_lg, card_row, cpu_row, columns):
+    """Card against CPU on one case: its blended logits within 1e-5 of the
+    CPU's scale, masks equal except where the CPU's top-2 margin is below
+    1e-4, the CSV's metrics within 1e-4 and HD95 within 1e-4 relative
+    where the masks agree (NaN on both or neither). Returns the
+    numbers."""
+    import math
+
+    import numpy as np
+    scale = float(np.abs(cpu_lg).max())
+    logit_err = float(np.abs(card_lg - cpu_lg).max())
+    top2 = np.sort(cpu_lg, axis=-1)
+    margin = top2[..., -1] - top2[..., -2]
+    flips = np.argmax(card_lg, -1) != np.argmax(cpu_lg, -1)
+    if not logit_err <= 1e-5 * scale:
+        raise AssertionError(f"{what} card vs CPU: logits err "
+                             f"{logit_err:.3e} on scale {scale:.3e}")
+    if not (margin[flips] < 1e-4).all():
+        raise AssertionError(f"{what} card vs CPU: {int(flips.sum())} voxels "
+                             f"differ, margins up to "
+                             f"{margin[flips].max():.3e}")
+    metric_err = 0.0
+    for c in columns[1:]:
+        if c == "time" or (c.startswith("hd95") and flips.any()):
+            continue
+        a, b = float(card_row[c] or "nan"), float(cpu_row[c])
+        if math.isnan(a) or math.isnan(b):
+            if math.isnan(a) != math.isnan(b):
+                raise AssertionError(f"{what} card vs CPU: {c} {a} vs {b}")
+            continue
+        if not abs(a - b) <= (1e-4 * abs(b) if c.startswith("hd95")
+                              else 1e-4):
+            raise AssertionError(f"{what} card vs CPU: {c} {a} vs {b}")
+        if not c.startswith("hd95"):
+            metric_err = max(metric_err, abs(a - b))
+    return dict(logit_err=logit_err, scale=scale, flips=int(flips.sum()),
+                metric_err=metric_err)
+
+
+def serving_cli_phase(card, zero_counts, counts, serving, configs, patches,
+                      spacing, big=192, small=(96, 96, 80),
+                      hecktor=(120, 128, 60), brats=(90, 96, 80)):
+    """Phase 13: ``veloxseg_torch.cli.test_main.main`` on the card over
+    synthetic NIfTI cases (``write_cases``) with seeded weights saved as
+    ``val_best.pth``: AutoPET-II VeloxSeg (``configs``: each dataset's
+    models config) over two ``big``³ cases with HD95, timed per part from
+    the driver's log; both again with the host-summed window; one
+    one-tile case each of AutoPET-II (``small``), Hecktor and BraTS on the
+    card and through ``run_inference(..., device="cpu")``; ``--specific_sample
+    0`` on the AutoPET-II one; U-RWKV on it too. Checks fail the run.
+    Returns the report, with the launch counts of the AutoPET-II run
+    (``launches``) and of each other run (``other[key]["launches"]``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from veloxseg_torch.cli.test_main import build_parser
+    from veloxseg_torch.cli.test_main import main as serve_main
+    from veloxseg_torch.core.config import load_json_config
+    from veloxseg_torch.data.nifti import load_nifti
+    from veloxseg_torch.infer import driver
+    from veloxseg_torch.models.registry import load_model
+    from veloxseg_torch.train.trainer import PROFILES
+
+    t13 = time.perf_counter()
+    recorded = []                 # (host-summed?, blended logits) per case
+    window = driver.sliding_window_inference
+
+    def recording(*a, **kw):
+        out = window(*a, **kw)
+        recorded.append((bool(kw.get("cpu_accumulate")), out))
+        return out
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        cases = {
+            "autopet_big": ("AutoPETII", write_cases(
+                os.path.join(work, "autopet_big"), "AutoPETII", (big,) * 3,
+                2, seed=40, spacing=spacing)),
+            "autopet_small": ("AutoPETII", write_cases(
+                os.path.join(work, "autopet_small"), "AutoPETII", small,
+                1, seed=41, spacing=spacing)),
+            "hecktor": ("Hecktor2022", write_cases(
+                os.path.join(work, "hecktor"), "Hecktor2022", hecktor,
+                1, seed=42)),
+            "brats": ("BraTS2021", write_cases(
+                os.path.join(work, "brats"), "BraTS2021", brats, 1,
+                seed=43))}
+        steps = {"write_cases": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        # seeded weights at the published widths, saved as the reference
+        # trainer saves them
+        ckpts = {}
+        for key, dataset, model_name, seed in (
+                ("autopet", "AutoPETII", "VeloxSeg", 3),
+                ("urwkv", "AutoPETII", "U-RWKV", 4),
+                ("hecktor", "Hecktor2022", "VeloxSeg", 5),
+                ("brats", "BraTS2021", "VeloxSeg", 6)):
+            ckpts[key] = os.path.join(work, "ckpt", key)
+            os.makedirs(ckpts[key])
+            weights = load_model(model_name, load_json_config(
+                configs[dataset]), device="cpu", seed=seed).state_dict()
+            torch.save(weights, os.path.join(ckpts[key], "val_best.pth"))
+        steps["weights"] = time.perf_counter() - t0
+
+        def argv(name, model_name, ckpt, *extra):
+            """The CLI's flags for the cases ``name`` (its train and test
+            configs written here, its results under ``work/name``)."""
+            dataset, globs = cases[name]
+            base = os.path.join(work, "out", name)
+            os.makedirs(base, exist_ok=True)
+            for fname, cfg in (
+                    ("train.json", {"patch_size": {dataset: patches[dataset]},
+                                    "train_rate": 0, "val_rate": 0,
+                                    "dataset_path": {dataset: globs}}),
+                    ("test.json", {"result_metric_path":
+                                   os.path.join(base, "metric"),
+                                   "result_pred_path":
+                                   os.path.join(base, "prediction"),
+                                   "sliding_window": {"overlap": 0.25}})):
+                with open(os.path.join(base, fname), "w") as f:
+                    json.dump(cfg, f)
+            return ["--dataset_name", dataset, "--model_name", model_name,
+                    "--model_config", configs[dataset],
+                    "--train_config", os.path.join(base, "train.json"),
+                    "--test_config", os.path.join(base, "test.json"),
+                    "--checkpoint_dir", ckpts[ckpt], *extra]
+
+        def csv_of(name, model_name):
+            return os.path.join(work, "out", name, "metric",
+                                f"{cases[name][0]}_{model_name}.csv")
+
+        def timed(run_argv):
+            """One CLI call on the card: (seconds, launch counts)."""
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            serve_main(run_argv)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, counts()
+
+        driver.sliding_window_inference = recording
+        try:
+            # AutoPET-II at full width, two big cases, HD95 (the main path)
+            recorded.clear()
+            cli_s, cli_launches = timed(argv("autopet_big", "VeloxSeg",
+                                             "autopet", "--use_hd95", "1"))
+            steps["main_run"] = cli_s
+            main_logits = [lg for _, lg in recorded]
+            rows = check_csv(csv_of("autopet_big", "VeloxSeg"),
+                             BINARY_COLUMNS, 2)
+            missing = [n for n in serving if cli_launches[n] <= 0]
+            if missing or len(main_logits) != 2:
+                raise AssertionError(f"serving CLI: kernels not launched "
+                                     f"{missing}, {len(main_logits)} cases")
+            log = os.path.join(work, "out", "autopet_big", "metric",
+                               "test_AutoPETII_VeloxSeg.log")
+            with open(log) as f:
+                splits = [m.groups() for m in LOG_SPLIT.finditer(f.read())]
+            per_case = []
+            for (name, *parts), row in zip(splits, rows):
+                read_s, win_s, arg_s, met_s, hd_s = map(float, parts)
+                per_case.append(dict(name=name, read_s=read_s,
+                                     window_s=win_s, argmax_s=arg_s,
+                                     metrics_s=met_s, hd95_s=hd_s,
+                                     time_s=float(row["time"]),
+                                     dice=float(row["dice"]),
+                                     hd95=row["hd95"]))
+                print(f"[13] {card} | {name} {big}³: read {read_s:.4f} s, "
+                      f"window {win_s:.4f} s (synchronized), argmax "
+                      f"{arg_s:.4f} s, metrics {met_s:.4f} s, HD95 "
+                      f"{hd_s:.4f} s, time (read to prediction) "
+                      f"{float(row['time']):.4f} s | dice "
+                      f"{float(row['dice']):.4f} hd95 {row['hd95']}",
+                      flush=True)
+            if len(per_case) != 2:
+                raise AssertionError(f"serving CLI: {len(per_case)} per-case "
+                                     f"log lines in {log}")
+            print(f"[13] serving CLI, AutoPET-II VeloxSeg at full width, "
+                  f"2 cases of {big}³, --use_hd95 1: {cli_s:.3f} s end to end "
+                  f"(model, checkpoint, CSV included), "
+                  f"{2 / cli_s:.4f} volumes/s | launches "
+                  f"{ {n: c for n, c in cli_launches.items() if c} } | "
+                  f"writing the cases took {steps['write_cases']:.1f} s",
+                  flush=True)
+
+            # the host-summed window on both big cases
+            t0 = time.perf_counter()
+            recorded.clear()
+            threshold = driver.CPU_STITCH_THRESHOLD
+            driver.CPU_STITCH_THRESHOLD = big ** 3 - 1
+            try:
+                serve_main(argv("autopet_big", "VeloxSeg", "autopet"))
+            finally:
+                driver.CPU_STITCH_THRESHOLD = threshold
+            scale = max(float(lg.abs().max()) for lg in main_logits)
+            stitch_err = 0.0
+            for (stitched, host_lg), dev_lg in zip(recorded, main_logits):
+                stitch_err = max(stitch_err, float(
+                    (host_lg - dev_lg).abs().max()))
+                if not stitched or not torch.equal(
+                        torch.argmax(host_lg[0], -1),
+                        torch.argmax(dev_lg[0], -1)):
+                    raise AssertionError(f"cpu_accumulate: ran {stitched}, "
+                                         f"the masks differ")
+            if len(recorded) != 2 or not stitch_err <= 1e-5 * scale:
+                raise AssertionError(f"cpu_accumulate: {len(recorded)} cases,"
+                                     f" logits err {stitch_err:.3e}")
+            steps["host_summed"] = time.perf_counter() - t0
+            print(f"[13] cpu_accumulate (threshold lowered) on both {big}³ "
+                  f"cases: logits err {stitch_err:.3e} vs the device sums "
+                  f"(tol 1e-5 x scale {scale:.3e}), masks identical "
+                  f"({steps['host_summed']:.1f} s)", flush=True)
+
+            # card against CPU: one one-tile case of each profile
+            other = {}
+            for key, name, columns in (
+                    ("autopet", "autopet_small", BINARY_COLUMNS),
+                    ("hecktor", "hecktor", BINARY_COLUMNS),
+                    ("brats", "brats", BRATS_COLUMNS)):
+                dataset = cases[name][0]
+                recorded.clear()
+                run_argv = argv(name, "VeloxSeg", key, "--use_hd95", "1",
+                                "--sw_batch_size", "1")
+                wall, got = timed(run_argv)
+                if [n for n in serving if got[n] <= 0]:
+                    raise AssertionError(f"{key} CLI launches {got}")
+                card_row, = check_csv(csv_of(name, "VeloxSeg"), columns, 1)
+                args = build_parser().parse_args(run_argv)
+                with open(args.train_config) as f:
+                    train_json = json.load(f)
+                with open(args.test_config) as f:
+                    test_json = json.load(f)
+                t0 = time.perf_counter()
+                cpu_row, = driver.run_inference(
+                    args, train_json, load_json_config(configs[dataset]),
+                    test_json, device="cpu")
+                cpu_s = time.perf_counter() - t0
+                (_, card_lg), (_, cpu_lg) = recorded
+                shape = tuple(card_lg.shape)
+                cmp = compare_rows(key, card_lg[0].cpu().numpy(),
+                                   cpu_lg[0].numpy(), card_row, cpu_row,
+                                   columns)
+                other[key] = dict(wall_s=wall, cpu_s=cpu_s, launches=got,
+                                  row=card_row, card_vs_cpu=cmp)
+                steps[key] = wall + cpu_s
+                print(f"[13] {key} card vs CPU ({dataset}, VeloxSeg at its "
+                      f"published width, one case, logits {shape}): "
+                      f"{wall:.3f} s card, {cpu_s:.3f} s CPU | launches "
+                      f"{ {n: c for n, c in got.items() if c} } | logits max "
+                      f"abs err {cmp['logit_err']:.3e} on scale "
+                      f"{cmp['scale']:.3e} (tol 1e-5 x scale), "
+                      f"{cmp['flips']} voxels differ (all with CPU top-2 "
+                      f"margin < 1e-4), metrics max abs err "
+                      f"{cmp['metric_err']:.3e} (tol 1e-4) | "
+                      + ", ".join(f"{c} {card_row[c]}" for c in columns[1:]
+                                  if c != "time"), flush=True)
+
+            # --specific_sample 0 on the small AutoPET-II case
+            t0 = time.perf_counter()
+            recorded.clear()
+            serve_main(argv("autopet_small", "VeloxSeg", "autopet",
+                            "--specific_sample", "0", "--sw_batch_size",
+                            "1"))
+            (_, lg), = recorded
+            pred_dir = os.path.join(work, "out", "autopet_small",
+                                    "prediction")
+            label = load_nifti(cases["autopet_small"][1]["label_path"]
+                               .replace("???", "000"))
+            saved = {k: load_nifti(os.path.join(
+                pred_dir, f"case000_{k}.nii.gz"))
+                for k in PROFILES["AutoPETII"].modality_names + ("pred",)}
+            if any(v.shape != label.shape for v in saved.values()) \
+                    or not np.array_equal(
+                        saved["pred"].data,
+                        torch.argmax(lg[0], -1).cpu().numpy()):
+                raise AssertionError(
+                    f"--specific_sample: shapes "
+                    f"{ {k: v.shape for k, v in saved.items()} }, label "
+                    f"{label.shape}, or the saved prediction is not the "
+                    f"run's argmax")
+            steps["specific_sample"] = time.perf_counter() - t0
+            print(f"[13] --specific_sample 0 on the {small} case: NIfTIs "
+                  f"{sorted(saved)} read back at {label.shape}, the "
+                  f"prediction equal to the run's argmax "
+                  f"({steps['specific_sample']:.1f} s)", flush=True)
+
+            # U-RWKV on the small case
+            wall, got = timed(argv("autopet_small", "U-RWKV", "urwkv",
+                                   "--use_hd95", "1"))
+            if got["wkv"] <= 0:
+                raise AssertionError(f"urwkv CLI launches {got}")
+            row, = check_csv(csv_of("autopet_small", "U-RWKV"),
+                             BINARY_COLUMNS, 1)
+            steps["urwkv"] = wall
+            other["urwkv"] = dict(wall_s=wall, launches=got, row=row)
+            print(f"[13] urwkv via the CLI (AutoPETII, U-RWKV, one case): "
+                  f"{wall:.3f} s | launches "
+                  f"{ {n: c for n, c in got.items() if c} } | "
+                  + ", ".join(f"{c} {row[c]}" for c in BINARY_COLUMNS[1:]
+                              if c != "time"), flush=True)
+        finally:
+            driver.sliding_window_inference = window
+    return dict(
+        wall_s=cli_s, volumes_per_s=2 / cli_s, per_case=per_case,
+        launches=cli_launches, steps_s=steps, stitch_err=stitch_err,
+        other=other, phase_s=time.perf_counter() - t13)
 
 
 def main() -> int:
@@ -977,7 +1394,29 @@ def main() -> int:
         wall_s=usw_s, volumes_per_s=1.0 / usw_s, launches=u_launches,
         region_err=usw_err)
 
-    # -- phase 13 -----------------------------------------------------------
+    # -- phase 13: the serving CLI (cli/test_main -> infer/driver) ---------
+    del useg, ufirst, ulast, vol_dev, urwkv
+    torch.cuda.empty_cache()
+    cli = serving_cli_phase(
+        card, zero_counts, counts, list(serving),
+        {d: os.path.join(ROOT, "config", f"models_config_{n}.json")
+         for d, n in (("AutoPETII", "autopetii"),
+                      ("Hecktor2022", "hecktor2022"),
+                      ("BraTS2021", "brats2021"))},
+        train_cfg["patch_size"], tuple(train_cfg["spacing"]["AutoPETII"]))
+    cli_launches = cli.pop("launches")
+    u_cli_launches = cli["other"]["urwkv"].pop("launches")
+    for key in ("autopet", "hecktor", "brats"):
+        cli["other"][key].pop("launches")
+    if {n: c for n, c in u_cli_launches.items() if c} != {"wkv": 6}:
+        raise AssertionError(f"U-RWKV CLI launches {u_cli_launches}, want "
+                             f"wkv 6 (one call of 4 tiles)")
+    report["serving_cli"] = cli
+    print(f"[13] serving CLI phase {cli['phase_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in cli["steps_s"].items()),
+          flush=True)
+
+    # -- phase 14 -----------------------------------------------------------
     meta = {
         "pwa_attention": ("veloxseg_torch/csrc/pwa_attention_train.cu",
                           "veloxseg_tpu/ops/pwa_attention.py:56"),
@@ -1019,15 +1458,19 @@ def main() -> int:
                 "wkv": "urwkv_serving"}
     # launches: the main-path runs, each counted from 0: the VeloxSeg
     # sliding window (5), the AutoPET-II train steps (6, 7), the flagship
-    # train steps (9), the U-RWKV sliding window (12). ms, plain_ms,
+    # train steps (9), the U-RWKV sliding window (12), the serving CLI's
+    # AutoPET-II and U-RWKV runs (13; its Hecktor and BraTS runs are at
+    # shapes phase 3 does not time as a unit). ms, plain_ms,
     # bound_ms: summed over the kernel's calls in its headline unit
     # (``per``). excess_ms, the order of work on the kernels: per path,
     # its launches × (ms − bound_ms) per call at that path's own shapes
     paths = {"serving": ("serving", launches),
+             "serving_cli": ("serving", cli_launches),
              "train_96": ("train_96", train_launches),
              "train_96_conv_drop0": ("train_96", nodrop_launches),
              "train_flagship": ("train_flagship", flag_launches),
-             "urwkv_serving": ("urwkv_serving", u_launches)}
+             "urwkv_serving": ("urwkv_serving", u_launches),
+             "urwkv_cli": ("urwkv_serving", u_cli_launches)}
     line = {"kernels": []}
     for n, (src, replaces) in meta.items():
         k = units[headline[n]][n]
@@ -1061,7 +1504,7 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(f"[13] all phases passed in {report['wall_s']:.1f} s", flush=True)
+    print(f"[14] all phases passed in {report['wall_s']:.1f} s", flush=True)
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

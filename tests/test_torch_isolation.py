@@ -1,9 +1,12 @@
 """The port stands alone: ``veloxseg_torch`` and ``chip_smoke.py`` load
-nothing of JAX, Flax or ``veloxseg_tpu`` (the eval forward, a train step,
-the 128³ flagship's long-window attention and a U-RWKV forward run with
-those imports blocked), and the entry points refuse to run quietly on the
-CPU when CUDA is absent."""
+nothing of JAX, Flax, msgpack, pandas or ``veloxseg_tpu`` (the eval
+forward, a train step, the 128³ flagship's long-window attention, a U-RWKV
+forward and the serving CLI, from a JAX-written ``.ckpt`` and a ``.pth``,
+run with those imports blocked), and the entry points refuse to run
+quietly on the CPU when CUDA is absent."""
 
+import argparse
+import json
 import os
 import subprocess
 import sys
@@ -16,7 +19,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _ISOLATED = textwrap.dedent("""
     import importlib, pkgutil, sys
-    for name in ("jax", "jaxlib", "flax", "optax", "veloxseg_tpu"):
+    for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas",
+                 "veloxseg_tpu"):
         sys.modules[name] = None            # any import of these fails
     import torch
     import veloxseg_torch
@@ -66,8 +70,55 @@ _ISOLATED = textwrap.dedent("""
     with torch.no_grad():
         y = urwkv(torch.randn(2, 16, 16, 16, 2))
     assert y.shape == (2, 16, 16, 16, 2) and bool(torch.isfinite(y).all())
+    # the serving CLI over NIfTI volumes written by the port, from the
+    # JAX-written .ckpt and from the same weights as a .pth
+    import json, os
+    import numpy as np
+    from veloxseg_torch.cli.test_main import main as serve
+    from veloxseg_torch.data.nifti import load_nifti, save_nifti
+    from veloxseg_torch.train.checkpoint import load_params
+    work = {work!r}
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        pet = rng.standard_normal((40, 36, 32)).astype(np.float32)
+        save_nifti(os.path.join(work, f"c{{i}}_0000.nii.gz"), pet)
+        save_nifti(os.path.join(work, f"c{{i}}_0001.nii.gz"), -pet)
+        save_nifti(os.path.join(work, f"c{{i}}.nii.gz"),
+                   (pet > 1).astype(np.int16))
+    tiny = json.load(open(os.path.join(work, "model.json")))
+    model = load_params(os.path.join(work, "ckpt", "val_best.ckpt"),
+                        build_veloxseg(tiny["VeloxSeg"], device="cpu")[0])
+    os.makedirs(os.path.join(work, "pth"))
+    torch.save(model.state_dict(), os.path.join(work, "pth", "val_best.pth"))
+    glob_of = lambda p: os.path.join(work, p)
+    for name, cfg in (
+            ("train.json", {{"patch_size": {{"AutoPETII": [32, 32, 32]}},
+                            "train_rate": 0, "val_rate": 0,
+                            "dataset_path": {{"AutoPETII": {{
+                                "ct_path": glob_of("c*_0001.nii.gz"),
+                                "pet_path": glob_of("c*_0000.nii.gz"),
+                                "label_path": glob_of("c?.nii.gz")}}}}}}),
+            ("test.json", {{"result_metric_path": glob_of("metric"),
+                           "sliding_window": {{"overlap": 0.25}}}})):
+        json.dump(cfg, open(os.path.join(work, name), "w"))
+    rows = [serve(["--dataset_name", "AutoPETII", "--model_name",
+                   "VeloxSeg", "--use_hd95", "1", "--device", "cpu",
+                   "--checkpoint_dir", os.path.join(work, sub)]
+                  + [f"--{{k}}_config={{os.path.join(work, k + '.json')}}"
+                     for k in ("model", "train", "test")])
+            for sub in ("ckpt", "pth")]
+    assert [r["name"] for r in rows[0]] == ["c0.nii.gz", "c1.nii.gz"]
+    strip = lambda rs: [{{k: v for k, v in r.items() if k != "time"}}
+                        for r in rs]
+    assert strip(rows[0]) == strip(rows[1])
+    assert all(0 <= r["dice"] <= 1 for r in rows[0])
+    csv_text = open(os.path.join(work, "metric",
+                                 "AutoPETII_VeloxSeg.csv")).read()
+    assert csv_text.startswith("name,fp_rate,fn_rate,precision,recall,"
+                               "f1,iou,dice,time,hd95")
     bad = sorted(n for n, m in sys.modules.items() if m is not None and
-                 n.split(".")[0] in ("jax", "jaxlib", "flax", "veloxseg_tpu"))
+                 n.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
+                                     "pandas", "veloxseg_tpu"))
     assert not bad, bad
     print("ISOLATED", len(mods))
 """)
@@ -82,14 +133,26 @@ def _run(code, cwd=ROOT, args=()):
                           capture_output=True, text=True, timeout=300)
 
 
-def test_port_imports_nothing_of_jax():
-    r = _run(_ISOLATED.format(root=ROOT))
+def test_port_imports_nothing_of_jax(tmp_path):
+    # the .ckpt is written here, by the JAX package's trainer code, and
+    # read there without flax
+    from tests.torch_port_helpers import TINY_JSON, randomize_
+    from veloxseg_torch.nn.veloxseg import build_veloxseg
+    from veloxseg_tpu.interop.torch_import import convert_state_dict
+    from veloxseg_tpu.train.checkpoint import save_checkpoint
+    model, _ = build_veloxseg(TINY_JSON, device="cpu")
+    randomize_(model, seed=31, scale=0.3)
+    save_checkpoint(str(tmp_path / "ckpt" / "val_best.ckpt"),
+                    convert_state_dict(model.state_dict()))
+    (tmp_path / "model.json").write_text(json.dumps(
+        {"VeloxSeg": TINY_JSON}))
+    r = _run(_ISOLATED.format(root=ROOT, work=str(tmp_path)))
     assert r.returncode == 0, r.stderr[-3000:]
     assert "ISOLATED" in r.stdout
-    assert int(r.stdout.split("ISOLATED")[1].split()[0]) >= 38
+    assert int(r.stdout.split("ISOLATED")[1].split()[0]) >= 50
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     from veloxseg_torch.core.config import VeloxSegConfig
     from veloxseg_torch.nn.veloxseg import build_veloxseg
     if torch.cuda.is_available():
@@ -107,6 +170,17 @@ def test_entry_points_default_to_cuda():
     from veloxseg_torch.models.registry import load_model
     with pytest.raises(RuntimeError, match="CUDA"):
         load_model("U-RWKV", {"U-RWKV": {"input_channel": 2}})
+    from veloxseg_torch.infer.driver import run_inference
+    args = argparse.Namespace(dataset_name="AutoPETII", model_name="VeloxSeg")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_inference(args, {}, {}, {})
+    from veloxseg_torch.cli.test_main import main
+    for name in ("train", "model", "test"):
+        (tmp_path / f"{name}.json").write_text("{}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--dataset_name", "AutoPETII", "--model_name", "VeloxSeg"]
+             + [f"--{n}_config={tmp_path / (n + '.json')}"
+                for n in ("train", "model", "test")])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

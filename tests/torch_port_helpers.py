@@ -9,6 +9,8 @@ seeded numpy values, and its ``state_dict()`` is mapped to JAX params with
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -95,3 +97,201 @@ def cuda_or_skip() -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# Whole-volume driver parity: both CLIs over the same NIfTI fixtures and
+# checkpoint file, the CSVs and masks compared.
+
+# tests/test_cli_e2e.py's TINY model config, as the JSON the CLIs read
+TINY_JSON = {
+    "input_size": [32, 32, 32], "patch_size": 4, "in_ch": [1, 1],
+    "n_classes": 2, "base_ch": 8, "attn_base_ch": 8,
+    "conv_depths": [1, 1, 1, 1], "kernel_sizes": [1, 3, 5],
+    "min_dim_group": [4, 8, 8, 16], "conv_expansion_factor": [3, 3, 2, 2],
+    "depths": [1, 1, 1, 1],
+    "min_big_window_sizes": [[2, 2, 2], [2, 2, 2], [2, 2, 2], [1, 1, 1]],
+    "min_small_window_sizes": [[1, 1, 1]] * 4,
+    "min_dim_head": [4, 8, 8, 16], "ffn_expansion_ratio": [3, 3, 2, 2],
+    "num_heads": [1, 2, 2, 4], "proj_drop": 0.1, "conv_drop": 0.1,
+    "spatial_dim": 3,
+}
+# masks may differ only where JAX's top-2 logit margin is below this
+TIE_MARGIN = 1e-4
+
+
+@contextlib.contextmanager
+def jax_compile_cache(path):
+    """JAX's persistent compilation cache in ``path`` for the block: the
+    JAX driver compiles the same init and tile programs on every run, and
+    a run's second compile of one program then reads it back."""
+    import jax
+    from jax.experimental.compilation_cache import compilation_cache as cc
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs",
+            "jax_persistent_cache_min_entry_size_bytes")
+    old = {k: getattr(jax.config, k) for k in keys}
+    for k, v in zip(keys, (str(path), 0.5, 0)):
+        jax.config.update(k, v)
+    cc.reset_cache()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            jax.config.update(k, v)
+        cc.reset_cache()
+
+
+def driver_workspace(root, dataset: str, models: dict, patch, globs: dict):
+    """Write the three JSON configs the CLIs read, one set per side
+    (``jax``, ``port``) with its results under ``root/<side>/``; the last
+    40% of the cases are the test split (train 0.4, val 0.2). Returns
+    ``{side: {"flags": [config flags], "metric": dir, "pred": dir}}``."""
+    import json
+    import os
+    flags = {}
+    for side in ("jax", "port"):
+        base = os.path.join(str(root), side)
+        os.makedirs(base, exist_ok=True)
+        configs_ = {
+            "train.json": {"patch_size": {dataset: list(patch)},
+                           "train_rate": 0.4, "val_rate": 0.2,
+                           "dataset_path": {dataset: globs}},
+            "models.json": models,
+            "test.json": {
+                "result_metric_path": os.path.join(base, "metric"),
+                "result_pred_path": os.path.join(base, "prediction"),
+                "sliding_window": {"overlap": 0.25}},
+        }
+        for name, data in configs_.items():
+            with open(os.path.join(base, name), "w") as f:
+                json.dump(data, f)
+        flags[side] = dict(
+            flags=["--dataset_name", dataset,
+                   "--train_config", os.path.join(base, "train.json"),
+                   "--model_config", os.path.join(base, "models.json"),
+                   "--test_config", os.path.join(base, "test.json")],
+            metric=os.path.join(base, "metric"),
+            pred=os.path.join(base, "prediction"))
+    return flags
+
+
+def run_both_drivers(ws: dict, args, stitch_threshold=None):
+    """``veloxseg_tpu.cli.test_main.main`` and
+    ``veloxseg_torch.cli.test_main.main(... --device cpu)`` on the same
+    arguments, in the workspace ``ws`` of :func:`driver_workspace`. Spies
+    record what each driver computed: the blended logits, the masks it
+    handed to its metrics and whether the host summed the tiles.
+    Returns ``{side: {"rows", "csv" (the text, or None), "log", "masks",
+    "logits", "stitched"}}``."""
+    import glob
+    import os
+    import pathlib
+
+    import pytest
+    import veloxseg_tpu.infer.driver as jdrv
+    import veloxseg_torch.infer.driver as tdrv
+    from veloxseg_torch.cli.test_main import main as port_main
+    from veloxseg_tpu.cli.test_main import main as jax_main
+
+    out = {s: {"masks": [], "logits": [], "stitched": []}
+           for s in ("jax", "port")}
+
+    def spy_window(mod, side):
+        inner = mod.sliding_window_inference
+
+        def wrapped(*a, **kw):
+            res = inner(*a, **kw)
+            out[side]["stitched"].append(bool(kw.get("cpu_accumulate")))
+            out[side]["logits"].append(np.asarray(res[0]))
+            return res
+        return wrapped
+
+    def spy_metric(mod, name, side, pred_arg):
+        inner = getattr(mod, name)
+
+        def wrapped(*a, **kw):
+            out[side]["masks"].append(np.asarray(
+                a[pred_arg].cpu() if side == "port" else a[pred_arg])[0])
+            return inner(*a, **kw)
+        return wrapped
+
+    with pytest.MonkeyPatch.context() as mp:
+        for mod, side in ((jdrv, "jax"), (tdrv, "port")):
+            mp.setattr(mod, "sliding_window_inference",
+                       spy_window(mod, side))
+            mp.setattr(mod, "segmentation_metrics",
+                       spy_metric(mod, "segmentation_metrics", side, 1))
+            mp.setattr(mod, "brats_dice", spy_metric(mod, "brats_dice",
+                                                     side, 0))
+            if stitch_threshold is not None:
+                mp.setattr(mod, "CPU_STITCH_THRESHOLD", stitch_threshold)
+        for side, fn, extra in (("jax", jax_main, []),
+                                ("port", port_main, ["--device", "cpu"])):
+            for f in glob.glob(os.path.join(ws[side]["metric"], "*")):
+                os.remove(f)
+            rows = fn(ws[side]["flags"] + list(args) + extra)
+            out[side]["rows"] = (rows.to_dict("records") if side == "jax"
+                                 else rows)
+            csvs = glob.glob(os.path.join(ws[side]["metric"], "*.csv"))
+            out[side]["csv"] = (pathlib.Path(csvs[0]).read_text() if csvs
+                                else None)
+            logs = glob.glob(os.path.join(ws[side]["metric"], "*.log"))
+            out[side]["log"] = pathlib.Path(logs[0]).read_text()
+    return out
+
+
+def read_csv(text: str):
+    """(header, rows as lists of str) of a metrics CSV's text."""
+    import csv
+    lines = list(csv.reader(text.splitlines()))
+    return lines[0], lines[1:]
+
+
+def top2_margin(logits: np.ndarray) -> np.ndarray:
+    """Top-1 minus top-2 logit per voxel (channels last)."""
+    s = np.sort(logits, axis=-1)
+    return s[..., -1] - s[..., -2]
+
+
+def assert_masks_agree(jax_mask, port_mask, logits,
+                       margin: float = TIE_MARGIN) -> int:
+    """Identical masks but where JAX's top-2 logit margin is below
+    ``margin``; returns the mismatch count."""
+    assert jax_mask.shape == port_mask.shape == logits.shape[:-1]
+    diff = np.asarray(jax_mask) != np.asarray(port_mask)
+    margins = top2_margin(logits)[diff]
+    assert (margins < margin).all(), (
+        f"{int(diff.sum())} voxels differ, margins up to {margins.max()}")
+    return int(diff.sum())
+
+
+def assert_logits_agree(jax_logits, port_logits, rel: float) -> None:
+    """Blended logits within ``rel`` of their scale (the model's forward
+    tolerance against JAX: ``test_torch_model.py``, ``test_torch_urwkv.py``)."""
+    scale = float(np.abs(jax_logits).max())
+    np.testing.assert_allclose(port_logits, jax_logits, rtol=1e-4,
+                               atol=rel * scale)
+
+
+def assert_csvs_agree(jax_csv: str, port_csv: str, masks_equal) -> None:
+    """Same columns in the same order and the same row names; metrics
+    within 1e-4 absolute; HD95 within 1e-4 relative for the rows whose
+    masks are identical (``masks_equal[i]``). ``time`` differs."""
+    jh, jrows = read_csv(jax_csv)
+    ph, prows = read_csv(port_csv)
+    assert ph == jh
+    assert [r[0] for r in prows] == [r[0] for r in jrows]
+    for jr, pr, same in zip(jrows, prows, masks_equal):
+        for col, a, b in zip(jh, jr, pr):
+            if col in ("name", "time"):
+                continue
+            assert (a == "") == (b == ""), (col, a, b)     # NaN both
+            if a == "":
+                continue
+            a, b = float(a), float(b)
+            if col.startswith("hd95"):
+                if same:
+                    assert abs(a - b) <= 1e-4 * abs(a), (col, a, b)
+            else:
+                assert abs(a - b) <= 1e-4, (col, a, b)

@@ -1,0 +1,61 @@
+"""Whole-volume inference CLI: ``python -m veloxseg_torch.cli.test_main``.
+
+The flags of ``veloxseg_tpu/cli/test_main.py:11-38`` (the reference
+``run_test.py:5-29``) and ``--device`` (default ``cuda``; ``cpu`` runs every
+kernel's plain PyTorch version). ``--mesh`` and ``--distributed`` are
+accepted as flags and raise in the driver: the port serves on one device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+SUPPORTED_DATASETS = ("AutoPETII", "Hecktor2022", "BraTS2021")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--dataset_name", type=str, required=True,
+                        choices=SUPPORTED_DATASETS)
+    parser.add_argument("--model_name", type=str, required=True)
+    parser.add_argument("--train_date", type=str, default=None)
+    parser.add_argument("--model_index", type=str, default=None)
+    parser.add_argument("--checkpoint_dir", type=str, default=None)
+    parser.add_argument("--checkpoint_index", type=str, default="val_best")
+    parser.add_argument("--model_config", type=str, required=True)
+    parser.add_argument("--train_config", type=str, required=True)
+    parser.add_argument("--test_config", type=str, required=True)
+    parser.add_argument("--gpu_id", type=str, default="0")
+    parser.add_argument("--num_workers", type=int, default=8)
+    parser.add_argument("--specific_sample", type=int, default=None)
+    parser.add_argument("--select_modal", type=int, default=None)
+    parser.add_argument("--use_hd95", type=int, default=None)
+    parser.add_argument("--sw_batch_size", type=int, default=4)
+    parser.add_argument(
+        "--mesh", type=str, default=None,
+        help="SPMD device mesh of the JAX package; not ported (raises)")
+    parser.add_argument(
+        "--distributed", type=str, default=None,
+        help="multi-host runtime of the JAX package; not ported (raises)")
+    parser.add_argument(
+        "--device", type=str, default="cuda",
+        help="'cuda' (default; raises without a card) or 'cpu'")
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    with open(args.train_config, "r", encoding="utf-8") as f:
+        train_config = json.load(f)
+    with open(args.model_config, "r", encoding="utf-8") as f:
+        model_config = json.load(f)
+    with open(args.test_config, "r", encoding="utf-8") as f:
+        test_config = json.load(f)
+    from ..infer.driver import run_inference
+    return run_inference(args, train_config, model_config, test_config,
+                         device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -6,7 +6,10 @@ Behaviour of MONAI ``sliding_window_inference`` as the reference uses it
 constant blending by default (gaussian on request), symmetric zero padding
 of volumes smaller than the ROI. Tiles run through the predictor in
 batches of ``sw_batch_size`` on the device, and the weighted sums
-accumulate on the same device.
+accumulate on the same device, or with ``cpu_accumulate`` in numpy float32
+on the host, in the JAX package's tile order
+(``veloxseg_tpu/infer/sliding_window.py:312-361``), for volumes whose sums
+would crowd the device.
 
 A ragged last batch is filled up with copies of the first tile, whose
 outputs are dropped, as the JAX package does (MONAI runs a smaller last
@@ -79,6 +82,7 @@ def sliding_window_inference(
     overlap: float = 0.25,
     mode: str = "constant",
     device: Optional[Union[str, torch.device]] = None,
+    cpu_accumulate: bool = False,
 ) -> torch.Tensor:
     """Tile, predict, blend.
 
@@ -93,6 +97,12 @@ def sliding_window_inference(
       mode: ``'constant'`` (reference default) or ``'gaussian'`` blending.
       device: where tiles run and sums accumulate; default ``"cuda"``
         (raises without CUDA unless ``"cpu"`` is asked for).
+      cpu_accumulate: tiles still run on ``device``, but each call's logits
+        are copied to the host through a pinned buffer and the weighted
+        sums are numpy float32 there, added tile by tile as the JAX package
+        adds them (padded slots skipped); the blended result is moved back
+        to ``device``. The whole-volume driver turns it on above
+        ``infer/driver.CPU_STITCH_THRESHOLD`` voxels.
 
     Returns ``(B, D, H, W, K)`` blended float32 logits on ``device``.
     """
@@ -112,12 +122,17 @@ def sliding_window_inference(
         x = F.pad(x, flat)
     padded_spatial = tuple(x.shape[1:-1])
 
-    imp = torch.as_tensor(_importance_np(mode, roi), device=dev)[..., None]
+    imp = _importance_np(mode, roi)[..., None]
+    if not cpu_accumulate:
+        imp = torch.as_tensor(imp, device=dev)
     origins = compute_tile_origins(padded_spatial, roi, overlap)
     n_real = len(origins)
     origins += [origins[0]] * ((-n_real) % sw_batch_size)
-    out_sum = None
-    cnt = torch.zeros((*padded_spatial, 1), device=dev)
+    out_sum = host = None
+    if cpu_accumulate:
+        cnt = np.zeros((*padded_spatial, 1), dtype=np.float32)
+    else:
+        cnt = torch.zeros((*padded_spatial, 1), device=dev)
     for i in range(0, len(origins), sw_batch_size):
         batch = origins[i:i + sw_batch_size]
         sls = [tuple(slice(o, o + r) for o, r in zip(org, roi))
@@ -125,12 +140,22 @@ def sliding_window_inference(
         tiles = torch.cat([x[(slice(None),) + sl] for sl in sls])
         logits = predictor(tiles).float()
         if out_sum is None:
-            out_sum = torch.zeros((b, *padded_spatial, logits.shape[-1]),
-                                  device=dev)
+            shape = (b, *padded_spatial, logits.shape[-1])
+            if cpu_accumulate:
+                out_sum = np.zeros(shape, dtype=np.float32)
+                host = torch.empty(logits.shape, dtype=torch.float32,
+                                   pin_memory=dev.type == "cuda")
+            else:
+                out_sum = torch.zeros(shape, device=dev)
+        if cpu_accumulate:
+            host.copy_(logits)              # waits for the device
+            logits = host.numpy()
         for j, sl in enumerate(sls[:n_real - i]):
             out_sum[(slice(None),) + sl] += logits[j * b:(j + 1) * b] * imp
             cnt[sl] += imp
     blended = out_sum / cnt
+    if cpu_accumulate:
+        blended = torch.from_numpy(blended).to(dev)
 
     if padded:
         crop = tuple(slice(lo, lo + s) for (lo, _), s in zip(pads, spatial))
