@@ -97,7 +97,35 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     Hecktor (``models_config_hecktor2022.json``) and BraTS
     (``models_config_brats2021.json``) on one one-tile case each. Every
     CSV has the JAX package's columns and every dice lies in [0, 1].
-14. print one ``{"kernels": [...]}`` line (with ``excess_ms``, each path's
+14. the training CLI (``veloxseg_torch.cli.train_main.main`` →
+    ``train/trainer.run_train``) over 10 synthetic 112×112×104 AutoPET-II
+    cases (6 train, 2 val, 2 test) with ``config/models_config_autopetii.json``
+    and ``config/train_config_bs4.json`` as published but for the dataset
+    paths, ``epochs`` (2), ``val_interval`` and ``save_model_interval`` (1)
+    and the save and log paths: 2 epochs of 3 steps (B = 4: ``batch_size``
+    2 × ``num_samples`` 2) with validation and checkpoints each; counts
+    zeroed before, read after: K2f, K2b, K4f, K4b and its wgrad per step
+    must be phase 6's, K1, K4f and K5f per validation batch phase 4's per
+    forward (phase 3 also times K2 and the JLC blocks at B = 4). Per epoch,
+    beside the card's name and power limit, a smoke reading (3 steps, so
+    the first batch, checkpoints and validation weigh heavily): s, steps,
+    the median step's stream span (CUDA events: the host's issue of the
+    step or the device's work, whichever ends later), the loader wait,
+    patches/s, validation s and checkpoint-write s; and which NIfTI reader
+    and rotation ran. Then: resume from ``0.pth`` (epoch 1 at the
+    scheduler's learning rate, the optimizer's step count 3 → 6); serve
+    the run's ``val_best.pth`` with ``cli.test_main`` on the 2 test cases;
+    one epoch from ``0.pth`` with every dropout 0 on the card and through
+    ``run_train(..., device="cpu")``: losses within 1e-4 relative, epoch
+    dice within 2e-3, weights element by element within 0.25·lr where the
+    CPU's gradient is real and 2·3·lr·1.1 where it is rounding noise.
+    Last, the steady run: 100 cases (links to the 10), 2 epochs of 30
+    steps with the published intervals (no validation), launches per step
+    phase 6's, the split of each epoch and its patches/s after the first
+    batch, the trainer's own device ms per step and idle share from its
+    ``profile_dir`` trace (steps 3-12), and the step outside the trainer,
+    alone and beside a thread that drains the warm loader.
+15. print one ``{"kernels": [...]}`` line (with ``excess_ms``, each path's
     launches × (ms − bound) per call at that path's own shapes, summed),
     the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -108,6 +136,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import re
 import sys
@@ -574,6 +603,497 @@ def serving_cli_phase(card, zero_counts, counts, serving, configs, patches,
         other=other, phase_s=time.perf_counter() - t13)
 
 
+# -- phase 14's training CLI runs --------------------------------------------
+
+TRAIN_SPLIT = re.compile(
+    r"epoch (\d+) split: ([\d.]+) s \| steps (\d+), step median ([\d.]+) "
+    r"ms \(([^)]*)\), loop ([\d.]+) s, loader wait ([\d.]+) s \(first "
+    r"batch ([\d.]+) s\), ([\d.]+) patches/s \| checkpoints ([\d.]+) s \| "
+    r"validation ([\d.]+) s \((\d+) batches\)")
+
+
+def train_weights_close(what, got, ref, grad_max, lr, steps):
+    """Card against CPU weights after ``steps`` AdamW steps from one
+    checkpoint, element by element, split by the CPU run's gradients
+    (``grad_max``: per key, each element's largest |gradient| over the
+    steps), as ``tests/torch_port_helpers.assert_adamw_weights_close``
+    holds the port against JAX: Adam scales a gradient of rounding noise
+    up to a step of up to lr either way on each side, so a noise element
+    is held to 2·steps·lr·1.1 and every other element to 0.25·lr. Noise:
+    every element of a tensor whose gradient is at most 1e-5 of the
+    model's largest, and in the other tensors each element whose gradient
+    is at most 1e-4 of its tensor's largest (phase [8]'s relative
+    gradient tolerance). Returns (max abs err over real elements, over
+    noise elements, the share of real elements)."""
+    import torch
+    g_all = max(float(g.max()) for g in grad_max.values())
+    worst = {True: 0.0, False: 0.0}
+    n_real = n_all = 0
+    for k, r in ref.items():
+        err = (got[k].cpu().double() - r.double()).abs()
+        g = grad_max.get(k)
+        if g is None:       # a buffer: never updated
+            if float(err.max()) != 0.0:
+                raise AssertionError(f"{what}: buffer {k} differs")
+            continue
+        g = g.double()
+        g_max = float(g.max())
+        noise = (torch.ones_like(g, dtype=torch.bool)
+                 if g_max <= 1e-5 * g_all else g <= 1e-4 * g_max)
+        bound_ = torch.where(noise, 2.0 * steps * lr * 1.1, 0.25 * lr)
+        if not bool((err <= bound_).all()):
+            i = int((err - bound_).argmax())
+            raise AssertionError(
+                f"{what}: weight {k} element {i} differs by "
+                f"{float(err.flatten()[i]):.3e} > "
+                f"{float(bound_.flatten()[i]):.3e} (its CPU gradient "
+                f"{float(g.flatten()[i]):.3e}, the tensor's largest "
+                f"{g_max:.3e})")
+        for is_noise in (True, False):
+            sel = err[noise] if is_noise else err[~noise]
+            if sel.numel():
+                worst[is_noise] = max(worst[is_noise], float(sel.max()))
+        n_real += int((~noise).sum())
+        n_all += noise.numel()
+    return worst[False], worst[True], n_real / n_all
+
+
+def split_lines(log):
+    """The trainer log's per-epoch ``split:`` lines as dicts."""
+    keys = ("epoch", "epoch_s", "steps", "step_median_ms", "timer",
+            "loop_s", "loader_wait_s", "first_wait_s", "patches_per_s",
+            "checkpoint_s", "val_s", "val_batches")
+    out = []
+    for m in TRAIN_SPLIT.findall(log):
+        e = dict(zip(keys, m))
+        for k in keys:
+            if k != "timer":
+                e[k] = (int(e[k]) if k in ("epoch", "steps", "val_batches")
+                        else float(e[k]))
+        # patches/s over the loop but the first batch's wait, 4 a step
+        e["steady_patches_per_s"] = 4 * e["steps"] / (
+            e["loop_s"] - e["first_wait_s"])
+        out.append(e)
+    return out
+
+
+def step_spans(step, state, batches, gen, n=12):
+    """Median stream span (CUDA events, as the trainer's step timer) and
+    median host ms of issuing ``step`` over the last n − 2 of n steps."""
+    import statistics
+
+    import torch
+    spans, hosts = [], []
+    for i in range(n):
+        x, y = batches[i % len(batches)]
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        state, _ = step(state, x, y, gen)
+        b.record()
+        hosts.append((time.perf_counter() - t0) * 1e3)
+        b.synchronize()
+        spans.append(a.elapsed_time(b))
+    return statistics.median(spans[2:]), statistics.median(hosts[2:])
+
+
+def trainer_steady_run(card, zero_counts, counts, per_step, work, published,
+                       model_config_path, src_globs, n_src, n_cases=100):
+    """Phase 14's epochs at a length where the per-epoch costs are minor:
+    ``n_cases`` AutoPET-II cases (links to the ``n_src`` written ones, so
+    60 train cases: 30 steps an epoch) with the published configs but for
+    the dataset paths, 2 epochs, the save and log paths and
+    ``profile_dir`` (a trace of steps 3-12 of epoch 1); validation and the
+    periodic checkpoint every 5 epochs as published, so neither runs.
+    Epoch 2 reads the warm cache: the steady state. From the trace, the
+    step's device ms and idle share inside the trainer. Then the same step
+    outside the trainer on the run's weights, alone and beside a thread
+    that drains a warm-cache copy of the train loader without pause: its
+    stream span and host issue ms, to show whether the loader's threads
+    slow the host's issue of the step."""
+    import threading
+
+    import torch
+
+    from veloxseg_torch.cli.train_main import main as train_main
+    from veloxseg_torch.data.dataset import (PatchLoader,
+                                             SegmentationDataset,
+                                             default_train_transform)
+    from veloxseg_torch.data.prefetch import device_put
+    from veloxseg_torch.train.loss import CompositeLoss
+    from veloxseg_torch.train.train_state import train_step_fn
+    from veloxseg_torch.utils.runtime import rotation_range_from_degrees
+    from chip_measure import trace_split
+
+    cases = os.path.dirname(src_globs["label_path"])
+    root = os.path.join(work, "steady_cases")
+    os.makedirs(root)
+    names = sorted(os.listdir(cases))
+    for i in range(n_cases):
+        for name in names:
+            if name.startswith(f"case{i % n_src:03d}"):
+                os.symlink(os.path.join(cases, name), os.path.join(
+                    root, f"case{i:03d}" + name[len("case000"):]))
+    globs = {k: os.path.join(root, os.path.basename(v))
+             for k, v in src_globs.items()}
+    trace_dir = os.path.join(work, "steady", "trace")
+    cfg = dict(published, dataset_path={"AutoPETII": globs}, epochs=2,
+               save_path=os.path.join(work, "steady", "save"),
+               log_path=os.path.join(work, "steady", "logs"),
+               profile_dir=trace_dir)
+    path = os.path.join(work, "steady.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    changed = sorted(k for k in cfg if cfg[k] != published.get(k))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = train_main(["--dataset_name", "AutoPETII", "--model_name",
+                      "VeloxSeg", "--model_config", model_config_path,
+                      "--train_config", path])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    date = os.path.basename(res["save_path"])
+    with open(os.path.join(cfg["log_path"],
+                           f"AutoPETII_VeloxSeg_{date}.log")) as f:
+        epochs = split_lines(f.read())
+    n_steps = sum(e["steps"] for e in epochs)
+    if len(epochs) != 2 or n_steps != 60 or any(e["val_batches"]
+                                                for e in epochs):
+        raise AssertionError(f"steady trainer run: epochs {epochs}")
+    want = {n: n_steps * per_step.get(n, 0) for n in launches}
+    if launches != want:
+        raise AssertionError(f"steady trainer run launches {launches}, "
+                             f"want {n_steps} x phase 6's {per_step}")
+    tr = trace_split(trace_dir)
+    if tr["steps"] != 10:
+        raise AssertionError(f"steady trainer trace: {tr}")
+    tr_step = dict(device_ms=tr["device_ms"] / 10,
+                   wall_ms=tr["wall_ms"] / 10,
+                   idle_share=1 - tr["device_ms"] / tr["wall_ms"],
+                   device_ops=tr["device_ops"] / 10)
+    for e in epochs:
+        print(f"[14] {card} | steady run epoch {e['epoch']}: "
+              f"{e['epoch_s']:.4f} s, {e['steps']} steps of 4 patches 96³,"
+              f" step median {e['step_median_ms']:.3f} ms ({e['timer']}),"
+              f" loop {e['loop_s']:.4f} s, loader wait "
+              f"{e['loader_wait_s']:.4f} s (first batch "
+              f"{e['first_wait_s']:.4f} s), {e['patches_per_s']:.3f} "
+              f"patches/s, {e['steady_patches_per_s']:.3f} patches/s after "
+              f"the first batch, checkpoint writes {e['checkpoint_s']:.4f} "
+              f"s", flush=True)
+    print(f"[14] {card} | steady run trace of steps 3-12 (epoch 1, under "
+          f"the profiler): device {tr_step['device_ms']:.3f} ms/step, wall "
+          f"{tr_step['wall_ms']:.3f} ms/step, idle share "
+          f"{tr_step['idle_share']:.3f}, {tr_step['device_ops']:.0f} device "
+          f"operations/step | changed: {', '.join(changed)} | launches = "
+          f"{n_steps} steps x phase 6's per step | {run_s:.1f} s",
+          flush=True)
+
+    # the trainer's step outside the trainer, alone and beside the loader
+    state = res["state"]
+    del res
+    dev = next(state.model.parameters()).device
+    patterns = {"ct": globs["ct_path"], "pet": globs["pet_path"],
+                "label": globs["label_path"]}
+    train_files, _, _ = SegmentationDataset.from_globs(
+        patterns, "AutoPETII").split(cfg["train_rate"], cfg["val_rate"])
+    loader = PatchLoader(
+        train_files, ("ct", "pet"), default_train_transform(
+            cfg["patch_size"]["AutoPETII"], num_samples=2, rotate_prob=0.5,
+            range_z=rotation_range_from_degrees(15),
+            use_foreground_crop=True),
+        batch_size=cfg["batch_size"], num_samples=2, num_workers=8,
+        shuffle=True, binary_label=True, cache=True)
+    stop = threading.Event()
+    passes = []
+
+    def drain():
+        while not stop.is_set():
+            for _ in loader:
+                if stop.is_set():
+                    break
+            passes.append(time.perf_counter())
+
+    try:
+        batches = []
+        for xy in loader:           # the first pass fills the cache
+            if len(batches) < 2:
+                batches.append(device_put(xy, dev))
+        step = train_step_fn(CompositeLoss(cfg, state.model.cfg), dev,
+                             deep_metric_heads=True)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        alone = step_spans(step, state, batches, gen)
+        th = threading.Thread(target=drain)
+        th.start()
+        try:
+            busy = step_spans(step, state, batches, gen)
+        finally:
+            stop.set()
+            th.join()
+    finally:
+        loader.close()
+    trainer_span = epochs[1]["step_median_ms"]
+    print(f"[14] {card} | the step outside the trainer (B = 4, 10 steps): "
+          f"alone stream span {alone[0]:.3f} ms, host issue {alone[1]:.3f}"
+          f" ms | beside a thread draining the warm loader "
+          f"({len(passes)} full passes): span {busy[0]:.3f} ms, host issue "
+          f"{busy[1]:.3f} ms | in the trainer, epoch 2: span "
+          f"{trainer_span:.3f} ms", flush=True)
+    return dict(epochs=epochs, trace=tr_step, changed_keys=changed,
+                run_s=run_s, alone=alone, beside_loader=busy,
+                loader_passes=len(passes), trainer_span_ms=trainer_span)
+
+
+def trainer_cli_phase(card, zero_counts, counts, per_step, per_forward,
+                      model_config_path, train_config_path,
+                      shape=(112, 112, 104), n_cases=10):
+    """Phase 14: ``veloxseg_torch.cli.train_main.main`` on the card over
+    ``n_cases`` synthetic AutoPET-II cases (``write_cases``; 6 train, 2
+    val, 2 test), with the published model and train configs but for the
+    keys it lists; 2 epochs with validation and checkpoints each; the
+    launches of K2f, K2b, K4f, K4b (and its wgrad) per step must be phase
+    6's, those of K1, K4f and K5f per validation batch phase 4's per
+    forward. Then resume from ``0.pth`` (epoch, learning rate, optimizer
+    step), serve ``val_best.pth`` through ``cli.test_main`` on the test
+    split, and run one epoch from ``0.pth`` with every dropout at 0 on the
+    card and through ``run_train(..., device="cpu")``: the same losses,
+    epoch dice and final weights (tolerances printed). Returns the report
+    with the main run's launches split into its steps and its validation
+    (``launches_train``, ``launches_val``)."""
+    import argparse
+    import tempfile
+
+    import torch
+
+    from veloxseg_torch.cli.test_main import main as serve_main
+    from veloxseg_torch.cli.train_main import main as train_main
+    from veloxseg_torch.core.config import load_json_config
+    from veloxseg_torch.data.nifti_fast import native_status
+    from veloxseg_torch.train import trainer
+    from veloxseg_torch.train.optim import EpochScheduler
+
+    t14 = time.perf_counter()
+    published = load_json_config(train_config_path)
+    models = load_json_config(model_config_path)
+    steps = {}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        globs = write_cases(os.path.join(work, "cases"), "AutoPETII", shape,
+                            n_cases, seed=60,
+                            spacing=tuple(published["spacing"]["AutoPETII"]))
+        steps["write_cases"] = time.perf_counter() - t0
+
+        def train_config(name, **over):
+            """The published train config with the phase's changes."""
+            cfg = dict(published, dataset_path={"AutoPETII": globs},
+                       epochs=2, val_interval=1, save_model_interval=1,
+                       save_path=os.path.join(work, name, "save"),
+                       log_path=os.path.join(work, name, "logs"), **over)
+            path = os.path.join(work, f"{name}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            return cfg, path
+        main_cfg, main_json = train_config("main")
+        changed = sorted(k for k in main_cfg if main_cfg[k] != published.get(
+            k))
+        argv = ["--dataset_name", "AutoPETII", "--model_name", "VeloxSeg",
+                "--model_config", model_config_path, "--train_config",
+                main_json]
+
+        def log_of(res):
+            date = os.path.basename(res["save_path"])
+            with open(os.path.join(main_cfg["log_path"],
+                                   f"AutoPETII_VeloxSeg_{date}.log")) as f:
+                return f.read()
+
+        # the main run: 2 epochs from seeded weights, on the card
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = train_main(argv)
+        torch.cuda.synchronize()
+        steps["main_run"] = time.perf_counter() - t0
+        launches = counts()
+        log = log_of(res)
+        epochs = split_lines(log)
+        n_steps = sum(e["steps"] for e in epochs)
+        n_val = sum(e["val_batches"] for e in epochs)
+        if len(epochs) != 2 or n_steps != 6 or n_val != 2:
+            raise AssertionError(f"trainer CLI: epochs {epochs}")
+        val_part = {n: n_val * per_forward.get(n, 0) for n in launches}
+        train_part = {n: c - val_part[n] for n, c in launches.items()}
+        want = {n: n_steps * per_step.get(n, 0) for n in launches}
+        if train_part != want:
+            raise AssertionError(f"trainer CLI launches {launches}: train "
+                                 f"part {train_part}, want {n_steps} steps "
+                                 f"x phase 6's {per_step}, plus {n_val} "
+                                 f"validation batches x phase 4's "
+                                 f"{per_forward}")
+        files = sorted(f for f in os.listdir(res["save_path"])
+                       if f.endswith(".pth"))
+        if files != ["0.pth", "1.pth", "train_best.pth", "val_best.pth"]:
+            raise AssertionError(f"trainer CLI checkpoints {files}")
+        losses = [float(v) for v in re.findall(r"Training Loss:([\d.]+)",
+                                               log)]
+        if len(losses) != n_steps or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"trainer CLI losses {losses}")
+        status = native_status()
+        print(f"[14] {card} | {status}", flush=True)
+        for e in epochs:    # 3 steps: a smoke reading, not an epoch's rate
+            print(f"[14] {card} | smoke epoch {e['epoch']}: "
+                  f"{e['epoch_s']:.4f} s, "
+                  f"{e['steps']} steps of 4 patches 96³, step median "
+                  f"{e['step_median_ms']:.3f} ms ({e['timer']}), loop "
+                  f"{e['loop_s']:.4f} s, loader wait {e['loader_wait_s']:.4f}"
+                  f" s (first batch {e['first_wait_s']:.4f} s), "
+                  f"{e['patches_per_s']:.3f} patches/s, validation "
+                  f"{e['val_s']:.4f} s ({e['val_batches']} batch), "
+                  f"checkpoint writes {e['checkpoint_s']:.4f} s", flush=True)
+        print(f"[14] training CLI (train_main, published AutoPET-II model "
+              f"and train config; changed: {', '.join(changed)}): "
+              f"{steps['main_run']:.3f} s for 2 epochs | losses "
+              f"{losses[0]:.5f} ... {losses[-1]:.5f} | best train dice "
+              f"{res['best_train_dice']:.4f} val {res['best_val_dice']:.4f}"
+              f" | launches { {n: c for n, c in launches.items() if c} } = "
+              f"{n_steps} steps x phase 6's per step + {n_val} validation "
+              f"batches x phase 4's per forward | checkpoints {files}",
+              flush=True)
+        save_dir = res["save_path"]
+        del res
+
+        # resume from 0.pth: epoch 1 again, at its learning rate
+        ckpt0 = os.path.join(save_dir, "0.pth")
+        saved_step = float(torch.load(ckpt0, weights_only=True)[
+            "optimizer"]["state"][0]["step"])
+        t0 = time.perf_counter()
+        res = train_main(argv + ["--checkpoint_path", ckpt0])
+        torch.cuda.synchronize()
+        steps["resume"] = time.perf_counter() - t0
+        opt = res["state"].optimizer
+        lr = opt.param_groups[0]["lr"]
+        want_lr = EpochScheduler(main_cfg).learning_rate(1)
+        step_now = float(opt.state_dict()["state"][0]["step"])
+        if "Resumed from" not in log_of(res) or lr != want_lr \
+                or saved_step != 3 or step_now != saved_step + 3:
+            raise AssertionError(f"resume: lr {lr} (want {want_lr}), "
+                                 f"optimizer step {saved_step} -> "
+                                 f"{step_now}")
+        print(f"[14] resumed from 0.pth at epoch 1: lr {lr:.3e} (the "
+              f"scheduler's epoch-1 value), optimizer step {saved_step:.0f}"
+              f" -> {step_now:.0f} ({steps['resume']:.1f} s)", flush=True)
+        del res, opt
+
+        # serve the run's val_best.pth on the test split
+        test_json = os.path.join(work, "test.json")
+        with open(test_json, "w") as f:
+            json.dump({"result_metric_path": os.path.join(work, "metric"),
+                       "sliding_window": {"overlap": 0.25}}, f)
+        t0 = time.perf_counter()
+        rows = serve_main(argv[:4] + ["--model_config", model_config_path,
+                                      "--train_config", main_json,
+                                      "--test_config", test_json,
+                                      "--checkpoint_dir", save_dir])
+        steps["serve"] = time.perf_counter() - t0
+        n_test = n_cases - int((main_cfg["train_rate"]
+                                + main_cfg["val_rate"]) * n_cases)
+        check_csv(os.path.join(work, "metric", "AutoPETII_VeloxSeg.csv"),
+                  BINARY_COLUMNS[:-1], n_test)
+        dices = ", ".join(f"{r['dice']:.4f}" for r in rows)
+        print(f"[14] val_best.pth served by cli.test_main on the "
+              f"{len(rows)} test cases: dice {dices} "
+              f"({steps['serve']:.1f} s)", flush=True)
+
+        # card against CPU: one epoch from 0.pth, every dropout 0
+        nodrop = dict(models, VeloxSeg=dict(
+            models["VeloxSeg"], attn_drop=0.0, proj_drop=0.0, conv_drop=0.0,
+            drop_path=0.0))
+        recorded = {}
+        grad_max = {}   # the CPU run's largest |gradient| per element
+        step_fn = trainer.train_step_fn
+
+        def recording(*a, **kw):
+            inner = step_fn(*a, **kw)
+
+            def step(state, x, y, gen):
+                state, aux = inner(state, x, y, gen)
+                recorded[key].append(aux["loss"])
+                if key == "cpu":
+                    for k, p in state.model.named_parameters():
+                        if p.grad is None:
+                            continue
+                        g = p.grad.detach().abs()
+                        grad_max[k] = (torch.maximum(grad_max[k], g)
+                                       if k in grad_max else g.clone())
+                return state, aux
+            return step
+
+        cmp = {}
+        trainer.train_step_fn = recording
+        try:
+            for key in ("cuda", "cpu"):
+                recorded[key] = []
+                cfg, _ = train_config(f"cmp_{key}")
+                args = argparse.Namespace(
+                    dataset_name="AutoPETII", model_name="VeloxSeg",
+                    checkpoint_path=ckpt0, num_workers=8, model_index=None,
+                    select_modal=None)
+                t0 = time.perf_counter()
+                r = trainer.run_train(args, cfg, nodrop, device=key)
+                steps[f"cmp_{key}"] = time.perf_counter() - t0
+                cmp[key] = dict(
+                    losses=[float(v) for v in recorded[key]],
+                    train_dice=r["best_train_dice"],
+                    val_dice=r["best_val_dice"],
+                    weights={k: v.detach().cpu() for k, v in
+                             r["state"].model.state_dict().items()})
+                del r
+        finally:
+            trainer.train_step_fn = step_fn
+        card_l, cpu_l = cmp["cuda"]["losses"], cmp["cpu"]["losses"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+        if len(card_l) != 3 or len(cpu_l) != 3 or not loss_rel <= 1e-4:
+            raise AssertionError(f"trainer card vs CPU losses {card_l} vs "
+                                 f"{cpu_l}")
+        dice_err = max(abs(cmp["cuda"][k] - cmp["cpu"][k])
+                       for k in ("train_dice", "val_dice"))
+        if not dice_err <= 2e-3:
+            raise AssertionError(f"trainer card vs CPU dice {cmp}")
+        w_err, w_noise, w_real = train_weights_close(
+            "trainer card vs CPU", cmp["cuda"]["weights"],
+            cmp["cpu"]["weights"], grad_max, want_lr, 3)
+        print(f"[14] trainer card vs CPU (one epoch from 0.pth, dropout 0, "
+              f"3 steps + validation): losses {[f'{v:.6f}' for v in card_l]}"
+              f" vs {[f'{v:.6f}' for v in cpu_l]} (max rel {loss_rel:.2e}, "
+              f"tol 1e-4) | train dice {cmp['cuda']['train_dice']:.5f} vs "
+              f"{cmp['cpu']['train_dice']:.5f}, val dice "
+              f"{cmp['cuda']['val_dice']:.5f} vs {cmp['cpu']['val_dice']:.5f}"
+              f" (tol 2e-3) | weights, elements with a real CPU gradient "
+              f"({w_real:.3f} of all): max abs err {w_err:.3e} (tol "
+              f"0.25·lr = {0.25 * want_lr:.2e}); noise elements "
+              f"{w_noise:.3e} (tol 2·3·lr·1.1 = {6.6 * want_lr:.2e}) | "
+              f"card {steps['cmp_cuda']:.1f} s, CPU "
+              f"{steps['cmp_cpu']:.1f} s", flush=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        steady = trainer_steady_run(card, zero_counts, counts, per_step,
+                                    work, published, model_config_path,
+                                    globs, n_cases)
+        steps["steady"] = time.perf_counter() - t0
+    return dict(
+        epochs=epochs, steady=steady, launches=launches,
+        launches_train=train_part,
+        launches_val=val_part, losses=losses, changed_keys=changed,
+        native=status, card_vs_cpu=dict(
+            losses=[card_l, cpu_l], loss_rel=loss_rel, dice_err=dice_err,
+            weights_err_real=w_err, weights_err_noise=w_noise,
+            real_share=w_real),
+        steps_s=steps, phase_s=time.perf_counter() - t14)
+
+
 def main() -> int:
     import argparse
     import torch
@@ -1012,6 +1532,14 @@ def main() -> int:
     jlc_cases("B2_", cfg_dict, batch, "train_96", (4, 4, 4, 1), True)
     jlc_cases("flagship_", fcfg.to_dict(), big_batch, "train_flagship",
               (4, 4, 4, 1), True)
+    # the trainer's step (phase 14): batch_size 2 x num_samples 2 patches,
+    # B = 4; K2 at every level, the JLC blocks (drawn last, so the inputs
+    # of the checksums above stay as they were)
+    for name, b, h, n, cqk, cv, L in k1_shapes(cfg_dict, range(4),
+                                               2 * batch):
+        train_attention(False, f"B4_{name}", b, h, n, cqk, cv, L, 1,
+                        "train_96_b4")
+    jlc_cases("B4_", cfg_dict, 2 * batch, "train_96_b4", (4, 4, 4, 1), True)
 
     # -- phase 3: K6 (U-RWKV's bottleneck: 6³ tokens, 128 channels) --------
     b6, t6, c6 = tiles, 216, 128
@@ -1416,7 +1944,27 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f}" for k, v in cli["steps_s"].items()),
           flush=True)
 
-    # -- phase 14 -----------------------------------------------------------
+    # -- phase 14: the training CLI (cli/train_main -> train/trainer) ------
+    torch.cuda.empty_cache()
+    tr = trainer_cli_phase(
+        card, zero_counts, counts, per_step, per_forward,
+        os.path.join(ROOT, "config", "models_config_autopetii.json"),
+        os.path.join(ROOT, "config", "train_config_bs4.json"))
+    # phase 3's calls per trainer step (B = 4) match phase 6's launches
+    weights = {n: a["calls"] for n, a in units["train_96_b4"].items()
+               if n in per_step}
+    if weights != per_step:
+        raise AssertionError(f"phase-3 calls per trainer step {weights} "
+                             f"differ from phase 6's per step {per_step}")
+    trainer_train = tr.pop("launches_train")
+    trainer_val = tr.pop("launches_val")
+    tr.pop("launches")
+    report["trainer_cli"] = tr
+    print(f"[14] training CLI phase {tr['phase_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in tr["steps_s"].items()),
+          flush=True)
+
+    # -- phase 15 -----------------------------------------------------------
     meta = {
         "pwa_attention": ("veloxseg_torch/csrc/pwa_attention_train.cu",
                           "veloxseg_tpu/ops/pwa_attention.py:56"),
@@ -1460,8 +2008,10 @@ def main() -> int:
     # sliding window (5), the AutoPET-II train steps (6, 7), the flagship
     # train steps (9), the U-RWKV sliding window (12), the serving CLI's
     # AutoPET-II and U-RWKV runs (13; its Hecktor and BraTS runs are at
-    # shapes phase 3 does not time as a unit). ms, plain_ms,
-    # bound_ms: summed over the kernel's calls in its headline unit
+    # shapes phase 3 does not time as a unit), the training CLI's main run
+    # (14: its steps at B = 4, its validation forwards of 4 patches).
+    # ms, plain_ms, bound_ms: summed over the kernel's calls in its
+    # headline unit
     # (``per``). excess_ms, the order of work on the kernels: per path,
     # its launches × (ms − bound_ms) per call at that path's own shapes
     paths = {"serving": ("serving", launches),
@@ -1470,7 +2020,9 @@ def main() -> int:
              "train_96_conv_drop0": ("train_96", nodrop_launches),
              "train_flagship": ("train_flagship", flag_launches),
              "urwkv_serving": ("urwkv_serving", u_launches),
-             "urwkv_cli": ("urwkv_serving", u_cli_launches)}
+             "urwkv_cli": ("urwkv_serving", u_cli_launches),
+             "trainer_steps": ("train_96_b4", trainer_train),
+             "trainer_validation": ("serving", trainer_val)}
     line = {"kernels": []}
     for n, (src, replaces) in meta.items():
         k = units[headline[n]][n]
@@ -1504,7 +2056,7 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
-    print(f"[14] all phases passed in {report['wall_s']:.1f} s", flush=True)
+    print(f"[15] all phases passed in {report['wall_s']:.1f} s", flush=True)
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

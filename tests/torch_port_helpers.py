@@ -295,3 +295,174 @@ def assert_csvs_agree(jax_csv: str, port_csv: str, masks_equal) -> None:
                     assert abs(a - b) <= 1e-4 * abs(a), (col, a, b)
             else:
                 assert abs(a - b) <= 1e-4, (col, a, b)
+
+
+# ---------------------------------------------------------------------------
+# Weights after AdamW steps, against a reference run from the same start.
+
+def assert_adamw_weights_close(got: dict, ref: dict, grad_max: dict,
+                               lr: float, steps: int) -> dict:
+    """Hold the weights ``got`` after ``steps`` AdamW steps against the
+    reference's ``ref``, element by element, split by the reference's
+    gradients (``grad_max``: per key, each element's largest |gradient|
+    over the steps), as ``test_torch_train_step.py`` splits tensors. Adam
+    scales a gradient of rounding noise up to a step of up to lr, of
+    either sign on each side, so a noise element is held to
+    2·steps·lr·1.1 and every other element to 0.25·lr. Noise: every
+    element of a tensor whose gradient is at most 1e-5 of the model's
+    largest (biases in front of an InstanceNorm, a single-voxel level),
+    and in the other tensors each element whose gradient is at most 1e-4
+    of its tensor's largest, the gradient tests' relative tolerance (taps
+    that reach only zero padding, elements whose sign that tolerance does
+    not fix). Returns the counts of noise and real elements."""
+    assert set(got) == set(ref)
+    g_all = max(float(g.max()) for g in grad_max.values())
+    assert g_all > 0.0
+    n_noise = n_real = 0
+    for k, r in ref.items():
+        err = (got[k].detach().cpu().double() - r.double()).abs()
+        g = grad_max.get(k)
+        if g is None:           # not a parameter: never updated
+            assert float(err.max()) == 0.0, k
+            continue
+        g = g.double()
+        g_max = float(g.max())
+        noise = (torch.ones_like(g, dtype=torch.bool)
+                 if g_max <= 1e-5 * g_all else g <= 1e-4 * g_max)
+        bound = torch.where(noise, 2.0 * steps * lr * 1.1, 0.25 * lr)
+        worst = int((err - bound).argmax())
+        assert bool((err <= bound).all()), (
+            k, float(err.flatten()[worst]), float(bound.flatten()[worst]),
+            float(g.flatten()[worst]))
+        n_noise += int(noise.sum())
+        n_real += int((~noise).sum())
+    return {"noise": n_noise, "real": n_real}
+
+
+# ---------------------------------------------------------------------------
+# Whole-trainer parity: both ``run_train``s resume from one JAX checkpoint.
+
+def tiny_train_config(dataset: str, globs: dict, lr: float) -> dict:
+    """A train config over the fixtures ``globs`` at 32³ patches: the
+    60/20/20 split, batch_size 2, 3 epochs, validation and checkpoints
+    every epoch, adamw at ``lr`` with 1 warmup epoch, then cosine."""
+    return {
+        "dataset_path": {dataset: globs},
+        "patch_size": {dataset: [32, 32, 32]},
+        "train_rate": 0.6, "val_rate": 0.2, "batch_size": 2, "epochs": 3,
+        "val_interval": 1, "save_model_interval": 1,
+        "optimizer": {"optimizer_type": "adamw",
+                      "optimizer_args": {"lr": lr, "weight_decay": 0.01}},
+        "warmup_scheduler": {"enabled": True, "warmup_epochs": 1},
+        "train_scheduler": {"scheduler_type": "cosine_annealing",
+                            "scheduler_args": {"epochs": 10,
+                                               "min_lr": 1e-6}},
+        "deep_Loss_weight": [1, 1, 1, 1], "RC_Loss_weight": 0.5,
+        "Feature_Loss_weight": 2.0, "show_deep_metric": True,
+    }
+
+
+def jax_resume_checkpoint(path, model_json: dict, seed: int, lr: float):
+    """Write a JAX training ``.ckpt`` of epoch 0 at ``path``: seeded port
+    weights mapped to JAX params and an adamw state (the JAX package's
+    optimizer) after one optax step from seeded gradients. Returns the
+    path as a string."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from veloxseg_torch.nn.veloxseg import build_veloxseg
+    from veloxseg_tpu.interop.torch_import import convert_state_dict
+    from veloxseg_tpu.train import checkpoint as jck
+    from veloxseg_tpu.train import optim as joptim
+    model, _ = build_veloxseg(model_json, device="cpu")
+    randomize_(model, seed=seed, scale=0.2)
+    params = jax.tree_util.tree_map(jnp.array,
+                                    convert_state_dict(model.state_dict()))
+    tx = joptim.build_optimizer("adamw", {"lr": lr, "weight_decay": 0.01})
+    opt_state = tx.init(params)
+    rng = np.random.default_rng(seed + 1)
+    grads = jax.tree_util.tree_map(lambda p: jnp.asarray(
+        rng.standard_normal(p.shape).astype(np.float32) * 0.01), params)
+    updates, opt_state = tx.update(grads, opt_state, params)
+    params = optax.apply_updates(params, updates)
+    jck.save_checkpoint(str(path), params, opt_state, epoch=0,
+                        best_train_dice=0.0, best_val_dice=0.0,
+                        scheduler_state={"plateau_scale": 1.0,
+                                         "best": None, "bad_epochs": 0})
+    return str(path)
+
+
+def run_both_trainers(root, dataset: str, model_config: dict,
+                      train_config: dict, ckpt: str):
+    """``veloxseg_tpu.train.trainer.run_train`` (its step forced to fp32 by
+    replacing the module's ``train_step_fn``) and the port's ``run_train``
+    (``device="cpu"``), each resuming from ``ckpt`` with its results under
+    ``root/<side>/save``; both steps record each iteration's loss, and the
+    JAX step each element's largest |gradient| over the run, read from
+    optax's first moment (adamw's ``mu_t = b1·mu_{t-1} + (1 - b1)·g_t``,
+    b1 0.9, taken in float64 from the fp32 moments). Returns ``{side:
+    run_train's dict plus "log" (the log's text) and "losses"}``, and
+    ``"jax_grad_max"``: port key → tensor."""
+    import argparse
+    import os
+
+    import jax
+    import pytest
+    from flax import serialization
+    import veloxseg_torch.train.trainer as ttrainer
+    import veloxseg_tpu.train.trainer as jtrainer
+    from veloxseg_torch.interop.jax_params import optimizer_state_from_jax
+    from veloxseg_tpu.train import train_state as jts
+
+    losses = {"jax": [], "port": []}
+    grad_max = {}
+
+    def first_moments(state):
+        st = optimizer_state_from_jax(
+            serialization.to_state_dict(jax.device_get(state.opt_state)),
+            jax.device_get(state.params))
+        return {k: v["exp_avg"].double() for k, v in st.items()}
+
+    def recording(side, inner):
+        def step(state, x, y, key):
+            before = first_moments(state) if side == "jax" else None
+            state, aux = inner(state, x, y, key)
+            losses[side].append(float(aux["loss"]))
+            if before is not None:
+                for k, mu in first_moments(state).items():
+                    g = ((mu - 0.9 * before[k]) / 0.1).abs()
+                    grad_max[k] = (torch.maximum(grad_max[k], g)
+                                   if k in grad_max else g)
+            return state, aux
+        return step
+
+    def jax_fp32_step(loss_obj, compute_dtype=None, with_metrics=True,
+                      deep_metric_heads=False):
+        return recording("jax", jts.train_step_fn(
+            loss_obj, compute_dtype=None, with_metrics=with_metrics,
+            deep_metric_heads=deep_metric_heads))
+
+    port_step_fn = ttrainer.train_step_fn
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtrainer, "train_step_fn", jax_fp32_step)
+        mp.setattr(ttrainer, "train_step_fn", lambda *a, **kw: recording(
+            "port", port_step_fn(*a, **kw)))
+        for side, fn, kw in (("jax", jtrainer.run_train, {}),
+                             ("port", ttrainer.run_train,
+                              {"device": "cpu"})):
+            args = argparse.Namespace(
+                dataset_name=dataset, model_name="VeloxSeg",
+                checkpoint_path=ckpt, num_workers=2, model_index=None,
+                select_modal=None, mesh=None, distributed=None)
+            tc = dict(train_config,
+                      save_path=os.path.join(str(root), side, "save"))
+            res = fn(args, tc, model_config, **kw)
+            log = [f for f in os.listdir(res["save_path"])
+                   if f.endswith(".log")]
+            with open(os.path.join(res["save_path"], log[0])) as f:
+                res["log"] = f.read()
+            res["losses"] = losses[side]
+            out[side] = res
+    out["jax_grad_max"] = grad_max
+    return out

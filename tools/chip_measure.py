@@ -55,6 +55,33 @@ def device_ms(fn, iters=10):
                ) / iters / 1e3
 
 
+def trace_split(trace_dir):
+    """Device time and wall of a ``torch.profiler`` trace that
+    ``tensorboard_trace_handler`` wrote into ``trace_dir`` (one
+    ``*.pt.trace.json``): the summed durations of its kernels, copies and
+    memsets, in ms; the span from its first to its last event, in ms; the
+    optimizer steps it holds (its ``Optimizer.step`` ranges); and its
+    device operations."""
+    import glob
+    import json
+    paths = sorted(glob.glob(f"{trace_dir}/*.pt.trace.json"))
+    if len(paths) != 1:
+        raise AssertionError(f"traces in {trace_dir}: {paths}")
+    with open(paths[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    steps = sum(1 for e in events
+                if e.get("cat") in ("user_annotation", "cpu_op")
+                and e.get("name", "").startswith("Optimizer.step#"))
+    return dict(device_ms=sum(e["dur"] for e in device) / 1e3,
+                wall_ms=(end - start) / 1e3, steps=steps,
+                device_ops=len(device))
+
+
 def bound(n_bytes, n_flop):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     operations over the fp32 rate."""

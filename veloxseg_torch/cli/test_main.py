@@ -2,8 +2,9 @@
 
 The flags of ``veloxseg_tpu/cli/test_main.py:11-38`` (the reference
 ``run_test.py:5-29``) and ``--device`` (default ``cuda``; ``cpu`` runs every
-kernel's plain PyTorch version). ``--mesh`` and ``--distributed`` are
-accepted as flags and raise in the driver: the port serves on one device.
+kernel's plain PyTorch version); ``--gpu_id`` picks the card. ``--mesh``
+and ``--distributed`` are accepted as flags and raise in the driver: the
+port serves on one device.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--model_config", type=str, required=True)
     parser.add_argument("--train_config", type=str, required=True)
     parser.add_argument("--test_config", type=str, required=True)
-    parser.add_argument("--gpu_id", type=str, default="0")
+    parser.add_argument("--gpu_id", type=str, default="0",
+                        help="the card's index under --device cuda")
     parser.add_argument("--num_workers", type=int, default=8)
     parser.add_argument("--specific_sample", type=int, default=None)
     parser.add_argument("--select_modal", type=int, default=None)
@@ -53,8 +55,9 @@ def main(argv=None):
     with open(args.test_config, "r", encoding="utf-8") as f:
         test_config = json.load(f)
     from ..infer.driver import run_inference
+    from ..utils.device import cli_device
     return run_inference(args, train_config, model_config, test_config,
-                         device=args.device)
+                         device=cli_device(args.device, args.gpu_id))
 
 
 if __name__ == "__main__":

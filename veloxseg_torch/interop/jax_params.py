@@ -19,6 +19,10 @@ Weight-layout transforms (JAX → reference):
 
 Any path that cannot be placed raises, so nothing is dropped silently; so
 does a single-kernel JLC block, which the port does not build.
+
+:func:`optimizer_state_from_jax` maps the optax state of a JAX training
+checkpoint onto the same keys: Adam's moments are params-shaped, so they
+take the weights' layout transforms.
 """
 
 from __future__ import annotations
@@ -210,3 +214,76 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         key, tf = mapped
         out[key] = torch.from_numpy(np.array(tf(arr), np.float32))
     return out
+
+
+def _sorted_leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
+    """The leaves in ``jax.tree_util`` order: dict keys sorted at every
+    level."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, Mapping):
+            yield from _sorted_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _params_shaped(x: Any, params: Mapping[str, Any]) -> Mapping[str, Any]:
+    """An optax moment as a params-shaped tree. ``optax.flatten`` (the JAX
+    package's adamw, ``veloxseg_tpu/train/optim.py:38-44``) keeps it as one
+    vector: the concatenation of every parameter, raveled, in
+    ``jax.tree_util`` order; it is split back by the parameters' sizes."""
+    if isinstance(x, Mapping):
+        return x
+    flat = np.asarray(x, dtype=np.float32).reshape(-1)
+    out: Dict[str, Any] = {}
+    offset = 0
+    for path, leaf in _sorted_leaves(params):
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = flat[offset:offset + leaf.size].reshape(leaf.shape)
+        offset += leaf.size
+    if offset != flat.size:
+        raise ValueError(f"a flat optimizer moment of {flat.size} values "
+                         f"does not match the params' {offset}")
+    return out
+
+
+def _find_state(tree: Any, keys: Tuple[str, ...]):
+    """The first mapping of ``tree`` (depth first) holding every key."""
+    if not isinstance(tree, Mapping):
+        return None
+    if all(k in tree for k in keys):
+        return tree
+    for v in tree.values():
+        found = _find_state(v, keys)
+        if found is not None:
+            return found
+    return None
+
+
+def optimizer_state_from_jax(opt_state: Mapping[str, Any],
+                             params: Mapping[str, Any]
+                             ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The optax state of a JAX checkpoint (``to_state_dict`` form, as
+    :func:`..train.flax_msgpack.msgpack_restore` reads it) → per reference
+    key, the ``torch.optim`` state of that parameter: for adam and adamw
+    ``mu`` → ``exp_avg``, ``nu`` → ``exp_avg_sq``, ``count`` → ``step``;
+    for sgd with momentum ``trace`` → ``momentum_buffer``; nothing for plain
+    sgd. The injected learning rate is dropped: the scheduler sets it per
+    epoch."""
+    if "params" in params and len(params) == 1:
+        params = params["params"]
+    adam = _find_state(opt_state, ("count", "mu", "nu"))
+    if adam is not None:
+        step = torch.tensor(float(np.asarray(adam["count"])),
+                            dtype=torch.float32)
+        mu = state_dict_from_jax(_params_shaped(adam["mu"], params))
+        nu = state_dict_from_jax(_params_shaped(adam["nu"], params))
+        return {k: {"step": step.clone(), "exp_avg": mu[k],
+                    "exp_avg_sq": nu[k]} for k in mu}
+    trace = _find_state(opt_state, ("trace",))
+    if trace is not None:
+        buf = state_dict_from_jax(_params_shaped(trace["trace"], params))
+        return {k: {"momentum_buffer": v} for k, v in buf.items()}
+    return {}

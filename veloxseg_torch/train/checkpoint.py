@@ -1,7 +1,23 @@
-"""Load inference weights into the port's models.
+"""Checkpoints: save and resume training, load inference weights
+(``veloxseg_tpu/train/checkpoint.py``).
 
-``veloxseg_tpu/train/checkpoint.py:98-123`` accepts three checkpoint forms;
-:func:`load_params` loads the first two into a port model:
+A training checkpoint is one file holding the reference's own ``.pth``
+dict (``utils/load_model.py:90-109``): ``{model, optimizer,
+scheduler_state, epoch, best_train_dice, best_val_dice}``, the model under
+the reference's key names, everything on the CPU. :func:`save_checkpoint`
+writes it atomically (a temporary file, then ``os.replace``); the trainer
+names the files ``<epoch>.pth``, ``train_best.pth`` and ``val_best.pth``.
+Both serving CLIs read them: the JAX package's ``load_params`` through
+``import_torch_checkpoint`` (``veloxseg_tpu/interop/torch_import.py:308-
+327``), this package's through :func:`load_params`.
+
+:func:`load_checkpoint` resumes a run into a model and its optimizer from
+such a ``.pth`` or from a ``.ckpt`` the JAX trainer wrote (flax msgpack,
+read without flax by :mod:`.flax_msgpack`; its optax state mapped by
+:func:`..interop.jax_params.optimizer_state_from_jax`).
+
+:func:`load_params` loads inference weights, in the forms of
+``veloxseg_tpu/train/checkpoint.py:98-123``:
 
 - ``.pth``: a reference-keyed PyTorch state dict, bare or wrapped in a
   training checkpoint (``utils/inference_petct.py:95-101``), unwrapped as
@@ -10,13 +26,11 @@
   are dropped here too: VeloxSeg's ``relative_position_index`` buffers
   (``torch_import.py:158-160``), and U-RWKV's dead parameters and batch
   norm statistics (``interop/zoo_import.py:1117-1131``).
-- ``.ckpt``: the flax msgpack file the JAX trainer writes, a full payload
-  (``params`` beside the optimizer state) or a bare params tree, read
-  without flax (:mod:`.flax_msgpack`) and mapped by
-  :mod:`..interop.jax_params` (VeloxSeg) or :mod:`..interop.zoo_params`
-  (U-RWKV).
-- an Orbax checkpoint directory: not ported yet (``ROADMAP.md`` §1 item 2);
-  it raises.
+- ``.ckpt``: the JAX trainer's msgpack file, a full payload or a bare
+  params tree, mapped by :mod:`..interop.jax_params` (VeloxSeg) or
+  :mod:`..interop.zoo_params` (U-RWKV).
+- an Orbax checkpoint directory raises: reading one needs ``orbax`` and
+  ``tensorstore``, which the port does not use.
 
 Every form ends in ``load_state_dict(strict=True)``: a missing, unknown or
 misshapen key raises.
@@ -26,11 +40,12 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict
+import tempfile
+from typing import Any, Dict, Optional
 
 import torch
 
-from ..interop.jax_params import state_dict_from_jax
+from ..interop.jax_params import optimizer_state_from_jax, state_dict_from_jax
 from ..interop.zoo_params import urwkv_state_dict_from_jax
 from ..models.zoo.urwkv import URWKV
 from .flax_msgpack import msgpack_restore
@@ -43,12 +58,65 @@ _URWKV_DROPPED = re.compile(
     r"|.*\.running_|.*num_batches_tracked$")
 
 
-def _reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """The model state dict of a ``.pth`` checkpoint, bare or wrapped
+def _to_cpu(obj: Any) -> Any:
+    """A deep copy of a (nested) state dict with every tensor on the CPU:
+    the snapshot stays as it is while training goes on updating the
+    originals in place."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def build_payload(model: torch.nn.Module,
+                  optimizer: Optional[torch.optim.Optimizer] = None, *,
+                  epoch: int = 0, best_train_dice: float = 0.0,
+                  best_val_dice: float = 0.0,
+                  scheduler_state: Optional[dict] = None) -> Dict[str, Any]:
+    """The full training state as the reference's ``.pth`` dict, a
+    snapshot on the CPU."""
+    return {
+        "model": _to_cpu(model.state_dict()),
+        "optimizer": (_to_cpu(optimizer.state_dict())
+                      if optimizer is not None else None),
+        "scheduler_state": dict(scheduler_state or {}),
+        "epoch": int(epoch),
+        "best_train_dice": float(best_train_dice),
+        "best_val_dice": float(best_val_dice),
+    }
+
+
+def write_payload(path: str, payload: Dict[str, Any]) -> None:
+    """``torch.save`` into a temporary file beside ``path``, then rename:
+    a reader never sees a partial file."""
+    folder = os.path.dirname(path) or "."
+    os.makedirs(folder, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=folder, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            torch.save(payload, f)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def save_checkpoint(path: str, model: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None, *,
+                    epoch: int = 0, best_train_dice: float = 0.0,
+                    best_val_dice: float = 0.0,
+                    scheduler_state: Optional[dict] = None) -> None:
+    write_payload(path, build_payload(
+        model, optimizer, epoch=epoch, best_train_dice=best_train_dice,
+        best_val_dice=best_val_dice, scheduler_state=scheduler_state))
+
+
+def _reference_state_dict(payload: Any) -> Dict[str, torch.Tensor]:
+    """The model state dict of a ``.pth`` payload, bare or wrapped
     (``"model"`` key, or a pickled module), with ``module.`` stripped."""
-    # a full pickle, as the reference's loader reads it: its training
-    # checkpoints hold more than tensors (epochs, numpy scalars)
-    payload = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(payload, dict) and "model" in payload \
             and not any(k.endswith(".weight") for k in payload):
         payload = payload["model"]
@@ -58,24 +126,87 @@ def _reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
             for k, v in payload.items()}
 
 
-def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """Load the weights at ``path`` (``.pth`` or a JAX ``.ckpt``) into
-    ``model`` (VeloxSeg or U-RWKV) in place, strictly; returns ``model``."""
+def _model_state(path: str, payload: Any, model: torch.nn.Module
+                 ) -> Dict[str, torch.Tensor]:
     urwkv = isinstance(model, URWKV)
+    if path.endswith(".pth"):
+        dropped = _URWKV_DROPPED if urwkv else _VELOXSEG_DROPPED
+        return {k: v for k, v in _reference_state_dict(payload).items()
+                if not dropped.match(k)}
+    params = payload.get("params", payload) \
+        if isinstance(payload, dict) else payload
+    return (urwkv_state_dict_from_jax if urwkv
+            else state_dict_from_jax)(params)
+
+
+def _read(path: str) -> Any:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is an Orbax checkpoint directory; the port reads .pth "
-            "and .ckpt files (Orbax: ROADMAP.md §1 item 2)")
+            "and .ckpt files (Orbax needs orbax and tensorstore, which the "
+            "port does not use: ROADMAP.md §1 item 2)")
     if path.endswith(".pth"):
-        dropped = _URWKV_DROPPED if urwkv else _VELOXSEG_DROPPED
-        state = {k: v for k, v in _reference_state_dict(path).items()
-                 if not dropped.match(k)}
-    else:
-        with open(path, "rb") as f:
-            payload = msgpack_restore(f.read())
-        params = payload.get("params", payload) \
-            if isinstance(payload, dict) else payload
-        state = (urwkv_state_dict_from_jax if urwkv
-                 else state_dict_from_jax)(params)
-    model.load_state_dict(state, strict=True)
+        # a full pickle, as the reference's loader reads it: its training
+        # checkpoints hold more than tensors (epochs, numpy scalars)
+        return torch.load(path, map_location="cpu", weights_only=False)
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read())
+
+
+def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load the weights at ``path`` (``.pth`` or a JAX ``.ckpt``) into
+    ``model`` (VeloxSeg or U-RWKV) in place, strictly; returns ``model``."""
+    model.load_state_dict(_model_state(path, _read(path), model),
+                          strict=True)
     return model
+
+
+def _optimizer_state_from_jax(optimizer: torch.optim.Optimizer,
+                              model: torch.nn.Module, opt_state: dict,
+                              params: dict) -> dict:
+    """A ``torch.optim`` state dict for ``optimizer`` from a JAX optax
+    state: each parameter's state placed at its index in the optimizer."""
+    by_key = optimizer_state_from_jax(opt_state, params)
+    names = {id(p): k for k, p in model.named_parameters()}
+    state, index = {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if names[id(p)] in by_key:
+                state[index] = by_key[names[id(p)]]
+            index += 1
+    return {"state": state,
+            "param_groups": optimizer.state_dict()["param_groups"]}
+
+
+def load_checkpoint(path: str, model: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None
+                    ) -> Dict[str, Any]:
+    """Resume from a training checkpoint: the weights into ``model`` and
+    the optimizer's state into ``optimizer`` (where the file has one), in
+    place. Returns ``{epoch, best_train_dice, best_val_dice,
+    scheduler_state}``."""
+    payload = _read(path)
+    model.load_state_dict(_model_state(path, payload, model), strict=True)
+    if not isinstance(payload, dict):
+        payload = {}
+    if optimizer is not None:
+        if path.endswith(".pth"):
+            if payload.get("optimizer") is not None:
+                optimizer.load_state_dict(payload["optimizer"])
+        elif payload.get("opt_state") is not None:
+            optimizer.load_state_dict(_optimizer_state_from_jax(
+                optimizer, model, payload["opt_state"], payload["params"]))
+        # a state dict places its entries by position: each must fit its
+        # parameter (another model's order would not)
+        for group in optimizer.param_groups:
+            for p in group["params"]:
+                for k, v in optimizer.state.get(p, {}).items():
+                    if v.dim() and v.shape != p.shape:
+                        raise ValueError(
+                            f"{path}: optimizer state {k} of shape "
+                            f"{tuple(v.shape)} for a parameter of shape "
+                            f"{tuple(p.shape)}")
+    return {"epoch": int(payload.get("epoch", 0)),
+            "best_train_dice": float(payload.get("best_train_dice", 0.0)),
+            "best_val_dice": float(payload.get("best_val_dice", 0.0)),
+            "scheduler_state": dict(payload.get("scheduler_state") or {})}

@@ -70,6 +70,15 @@ class CompositeLoss:
             loss = loss + w * fused_ce_dice_loss(out, labels)
         return loss
 
+    def metric_outputs(self, output: Sequence[torch.Tensor]
+                       ) -> List[torch.Tensor]:
+        """The seg heads' logits for per-head metrics
+        (``veloxseg_tpu/train/loss.py:154-166``, reference
+        ``utils/train_autopet.py:246-254``): the output list without its
+        tail of reconstruction, student Gram and one teacher Gram per
+        modality."""
+        return list(output[:-(2 + self.num_modal)])
+
     def __call__(self, output: List[torch.Tensor], labels: torch.Tensor,
                  sr_labels: torch.Tensor) -> torch.Tensor:
         layout = veloxseg_output_layout(len(output), self.num_modal)

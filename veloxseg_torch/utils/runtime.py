@@ -1,13 +1,15 @@
 """Modality selection, dataset-glob checks and training-output bookkeeping.
 
-Own copies of ``veloxseg_tpu/utils/runtime.py:14-115`` (modality selection
-and file-group checks, the reference's ``utils/runtime.py:21-112``) and
-``:127-182`` (the reference's ``utils/runtime.py:125-174``), so the port
-needs nothing of the JAX package. All pure Python.
+Own copies of ``veloxseg_tpu/utils/runtime.py:14-116`` (modality selection,
+file-group checks and the rotation range, the reference's
+``utils/runtime.py:21-115``) and ``:127-182`` (the reference's
+``utils/runtime.py:125-174``), so the port needs nothing of the JAX
+package. All pure Python.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence
 
 
@@ -111,6 +113,10 @@ def validate_file_groups(dataset_name: str,
             f"Dataset {dataset_name} modalities/labels must have the same "
             f"number of files before pairing; got {details}.")
     return next(iter(unique))
+
+
+def rotation_range_from_degrees(degrees) -> float:
+    return math.radians(float(degrees))
 
 
 def normalized_deep_loss_weights(configured_weights: Sequence[float],
