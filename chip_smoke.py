@@ -7,7 +7,8 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
 
 1. require CUDA; print the card's name and power limit; TF32 off.
 2. build the CUDA kernels from ``veloxseg_torch/csrc`` (one nvcc each, in
-   parallel) and print the build seconds.
+   parallel; the bf16 forms' sources once more with ``-DVS_BF16``) and
+   print the build seconds.
 3. hold each kernel against its plain PyTorch version on the card at the
    shapes each main path gives it. AutoPET-II serving (a 4-tile batch of
    96³ tiles): K1 at the four PWA levels, at Hecktor's L = 512 and at the
@@ -41,7 +42,16 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    that ran is printed); for K4b's wgrad cuDNN's weight-only
    ``convolution_backward`` of each branch; no one PyTorch call computes
    the function of K4f, K4b, K5 or K6. Each path's calls per unit must
-   equal the launches its run makes (phases 4, 7, 9, 11).
+   equal the launches its run makes (phases 4, 7, 9, 11). Last, the bf16
+   forms on bf16 operands, at the trainer's shapes: K2f and K2b (p = 0.1)
+   at the four 96³ levels and K4f, K4b and its wgrad at the four JLC
+   levels, at B = 2 (phase 6's step) and B = 4 (phase 14's), each against
+   its bf16 plain version by the CPU tests' rule (at least 99% of the
+   elements bit for bit equal, the rest within 1 bf16 ulp but at most 0.1%
+   within 2^-8 of the largest magnitude), timed beside
+   its fp32 form on the same values, bounded with 2-byte elements and the
+   products of bf16 operands at the tensor cores' rate; the yardsticks in
+   bf16 (SDPA; cuDNN's weight-only ``convolution_backward``).
 4. build the AutoPET-II model (``config/models_config_autopetii.json``) at
    full width with seeded weights on the card; run the eval forward on a
    seeded (1, 96, 96, 96, 2) tile and hold it against the same model and
@@ -54,21 +64,28 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
 6. training at full AutoPET-II width, as published (``conv_drop`` 0.1,
    attention and projection dropout 0.1), B = 2
    (``config/train_config_bs4.json``: AdamW lr 2.5e-4, weight decay 0.01),
-   on one seeded synthetic batch whose labels threshold the PET channel: a
-   warm-up step, then 10 timed steps (ms per step, steps/s). The loss must
+   on one seeded synthetic batch whose labels threshold the PET channel,
+   in bf16 as the trainer steps and then in fp32: each a warm-up step,
+   then 10 timed steps (ms per step, steps/s, peak memory). The loss must
    be finite and fall; the launches per step must be K2f 4, K2b 4, K4f 13,
-   K4b 13 (each with its weight-gradient launches: wgrad 13) and no other.
-7. two steps with ``conv_drop`` 0, where stage 2 runs through its kernels:
-   K5f 13 and K5b 13 per step.
+   K4b 13 (each with its weight-gradient launches: wgrad 13), of the bf16
+   forms in bf16 and of the fp32 ones in fp32, and no other.
+7. two bf16 steps with ``conv_drop`` 0, where stage 2 runs through its
+   kernels, cast to fp32 at their edges: K5f 13 and K5b 13 per step.
 8. one step at full width, B = 1, every dropout 0, on the card and on the
    CPU from the same weights: the loss and every parameter's gradient
-   must agree (tolerance printed).
+   must agree (tolerance printed). Then the same step in bf16 on both,
+   held to ``chip_measure.STEP_BOUND`` relative to the CPU's own
+   bf16-to-fp32 distance (the bound the CPU test holds the bf16 step to
+   against the JAX one; printed).
 9. path A, training the 128³ flagship (``core/config.flagship_config``:
    bench.py's ``_flagship``, dropout at its defaults, ``conv_drop`` 0) at
-   bench.py's B = 16 with its loss weights and AdamW: a warm-up step, then
-   10 timed steps (ms per step, peak memory, the loss falling). Launches
-   per step: K2f 3, K2b 3, K3f 1, K3b 1, K4f, K4b (and its wgrad), K5f,
-   K5b 13 each, and they must equal phase 3's calls per step.
+   bench.py's B = 16 with its loss weights and AdamW, in bf16 and then in
+   fp32: a warm-up step, then 10 timed steps (ms per step, peak memory,
+   the loss falling). Launches per step: K2f 3, K2b 3, K3f 1, K3b 1, K4f,
+   K4b (and its wgrad), K5f, K5b 13 each (in bf16 the bf16 forms of K2 and
+   K4; K3 and K5 cast to fp32 at their edges), and the fp32 ones must
+   equal phase 3's calls per step.
 10. one flagship step at B = 1, every dropout 0, card against CPU, as 8.
 11. path B, U-RWKV (``load_model("U-RWKV", models_config_autopetii)``)
     with seeded weights: the forward of a seeded (4, 96, 96, 96, 2) batch
@@ -104,9 +121,10 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     paths, ``epochs`` (2), ``val_interval`` and ``save_model_interval`` (1)
     and the save and log paths: 2 epochs of 3 steps (B = 4: ``batch_size``
     2 × ``num_samples`` 2) with validation and checkpoints each; counts
-    zeroed before, read after: K2f, K2b, K4f, K4b and its wgrad per step
-    must be phase 6's, K1, K4f and K5f per validation batch phase 4's per
-    forward (phase 3 also times K2 and the JLC blocks at B = 4). Per epoch,
+    zeroed before, read after: the bf16 forms of K2f, K2b, K4f, K4b and its
+    wgrad per step must be phase 6's, K1, K4f and K5f per validation batch
+    (fp32) phase 4's per forward (phase 3 also times K2 and the JLC blocks
+    at B = 4). Per epoch,
     beside the card's name and power limit, a smoke reading (3 steps, so
     the first batch, checkpoints and validation weigh heavily): s, steps,
     the median step's stream span (CUDA events: the host's issue of the
@@ -115,8 +133,9 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     and rotation ran. Then: resume from ``0.pth`` (epoch 1 at the
     scheduler's learning rate, the optimizer's step count 3 → 6); serve
     the run's ``val_best.pth`` with ``cli.test_main`` on the 2 test cases;
-    one epoch from ``0.pth`` with every dropout 0 on the card and through
-    ``run_train(..., device="cpu")``: losses within 1e-4 relative, epoch
+    one epoch from ``0.pth`` with every dropout 0 and the steps forced to
+    fp32 on the card and through ``run_train(..., device="cpu")`` (phase 8
+    holds the bf16 step card against CPU): losses within 1e-4 relative, epoch
     dice within 2e-3, weights element by element within 0.25·lr where the
     CPU's gradient is real and 2·3·lr·1.1 where it is rounding noise.
     Last, the steady run: 100 cases (links to the 10), 2 epochs of 30
@@ -125,7 +144,8 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     batch, the trainer's own device ms per step and idle share from its
     ``profile_dir`` trace (steps 3-12), and the step outside the trainer,
     alone and beside a thread that drains the warm loader.
-15. print one ``{"kernels": [...]}`` line (with ``excess_ms``, each path's
+15. print the seconds of each phase, one ``{"kernels": [...]}`` line (a
+    row per kernel and per bf16 form, with ``excess_ms``, each path's
     launches × (ms − bound) per call at that path's own shapes, summed),
     the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -145,10 +165,13 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 # the timers, the card query and the bounds, shared with the bench tools
-from chip_measure import (FP32_FLOP_PER_S, HBM_BYTES_PER_S,  # noqa: E402
+from chip_measure import (HBM_BYTES_PER_S, STEP_BOUND,  # noqa: E402
                           bound, card as card_line, cuda_ms,
-                          eval_attention_work, sdpa_backend, stage2_bwd_work,
-                          stage2_fwd_work, train_attention_work, wkv_work)
+                          eval_attention_work, ops_ms, sdpa_backend,
+                          stage2_bwd_work, stage2_fwd_work,
+                          step_bound_violations, step_distances,
+                          train_attention_work, train_attention_work_bf16,
+                          wkv_work)
 
 
 def taps_in_bounds(s, k):
@@ -165,7 +188,9 @@ def max_err(got, ref):
 
 def checksum(t):
     """Short hash of a tensor's bytes: equal across runs iff bit-identical."""
-    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()[:16]
+    import torch
+    raw = t.detach().cpu().contiguous().view(torch.uint8)  # bf16 included
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()[:16]
 
 
 def require_close(name, got, ref, atol, rtol):
@@ -177,6 +202,45 @@ def require_close(name, got, ref, atol, rtol):
         raise AssertionError(
             f"{name}: {int(bad.sum())} values differ beyond atol {atol} "
             f"rtol {rtol}; max abs err {max_err(got, ref)[0]:.3e}")
+
+
+def bf16_ulps(got, ref):
+    """Elementwise distance of two bf16 tensors in units in the last place
+    (adjacent bf16 values 1 apart, +0 and −0 equal)."""
+    import torch
+
+    def key(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        mag = i & 0x7FFF
+        return torch.where(i < 0, -mag, mag)
+    return (key(got) - key(ref)).abs()
+
+
+def require_bf16_match(name, got, ref):
+    """A bf16 form against its bf16 plain version, by the rule the CPU tests
+    hold the plain versions to against the Pallas kernels
+    (``tests/torch_port_helpers.assert_bf16_match``): at least 99% of the
+    elements bit for bit equal, every other within 1 bf16 ulp but at most
+    0.1% of them, which may be further apart (a sum that cancels near 0, a
+    flip of a value rounded inside the function) within 2^-8 of the
+    tensor's largest magnitude. Returns (max abs err, share bit-equal)."""
+    import torch
+    if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: {got.dtype} vs {ref.dtype}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite kernel output")
+    d = bf16_ulps(got, ref)
+    equal = float((d == 0).double().mean())
+    far = d > 1
+    diff = (got.double() - ref.double()).abs()
+    gap = float(diff[far].max()) if bool(far.any()) else 0.0
+    floor = 2.0 ** -8 * float(ref.double().abs().max())
+    if not (equal >= 0.99 and float(far.double().mean()) <= 1e-3
+            and gap <= floor):
+        raise AssertionError(f"{name}: {equal:.4%} bit-equal, "
+                             f"{int(far.sum())} elements more than 1 ulp "
+                             f"apart by up to {gap:.3e} (floor {floor:.3e})")
+    return max_err(got.float(), ref.float()), equal
 
 
 def compare_grads(what, grads, step_losses):
@@ -823,7 +887,8 @@ def trainer_steady_run(card, zero_counts, counts, per_step, work, published,
             if len(batches) < 2:
                 batches.append(device_put(xy, dev))
         step = train_step_fn(CompositeLoss(cfg, state.model.cfg), dev,
-                             deep_metric_heads=True)
+                             deep_metric_heads=True,
+                             compute_dtype=torch.bfloat16)
         gen = torch.Generator(device=dev).manual_seed(0)
         alone = step_spans(step, state, batches, gen)
         th = threading.Thread(target=drain)
@@ -1007,7 +1072,10 @@ def trainer_cli_phase(card, zero_counts, counts, per_step, per_forward,
               f"{len(rows)} test cases: dice {dices} "
               f"({steps['serve']:.1f} s)", flush=True)
 
-        # card against CPU: one epoch from 0.pth, every dropout 0
+        # card against CPU: one epoch from 0.pth, every dropout 0, the
+        # steps forced to fp32 as tests/torch_port_helpers.run_both_trainers
+        # forces them (a bf16 epoch on the CPU is slow; phase 8 holds the
+        # bf16 step card against CPU)
         nodrop = dict(models, VeloxSeg=dict(
             models["VeloxSeg"], attn_drop=0.0, proj_drop=0.0, conv_drop=0.0,
             drop_path=0.0))
@@ -1016,7 +1084,7 @@ def trainer_cli_phase(card, zero_counts, counts, per_step, per_forward,
         step_fn = trainer.train_step_fn
 
         def recording(*a, **kw):
-            inner = step_fn(*a, **kw)
+            inner = step_fn(*a, **dict(kw, compute_dtype=None))
 
             def step(state, x, y, gen):
                 state, aux = inner(state, x, y, gen)
@@ -1066,7 +1134,7 @@ def trainer_cli_phase(card, zero_counts, counts, per_step, per_forward,
             "trainer card vs CPU", cmp["cuda"]["weights"],
             cmp["cpu"]["weights"], grad_max, want_lr, 3)
         print(f"[14] trainer card vs CPU (one epoch from 0.pth, dropout 0, "
-              f"3 steps + validation): losses {[f'{v:.6f}' for v in card_l]}"
+              f"steps forced to fp32, 3 steps + validation): losses {[f'{v:.6f}' for v in card_l]}"
               f" vs {[f'{v:.6f}' for v in cpu_l]} (max rel {loss_rel:.2e}, "
               f"tol 1e-4) | train dice {cmp['cuda']['train_dice']:.5f} vs "
               f"{cmp['cpu']['train_dice']:.5f}, val dice "
@@ -1121,6 +1189,14 @@ def main() -> int:
                                                   train_step_fn)
 
     # -- phase 1 ------------------------------------------------------------
+    phase_s, t_lap = {}, [time.perf_counter()]
+
+    def lap(k):
+        """Seconds of phase ``k``, from the end of the one before."""
+        now = time.perf_counter()
+        phase_s[k] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1134,9 +1210,10 @@ def main() -> int:
     # -- phase 2 ------------------------------------------------------------
     t0 = time.perf_counter()
     _cuda.build_all()
-    for name in _cuda.SOURCES:
-        _cuda.lib(name)
-    print(f"[2] built {len(_cuda.SOURCES)} kernel libraries in "
+    for name, (source, _) in _cuda.LIBRARIES.items():
+        _cuda.lib(source, torch.bfloat16 if name.endswith("_bf16")
+                  else torch.float32)
+    print(f"[2] built {len(_cuda.LIBRARIES)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     report = {"card": card, "shapes": []}
@@ -1157,6 +1234,7 @@ def main() -> int:
     fcfg = flagship_config()                     # bench.py's 128³ model
     big_batch = 16                               # bench.py's B
 
+    lap(2)
     # -- phase 3: K1 ----------------------------------------------------------
     def k1_shapes(cfg, levels, tiles=tiles):
         size = [s // cfg["patch_size"] for s in cfg["input_size"]]
@@ -1182,12 +1260,14 @@ def main() -> int:
     units, errs = {}, {}
 
     def record(kname, shape_name, weight, n_bytes, n_flop, err, ms,
-               plain_ms, library_ms, unit="serving"):
+               plain_ms, library_ms, unit="serving", tc_flop=0):
         """``weight``: calls per ``unit`` at this shape (0: checked and
-        timed, but in no unit's sums)."""
-        b_ms, b_by = bound(n_bytes, n_flop)
+        timed, but in no unit's sums); ``tc_flop``: products of bf16
+        operands, bounded at the tensor cores' rate."""
+        b_ms, b_by = bound(n_bytes, n_flop, tc_flop)
         row = dict(kernel=kname, shape=shape_name, unit=unit,
                    calls_per_unit=weight, bytes=n_bytes, flop=n_flop,
+                   tc_flop=tc_flop,
                    max_abs_err=err[0], max_rel_err=err[1], ms=ms,
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=library_ms)
@@ -1208,7 +1288,7 @@ def main() -> int:
         acc["plain"] += weight * plain_ms
         acc["bound"] += weight * b_ms
         acc["tb"] += weight * n_bytes / HBM_BYTES_PER_S * 1e3
-        acc["to"] += weight * n_flop / FP32_FLOP_PER_S * 1e3
+        acc["to"] += weight * ops_ms(n_flop, tc_flop)
         if library_ms is not None:
             acc["lib"] = (acc["lib"] or 0.0) + weight * library_ms
 
@@ -1270,7 +1350,8 @@ def main() -> int:
         do = randn(b, h, n, cv, L)
         scale = 1.0 / cqk ** 0.5
         qkvb = (q, k, v, bias, seed)
-        got, lse = saved = fwd(*qkvb, scale, p_drop)
+        got, lse, out32 = fwd(*qkvb, scale, p_drop)
+        saved = (out32, lse)
         require_close(f"{tag}f {name} lse", lse,
                       pa.train_lse_plain(q, k, bias, scale), atol=1e-5,
                       rtol=1e-5)
@@ -1561,11 +1642,211 @@ def main() -> int:
                max_err(got, ref), cuda_ms(lambda: wkv.wkv(w6, u6, k6, v6)),
                cuda_ms(lambda: wkv.wkv_plain(w6, u6, k6, v6), 5), None,
                "urwkv_serving")
+    # -- phase 3: the bf16 forms, on the operands the trainer's steps pass --
+    bf = torch.bfloat16
+    vs_fp32 = {}     # (kernel, shape): (bf16 ms, the fp32 form's ms)
+
+    def train_attention_bf16(name, b, h, n, cqk, cv, L, weight, unit):
+        """K2f and K2b on bf16 q, k, v, dO (bias fp32) at p = 0.1 against
+        their bf16 plain versions, timed beside SDPA in bf16 and beside
+        the fp32 forms on the same values."""
+        pa = pwa_attention
+        q, k = randn(b, h, n, cqk, L).to(bf), randn(b, h, n, cqk, L).to(bf)
+        v, do = randn(b, h, n, cv, L).to(bf), randn(b, h, n, cv, L).to(bf)
+        bias = randn(h, L, L, scale=0.5)
+        scale = 1.0 / cqk ** 0.5
+        qkvb = (q, k, v, bias, seed)
+        out, lse, out32 = pa.window_attention_train_fwd(*qkvb, scale, p_drop)
+        require_close(f"K2f bf16 {name} lse", lse,
+                      pa.train_lse_plain(q, k, bias, scale), atol=1e-5,
+                      rtol=1e-5)
+        ref = pa.window_attention_train_fwd_plain(*qkvb, scale, p_drop)
+        torch.cuda.synchronize()
+        err_f, equal = require_bf16_match(f"K2f bf16 {name}", out, ref)
+        del ref
+        q4, k4, v4, do4 = (t.permute(0, 2, 1, 4, 3).reshape(b * n, h, L, -1)
+                           .contiguous() for t in (q, k, v, do))
+        bias4 = bias.to(bf)
+        for t in (q4, k4, v4, bias4):
+            t.requires_grad_()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q4, k4, v4, bias4[None], dropout_p=p_drop, scale=scale)
+        with torch.no_grad():
+            lib_f = cuda_ms(sdpa, 5)
+            backend = sdpa_backend(sdpa)
+        y4 = sdpa()
+
+        def sdpa_bwd():
+            return torch.autograd.grad(y4, (q4, k4, v4, bias4), do4,
+                                       retain_graph=True)
+        lib_b = cuda_ms(sdpa_bwd, 5)
+        del y4, q4, k4, v4, do4, bias4
+        backends[f"K2 bf16 {name}"] = backend
+        work_f, work_b = train_attention_work_bf16(b, h, n, cqk, cv, L)
+        ms_f = cuda_ms(lambda: pa.window_attention_train_fwd(
+            *qkvb, scale, p_drop))
+        record("pwa_attention_train_fwd_bf16", name, weight, *work_f[:2],
+               err_f, ms_f,
+               cuda_ms(lambda: pa.window_attention_train_fwd_plain(
+                   *qkvb, scale, p_drop), 5), lib_f, unit, work_f[2])
+
+        grads = pa.window_attention_train_bwd(*qkvb, do, scale, p_drop, out32,
+                                              lse)
+        again = pa.window_attention_train_bwd(*qkvb, do, scale, p_drop, out32,
+                                              lse)
+        refs = pa.window_attention_train_bwd_plain(*qkvb, do, scale, p_drop)
+        torch.cuda.synchronize()
+        gerrs = [require_bf16_match(f"K2b bf16 {name} {gname}", g, r)[0]
+                 for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)]
+        top = float(refs[3].abs().max())
+        require_close(f"K2b bf16 {name} dbias", grads[3], refs[3],
+                      atol=1e-4 * top, rtol=1e-4)
+        gerrs.append(max_err(grads[3], refs[3]))
+        for gname, g, g2 in zip(("dq", "dk", "dv", "dbias"), grads, again):
+            if not torch.equal(g, g2):
+                raise AssertionError(f"K2b bf16 {name}: {gname} differs "
+                                     f"between calls")
+        sums[f"K2b bf16 {name} dbias"] = checksum(grads[3])
+        del grads, again, refs
+        ms_b = cuda_ms(lambda: pa.window_attention_train_bwd(
+            *qkvb, do, scale, p_drop, out32, lse))
+        record("pwa_attention_train_bwd_bf16", name, weight, *work_b[:2],
+               (max(e[0] for e in gerrs), max(e[1] for e in gerrs)), ms_b,
+               cuda_ms(lambda: pa.window_attention_train_bwd_plain(
+                   *qkvb, do, scale, p_drop), 5), lib_b, unit, work_b[2])
+        # the fp32 forms on the same values
+        qkvb32 = (q.float(), k.float(), v.float(), bias, seed)
+        do32 = do.float()
+        o32, l32, _ = pa.window_attention_train_fwd(*qkvb32, scale, p_drop)
+        vs_fp32[f"K2f {name}"] = (ms_f, cuda_ms(
+            lambda: pa.window_attention_train_fwd(*qkvb32, scale, p_drop)))
+        vs_fp32[f"K2b {name}"] = (ms_b, cuda_ms(
+            lambda: pa.window_attention_train_bwd(*qkvb32, do32, scale,
+                                                  p_drop, o32, l32)))
+        print(f"[3] K2 bf16 {name}: out {equal:.4%} bit-equal to the plain "
+              f"version | fwd {ms_f:.4f} ms (fp32 form "
+              f"{vs_fp32[f'K2f {name}'][1]:.4f}), bwd {ms_b:.4f} ms (fp32 "
+              f"form {vs_fp32[f'K2b {name}'][1]:.4f}) | SDPA bf16 backend "
+              f"{backend}", flush=True)
+        del out, lse, out32, o32, l32
+        torch.cuda.empty_cache()
+
+    def jlc_bf16_cases(tag, jcfg, b, unit, weights):
+        """K4f, K4b and its wgrad on bf16 x, g and weights at the four JLC
+        levels against their bf16 plain versions (the wgrad on the
+        kernel's own dy), timed beside the fp32 forms on the same values;
+        the wgrad's yardstick cuDNN's bf16 weight-only
+        ``convolution_backward``."""
+        spatial0 = jcfg["input_size"][0] // jcfg["patch_size"]
+        for i in range(4):
+            c = jcfg["base_ch"] * 2 ** i
+            s = spatial0 // 2 ** i
+            groups = c // jcfg["min_dim_group"][i]
+            cg = c // groups
+            name, weight = f"{tag}L{i}", weights[i]
+            x, g = randn(b, c, s, s, s).to(bf), randn(b, c, s, s, s).to(bf)
+            ws = [randn(c, cg, k, k, k, scale=(2.0 / (cg * k ** 3)) ** 0.5)
+                  .to(bf) for k in (1, 3, 5)]
+            bs = [randn(c, scale=0.1).to(bf) for _ in ws]
+            x32, g32 = x.float(), g.float()
+            ws32, bs32 = [w.float() for w in ws], [t.float() for t in bs]
+            vox = b * c * s ** 3
+            w_numel = sum(w.numel() for w in ws)
+            conv_flop = 2 * b * c * cg * sum(taps_in_bounds(s, k) ** 3
+                                             for k in (1, 3, 5))
+            with torch.inference_mode():
+                out1 = fused_jlc.jlc_stage1(x, ws, bs, groups)
+                ref1 = fused_jlc.jlc_stage1_plain(x, ws, bs, groups)
+                torch.cuda.synchronize()
+                err1, equal = require_bf16_match(f"K4f bf16 {name}", out1,
+                                                 ref1)
+                del out1, ref1
+                ms4f = cuda_ms(lambda: fused_jlc.jlc_stage1(x, ws, bs,
+                                                            groups))
+                record("jlc_stage1_bf16", name, weight,
+                       2 * (2 * vox + w_numel), 9 * 3 * vox + vox, err1,
+                       ms4f, cuda_ms(lambda: fused_jlc.jlc_stage1_plain(
+                           x, ws, bs, groups), 5), None, unit, conv_flop)
+                vs_fp32[f"K4f {name}"] = (ms4f, cuda_ms(
+                    lambda: fused_jlc.jlc_stage1(x32, ws32, bs32, groups)))
+
+            dy, dws = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
+            _, again = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
+            ref_dy, _ = fused_jlc.jlc_stage1_bwd_plain(x, ws, g, groups)
+            ref_w = fused_jlc.jlc_branch_wgrad_plain(x, dy, ws, groups)
+            torch.cuda.synchronize()
+            errs4 = [require_bf16_match(f"K4b bf16 {name} dy", dy,
+                                        ref_dy)[0]]
+            for k, a, r in zip((1, 3, 5), dws, ref_w):
+                errs4.append(require_bf16_match(f"K4b bf16 {name} dW{k}", a,
+                                                r)[0])
+            for k, a, a2 in zip((1, 3, 5), dws, again):
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"K4b bf16 {name}: dW{k} differs "
+                                         f"between calls")
+                sums[f"K4b bf16 {name} dW{k}"] = checksum(a)
+            del again, ref_dy, ref_w
+            err4 = (max(e[0] for e in errs4), max(e[1] for e in errs4))
+            ms4b = cuda_ms(lambda: fused_jlc.jlc_stage1_bwd(x, ws, g, groups))
+            record("jlc_stage1_bwd_bf16", name, weight,
+                   2 * (2 * vox + w_numel + 3 * vox + w_numel),
+                   19 * 3 * vox, err4, ms4b,
+                   cuda_ms(lambda: fused_jlc.jlc_stage1_bwd_plain(
+                       x, ws, g, groups), 5), None, unit, 2 * conv_flop)
+            vs_fp32[f"K4b {name}"] = (ms4b, cuda_ms(
+                lambda: fused_jlc.jlc_stage1_bwd(x32, ws32, g32, groups)))
+            got = fused_jlc.jlc_branch_wgrad(x, dy, ws, groups)
+            torch.cuda.synchronize()
+            for k, a, r in zip((1, 3, 5), got, dws):
+                if not torch.equal(a, r):
+                    raise AssertionError(f"K4b bf16 wgrad {name}: dW{k} "
+                                         f"differs from K4b's")
+            del got
+
+            def cudnn_wgrad():
+                for w, dyj in zip(ws, dy):
+                    torch.ops.aten.convolution_backward(
+                        dyj, x, w, None, [1, 1, 1], [w.shape[-1] // 2] * 3,
+                        [1, 1, 1], False, [0, 0, 0], groups,
+                        [False, True, False])
+            msw = cuda_ms(lambda: fused_jlc.jlc_branch_wgrad(x, dy, ws,
+                                                             groups))
+            record("jlc_branch_wgrad_bf16", name, weight,
+                   2 * (vox + 3 * vox + w_numel), 0,
+                   (max(e[0] for e in errs4[1:]),
+                    max(e[1] for e in errs4[1:])), msw,
+                   cuda_ms(lambda: fused_jlc.jlc_branch_wgrad_plain(
+                       x, dy, ws, groups), 5), cuda_ms(cudnn_wgrad, 5), unit,
+                   conv_flop)
+            dy32 = dy.float()
+            vs_fp32[f"wgrad {name}"] = (msw, cuda_ms(
+                lambda: fused_jlc.jlc_branch_wgrad(x32, dy32, ws32, groups)))
+            print(f"[3] K4 bf16 {name}: out1 {equal:.4%} bit-equal to the "
+                  f"plain version | K4f {ms4f:.4f} ms (fp32 form "
+                  f"{vs_fp32[f'K4f {name}'][1]:.4f}), K4b {ms4b:.4f} ms "
+                  f"(fp32 form {vs_fp32[f'K4b {name}'][1]:.4f}), wgrad "
+                  f"{msw:.4f} ms (fp32 form "
+                  f"{vs_fp32[f'wgrad {name}'][1]:.4f})", flush=True)
+            del dy, dws, dy32
+            torch.cuda.empty_cache()
+
+    # the AutoPET-II train step (B = 2, phase 6) and the trainer's (B = 4,
+    # phase 14): K2 at every level, the JLC blocks at their calls per step
+    for bb, unit in ((batch, "train_96_bf16"),
+                     (2 * batch, "train_96_b4_bf16")):
+        for name, b, h, n, cqk, cv, L in k1_shapes(cfg_dict, range(4), bb):
+            train_attention_bf16(f"B{bb}_{name}", b, h, n, cqk, cv, L, 1,
+                                 unit)
+        jlc_bf16_cases(f"B{bb}_", cfg_dict, bb, unit, (4, 4, 4, 1))
+    report["bf16_vs_fp32_ms"] = vs_fp32
     print(f"[3] bit-identical on repeat; checksums {json.dumps(sums)}",
           flush=True)
     report["checksums"] = sums
     report["sdpa_backends"] = backends
 
+    lap(3)
     # -- phase 4: full-width eval forward, card vs CPU -----------------------
     serving = {"pwa_attention": pwa_attention.window_attention,
                "jlc_stage1": fused_jlc.jlc_stage1,
@@ -1581,13 +1862,19 @@ def main() -> int:
         "jlc_branch_wgrad": fused_jlc.jlc_branch_wgrad,
         "jlc_stage2_bwd": fused_jlc.jlc_stage2_bwd,
         "wkv": wkv.wkv})
+    # each kernel's count: its wrapper's ``launches`` (the fp32 form) or,
+    # for the bf16 forms, ``launches_bf16``
+    counters = {n: (w, "launches") for n, w in wrappers.items()}
+    counters.update({f"{n}_bf16": (wrappers[n], "launches_bf16") for n in (
+        "pwa_attention_train_fwd", "pwa_attention_train_bwd", "jlc_stage1",
+        "jlc_stage1_bwd", "jlc_branch_wgrad")})
 
     def zero_counts():
-        for w in wrappers.values():
-            w.launches = 0
+        for w, attr in counters.values():
+            setattr(w, attr, 0)
 
     def counts():
-        return {n: w.launches for n, w in wrappers.items()}
+        return {n: getattr(w, attr) for n, (w, attr) in counters.items()}
 
     model, cfg = build_veloxseg(cfg_dict, device="cuda", seed=0)
     x96 = torch.randn(1, 96, 96, 96, 2, generator=torch.Generator()
@@ -1627,6 +1914,7 @@ def main() -> int:
                              launches_per_forward=per_forward)
     del cpu_model, y_cpu
 
+    lap(4)
     # -- phase 5: sliding-window inference (the serving path) ----------------
     vol = torch.randn(1, 192, 192, 192, 2,
                       generator=torch.Generator().manual_seed(2))
@@ -1663,6 +1951,7 @@ def main() -> int:
     report["sliding_window"] = dict(wall_s=sw_s, volumes_per_s=1.0 / sw_s,
                                     launches=launches, region_err=sw_err)
 
+    lap(5)
     # -- phase 6: the train step, full width, as published -----------------
     del model, first, seg
     loss_obj = CompositeLoss(train_cfg, cfg)
@@ -1677,7 +1966,7 @@ def main() -> int:
     def train_run(what, state, step, x_dev, y_dev, n_steps, want):
         """``n_steps`` timed steps after the counts are zeroed: (state,
         losses, ms per step, launches per step); the launches must be
-        ``want`` (0 for the wrappers not named)."""
+        ``want`` (0 for the kernels not named)."""
         losses = []
         torch.cuda.synchronize()
         zero_counts()
@@ -1689,7 +1978,7 @@ def main() -> int:
         ms = (time.perf_counter() - t0) * 1e3 / n_steps
         got = counts()
         per_step = {n: c / n_steps for n, c in got.items()}
-        full = {n: want.get(n, 0) for n in wrappers}
+        full = {n: want.get(n, 0) for n in counters}
         if per_step != full:
             raise AssertionError(f"{what}: launches per step {per_step}, "
                                  f"want {full}")
@@ -1703,68 +1992,100 @@ def main() -> int:
                      generator=torch.Generator().manual_seed(3))
     yb = (xb[..., 0] > 1.0).long()            # PET channel above 1 σ
     xb_dev, yb_dev = xb.to(dev), yb.to(dev)
-    step = train_step_fn(loss_obj)            # on the card
-    state = make_state(cfg_dict, "cuda", 0)
+    # on the card; bf16 as the trainer steps, and fp32
+    steps = {"bf16": train_step_fn(loss_obj, compute_dtype=torch.bfloat16),
+             "fp32": train_step_fn(loss_obj)}
     gen_dev = torch.Generator(device=dev).manual_seed(4)
-    torch.cuda.reset_peak_memory_stats()
-    state, aux = step(state, xb_dev, yb_dev, gen_dev)     # warm-up, step 1
-    first_loss = float(aux["loss"])
-    want = {"jlc_stage1": 13, "pwa_attention_train_fwd": 4,
-            "pwa_attention_train_bwd": 4, "jlc_stage1_bwd": 13,
-            "jlc_branch_wgrad": 13}
-    state, losses, step_ms, train_launches, per_step = train_run(
-        "AutoPET-II train", state, step, xb_dev, yb_dev, 10, want)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [first_loss] + losses
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"train losses not falling: {losses}")
-    print(f"[6] AutoPET-II train step (B={batch}, 96³, fp32, conv_drop "
-          f"{cfg_dict['conv_drop']}): {step_ms:.3f} ms/step, "
-          f"{1e3 / step_ms:.3f} steps/s over 10 steps, peak "
-          f"{peak_gb:.2f} GB | loss step 1 {losses[0]:.5f} -> step 11 "
-          f"{losses[-1]:.5f} | launches per step {per_step}", flush=True)
-    report["train"] = dict(batch=batch, ms_per_step=step_ms,
-                           steps_per_s=1e3 / step_ms, peak_gb=peak_gb,
-                           losses=losses, launches_per_step=per_step)
-    del state
+    want32 = {"jlc_stage1": 13, "pwa_attention_train_fwd": 4,
+              "pwa_attention_train_bwd": 4, "jlc_stage1_bwd": 13,
+              "jlc_branch_wgrad": 13}
+    wants = {"bf16": {f"{n}_bf16": c for n, c in want32.items()},
+             "fp32": want32}
+    runs6 = {}
+    for dt in ("bf16", "fp32"):
+        state = make_state(cfg_dict, "cuda", 0)
+        torch.cuda.reset_peak_memory_stats()
+        state, aux = steps[dt](state, xb_dev, yb_dev, gen_dev)  # warm-up
+        first_loss = float(aux["loss"])
+        state, losses, step_ms, got, per = train_run(
+            f"AutoPET-II train {dt}", state, steps[dt], xb_dev, yb_dev, 10,
+            wants[dt])
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [first_loss] + losses
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train losses ({dt}) not falling: "
+                                 f"{losses}")
+        runs6[dt] = dict(batch=batch, ms_per_step=step_ms,
+                         steps_per_s=1e3 / step_ms, peak_gb=peak_gb,
+                         losses=losses, launches_per_step=per, launches=got)
+        print(f"[6] AutoPET-II train step (B={batch}, 96³, {dt}, conv_drop "
+              f"{cfg_dict['conv_drop']}): {step_ms:.3f} ms/step, "
+              f"{1e3 / step_ms:.3f} steps/s over 10 steps, peak "
+              f"{peak_gb:.2f} GB | loss step 1 {losses[0]:.5f} -> step 11 "
+              f"{losses[-1]:.5f} | launches per step {per}", flush=True)
+        del state
+    step = steps["bf16"]
+    want = wants["bf16"]
+    per_step = runs6["bf16"]["launches_per_step"]
+    train_launches = runs6["bf16"].pop("launches")
+    train32_launches = runs6["fp32"].pop("launches")
+    print(f"[6] bf16 step / fp32 step: "
+          f"{runs6['bf16']['ms_per_step'] / runs6['fp32']['ms_per_step']:.3f}"
+          f" of the time, {runs6['bf16']['peak_gb']:.2f} / "
+          f"{runs6['fp32']['peak_gb']:.2f} GB peak", flush=True)
+    report["train"] = runs6
 
+    lap(6)
     # -- phase 7: conv_drop 0, stage 2 through K5f/K5b ---------------------
+    # in bf16, as the trainer steps: K5 runs cast to fp32 at its edges
     state = make_state(dict(cfg_dict, conv_drop=0.0), "cuda", 0)
-    want0 = dict(want, jlc_stage2=13, jlc_stage2_bwd=13)
+    k5 = {"jlc_stage2": 13, "jlc_stage2_bwd": 13}
+    want0 = dict(want, **k5)
     state, _, step0_ms, nodrop_launches, per_step0 = train_run(
         "AutoPET-II conv_drop 0", state, step, xb_dev, yb_dev, 2, want0)
-    print(f"[7] conv_drop 0: {step0_ms:.3f} ms/step (2 steps) | launches "
-          f"per step {per_step0}", flush=True)
+    print(f"[7] conv_drop 0, bf16 (K5f, K5b cast to fp32 at their edges): "
+          f"{step0_ms:.3f} ms/step (2 steps) | launches per step "
+          f"{per_step0}", flush=True)
     report["train_conv_drop0"] = dict(ms_per_step=step0_ms,
                                       launches_per_step=per_step0)
     del state
-    # phase 3's calls per train step match these runs
-    weights = {n: a["calls"] for n, a in units["train_96"].items()}
-    if weights != want0:
-        raise AssertionError(f"phase-3 calls per step {weights} differ from "
-                             f"the launches per step {want0}")
+    # phase 3's calls per train step match these runs: the bf16 forms' and
+    # K5's (the fp32 kernels the bf16 step runs), and the fp32 forms'
+    weights = {n: a["calls"] for n, a in units["train_96_bf16"].items()}
+    weights.update({n: units["train_96"][n]["calls"] for n in k5})
+    weights32 = {n: a["calls"] for n, a in units["train_96"].items()}
+    if weights != want0 or weights32 != dict(want32, **k5):
+        raise AssertionError(f"phase-3 calls per step {weights}, "
+                             f"{weights32} differ from the launches per "
+                             f"step {want0}, {dict(want32, **k5)}")
 
+    lap(7)
     # -- phase 8: one train step, card vs CPU, dropout off -----------------
     nodrop = dict(cfg_dict, attn_drop=0.0, proj_drop=0.0, conv_drop=0.0,
                   drop_path=0.0)
 
-    def card_vs_cpu(what, model_cfg, loss, xs, ys, seed):
-        grads, step_losses = [], []
-        for device in ("cuda", "cpu"):
-            st = make_state(model_cfg, device, seed)
-            t0 = time.perf_counter()
-            st, aux = train_step_fn(loss, device=device)(st, xs, ys, None)
-            step_losses.append(float(aux["loss"]))
-            if device == "cpu":
-                cpu_step_s = time.perf_counter() - t0
-            grads.append({k: p.grad.detach().cpu()
-                          for k, p in st.model.named_parameters()})
-            del st
-        out = compare_grads(what, grads, step_losses)
-        out["cpu_step_s"] = cpu_step_s
-        return out
+    def one_step(model_cfg, loss, xs, ys, seed, device, dtype=None):
+        """(loss, {key: gradient on the CPU}, s) of one step from seeded
+        weights."""
+        st = make_state(model_cfg, device, seed)
+        t0 = time.perf_counter()
+        st, aux = train_step_fn(loss, device=device, compute_dtype=dtype)(
+            st, xs, ys, None)
+        step_loss = float(aux["loss"])
+        step_s = time.perf_counter() - t0
+        return step_loss, {k: p.grad.detach().cpu()
+                           for k, p in st.model.named_parameters()}, step_s
 
-    r8 = card_vs_cpu("AutoPET-II", nodrop, loss_obj, xb[:1], yb[:1], 5)
+    def card_vs_cpu(what, model_cfg, loss, xs, ys, seed):
+        runs = [one_step(model_cfg, loss, xs, ys, seed, d)
+                for d in ("cuda", "cpu")]
+        out = compare_grads(what, [r[1] for r in runs],
+                            [r[0] for r in runs])
+        out["cpu_step_s"] = runs[1][2]
+        return out, runs[1]
+
+    r8, cpu32 = card_vs_cpu("AutoPET-II", nodrop, loss_obj, xb[:1], yb[:1],
+                            5)
     print(f"[8] train step card vs CPU (B=1, dropout 0): loss "
           f"{r8['losses'][0]:.6f} vs {r8['losses'][1]:.6f} (rel "
           f"{r8['loss_rel']:.2e}, tol 1e-5) | {r8['n_grads']} gradients "
@@ -1773,9 +2094,34 @@ def main() -> int:
           f"{r8['worst_param']} at {r8['worst_ratio']:.3f} of it | CPU step "
           f"{r8['cpu_step_s']:.1f} s", flush=True)
     report["train_vs_cpu"] = r8
+    # the same step in bf16, card against CPU, held by the bound the CPU
+    # test holds the bf16 step to against the JAX one, derived here from
+    # the CPU's own bf16-to-fp32 distance (chip_measure.step_distances)
+    card16, cpu16 = (one_step(nodrop, loss_obj, xb[:1], yb[:1], 5, d,
+                              torch.bfloat16) for d in ("cuda", "cpu"))
+    d8 = step_distances(card16[:2], cpu16[:2], cpu32[:2])
+    bad = step_bound_violations(d8)
+    if bad:
+        raise AssertionError(f"bf16 train step card vs CPU outside the "
+                             f"bound {STEP_BOUND} in {bad}: {d8}")
+    print(f"[8] bf16 train step card vs CPU (B=1, dropout 0): loss "
+          f"{card16[0]:.6f} vs {cpu16[0]:.6f} (CPU fp32 {cpu32[0]:.6f}) | "
+          f"relative to the CPU's bf16-to-fp32 distance: loss "
+          f"{d8['loss']:.4f} (bound <= {STEP_BOUND['loss']}), all "
+          f"gradients to the CPU's bf16 {d8['grads_to_bf16']:.4f} (<= "
+          f"{STEP_BOUND['grads_to_bf16']}) and to its fp32 "
+          f"{d8['grads_to_fp32']:.4f} (>= {STEP_BOUND['grads_to_fp32']}), "
+          f"worst tensor {d8['tensor_to_bf16']:.4f} (<= "
+          f"{STEP_BOUND['tensor_to_bf16']}, {d8['tensor']}) | CPU bf16 step "
+          f"{cpu16[2]:.1f} s", flush=True)
+    report["train_vs_cpu_bf16"] = dict(d8, cpu_step_s=cpu16[2],
+                                       losses=[card16[0], cpu16[0],
+                                               cpu32[0]])
+    del card16, cpu16, cpu32
     del xb_dev, yb_dev
     torch.cuda.empty_cache()
 
+    lap(8)
     # -- phase 9: path A, the 128³ flagship train step, B = 16 -------------
     xf = torch.randn(big_batch, 128, 128, 128, 2,
                      generator=torch.Generator().manual_seed(6))
@@ -1783,43 +2129,68 @@ def main() -> int:
     xf_dev, yf_dev = xf.to(dev), yf.to(dev)
     # bench.py:146-151: the same loss weights and AdamW as train_cfg's
     flag_loss = CompositeLoss(train_cfg, fcfg)
-    flag_step = train_step_fn(flag_loss)
-    state = make_state(fcfg, "cuda", 0)
-    torch.cuda.reset_peak_memory_stats()
-    state, aux = flag_step(state, xf_dev, yf_dev, gen_dev)   # warm-up
-    first_loss = float(aux["loss"])
     want_f = {"jlc_stage1": 13, "jlc_stage2": 13, "jlc_stage1_bwd": 13,
               "jlc_branch_wgrad": 13, "jlc_stage2_bwd": 13,
               "pwa_attention_train_fwd": 3,
               "pwa_attention_train_bwd": 3,
               "pwa_attention_train_fwd_long": 1,
               "pwa_attention_train_bwd_long": 1}
-    state, f_losses, flag_ms, flag_launches, flag_per_step = train_run(
-        "flagship train", state, flag_step, xf_dev, yf_dev, 10, want_f)
-    flag_peak = torch.cuda.max_memory_allocated() / 1e9
-    f_losses = [first_loss] + f_losses
-    if not f_losses[-1] < f_losses[0]:
-        raise AssertionError(f"flagship losses not falling: {f_losses}")
-    # phase 3's calls per flagship step match the run
+    # in bf16, K3f, K3b, K5f and K5b run cast to fp32 at their edges (no
+    # bf16 form yet), so they count as their fp32 forms
+    edge_cast = ("jlc_stage2", "jlc_stage2_bwd",
+                 "pwa_attention_train_fwd_long",
+                 "pwa_attention_train_bwd_long")
+    want_fs = {"bf16": {(n if n in edge_cast else f"{n}_bf16"): c
+                        for n, c in want_f.items()}, "fp32": want_f}
+    runs9 = {}
+    for dt, cdt in (("bf16", torch.bfloat16), ("fp32", None)):
+        flag_step = train_step_fn(flag_loss, compute_dtype=cdt)
+        state = make_state(fcfg, "cuda", 0)
+        torch.cuda.reset_peak_memory_stats()
+        state, aux = flag_step(state, xf_dev, yf_dev, gen_dev)  # warm-up
+        first_loss = float(aux["loss"])
+        state, f_losses, flag_ms, got, flag_per_step = train_run(
+            f"flagship train {dt}", state, flag_step, xf_dev, yf_dev, 10,
+            want_fs[dt])
+        flag_peak = torch.cuda.max_memory_allocated() / 1e9
+        f_losses = [first_loss] + f_losses
+        if not f_losses[-1] < f_losses[0]:
+            raise AssertionError(f"flagship losses ({dt}) not falling: "
+                                 f"{f_losses}")
+        runs9[dt] = dict(
+            batch=big_batch, ms_per_step=flag_ms, steps_per_s=1e3 / flag_ms,
+            peak_gb=flag_peak, losses=f_losses,
+            launches_per_step=flag_per_step, launches=got)
+        print(f"[9] flagship train step (bench.py's 128³, B={big_batch}, "
+              f"{dt}, attn/proj dropout {fcfg.attn_drop}, conv_drop "
+              f"{fcfg.conv_drop}): {flag_ms:.3f} ms/step, "
+              f"{1e3 / flag_ms:.4f} steps/s, "
+              f"{big_batch * 1e3 / flag_ms:.3f} volumes/s over 10 steps, "
+              f"peak {flag_peak:.2f} GB | loss step 1 {f_losses[0]:.5f} -> "
+              f"step 11 {f_losses[-1]:.5f} | launches per step "
+              f"{flag_per_step}"
+              + (f" (K3f, K3b, K5f, K5b cast to fp32 at their edges)"
+                 if dt == "bf16" else ""), flush=True)
+        del state
+    flag_launches = runs9["fp32"].pop("launches")
+    runs9["bf16"].pop("launches")
+    # phase 3's calls per (fp32) flagship step match the run
     weights = {n: a["calls"] for n, a in units["train_flagship"].items()}
     if weights != want_f:
         raise AssertionError(f"phase-3 calls per flagship step {weights} "
                              f"differ from the launches per step {want_f}")
-    print(f"[9] flagship train step (bench.py's 128³, B={big_batch}, fp32, "
-          f"attn/proj dropout {fcfg.attn_drop}, conv_drop {fcfg.conv_drop}):"
-          f" {flag_ms:.3f} ms/step, {1e3 / flag_ms:.4f} steps/s, "
-          f"{big_batch * 1e3 / flag_ms:.3f} volumes/s over 10 steps, peak "
-          f"{flag_peak:.2f} GB | loss step 1 {f_losses[0]:.5f} -> step 11 "
-          f"{f_losses[-1]:.5f} | launches per step {flag_per_step} (phase "
-          f"3's calls per step agree)", flush=True)
-    report["flagship_train"] = dict(
-        batch=big_batch, ms_per_step=flag_ms, steps_per_s=1e3 / flag_ms,
-        peak_gb=flag_peak, losses=f_losses, launches_per_step=flag_per_step)
-    del state, xf_dev, yf_dev
+    print(f"[9] bf16 flagship step / fp32: "
+          f"{runs9['bf16']['ms_per_step'] / runs9['fp32']['ms_per_step']:.3f}"
+          f" of the time, {runs9['bf16']['peak_gb']:.2f} / "
+          f"{runs9['fp32']['peak_gb']:.2f} GB peak (phase 3's calls per "
+          f"fp32 step agree)", flush=True)
+    report["flagship_train"] = runs9
+    del xf_dev, yf_dev
     torch.cuda.empty_cache()
 
+    lap(9)
     # -- phase 10: one flagship step, card vs CPU, dropout off -------------
-    r10 = card_vs_cpu("flagship", fcfg.replace(
+    r10, _ = card_vs_cpu("flagship", fcfg.replace(
         attn_drop=0.0, proj_drop=0.0, conv_drop=0.0, drop_path=0.0),
         flag_loss, xf[:1], yf[:1], 7)
     print(f"[10] flagship train step card vs CPU (B=1, 128³, dropout 0): "
@@ -1832,6 +2203,7 @@ def main() -> int:
     report["flagship_vs_cpu"] = r10
     del xf, yf
 
+    lap(10)
     # -- phase 11: path B, the U-RWKV forward, card vs CPU -----------------
     urwkv = load_model("U-RWKV", all_models, device="cuda", seed=0)
     x4 = torch.randn(tiles, 96, 96, 96, 2,
@@ -1871,6 +2243,7 @@ def main() -> int:
                                    launches_per_forward=u_per_forward)
     del y4, y4_cpu, x4_dev
 
+    lap(11)
     # -- phase 12: path B, U-RWKV sliding window ---------------------------
     with torch.inference_mode():
         torch.cuda.synchronize()
@@ -1922,6 +2295,7 @@ def main() -> int:
         wall_s=usw_s, volumes_per_s=1.0 / usw_s, launches=u_launches,
         region_err=usw_err)
 
+    lap(12)
     # -- phase 13: the serving CLI (cli/test_main -> infer/driver) ---------
     del useg, ufirst, ulast, vol_dev, urwkv
     torch.cuda.empty_cache()
@@ -1944,14 +2318,16 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f}" for k, v in cli["steps_s"].items()),
           flush=True)
 
+    lap(13)
     # -- phase 14: the training CLI (cli/train_main -> train/trainer) ------
     torch.cuda.empty_cache()
     tr = trainer_cli_phase(
         card, zero_counts, counts, per_step, per_forward,
         os.path.join(ROOT, "config", "models_config_autopetii.json"),
         os.path.join(ROOT, "config", "train_config_bs4.json"))
-    # phase 3's calls per trainer step (B = 4) match phase 6's launches
-    weights = {n: a["calls"] for n, a in units["train_96_b4"].items()
+    # phase 3's calls per trainer step (B = 4, bf16) match phase 6's
+    # launches
+    weights = {n: a["calls"] for n, a in units["train_96_b4_bf16"].items()
                if n in per_step}
     if weights != per_step:
         raise AssertionError(f"phase-3 calls per trainer step {weights} "
@@ -1964,6 +2340,7 @@ def main() -> int:
           + ", ".join(f"{k} {v:.1f}" for k, v in tr["steps_s"].items()),
           flush=True)
 
+    lap(14)
     # -- phase 15 -----------------------------------------------------------
     meta = {
         "pwa_attention": ("veloxseg_torch/csrc/pwa_attention_train.cu",
@@ -1992,8 +2369,13 @@ def main() -> int:
                            "veloxseg_tpu/ops/fused_jlc.py:194"),
         "wkv": ("veloxseg_torch/csrc/wkv.cu", "veloxseg_tpu/ops/wkv.py:77"),
     }
+    # the bf16 forms: the same sources built with -DVS_BF16
+    bf16_forms = ("pwa_attention_train_fwd", "pwa_attention_train_bwd",
+                  "jlc_stage1", "jlc_stage1_bwd", "jlc_branch_wgrad")
+    meta.update({f"{n}_bf16": meta[n] for n in bf16_forms})
     per = {"serving": "forward, 4 tiles, AutoPET-II 96³",
            "train_96": f"train step, B={batch}, AutoPET-II 96³",
+           "train_96_bf16": f"bf16 train step, B={batch}, AutoPET-II 96³",
            "train_flagship": f"train step, B={big_batch}, flagship 128³",
            "urwkv_serving": "U-RWKV forward, 4 tiles, 96³"}
     headline = {"pwa_attention": "serving", "jlc_stage1": "serving",
@@ -2004,33 +2386,40 @@ def main() -> int:
                 "pwa_attention_train_fwd_long": "train_flagship",
                 "pwa_attention_train_bwd_long": "train_flagship",
                 "wkv": "urwkv_serving"}
+    headline.update({f"{n}_bf16": "train_96_bf16" for n in bf16_forms})
     # launches: the main-path runs, each counted from 0: the VeloxSeg
-    # sliding window (5), the AutoPET-II train steps (6, 7), the flagship
-    # train steps (9), the U-RWKV sliding window (12), the serving CLI's
-    # AutoPET-II and U-RWKV runs (13; its Hecktor and BraTS runs are at
-    # shapes phase 3 does not time as a unit), the training CLI's main run
-    # (14: its steps at B = 4, its validation forwards of 4 patches).
-    # ms, plain_ms, bound_ms: summed over the kernel's calls in its
-    # headline unit
-    # (``per``). excess_ms, the order of work on the kernels: per path,
-    # its launches × (ms − bound_ms) per call at that path's own shapes
-    paths = {"serving": ("serving", launches),
-             "serving_cli": ("serving", cli_launches),
-             "train_96": ("train_96", train_launches),
-             "train_96_conv_drop0": ("train_96", nodrop_launches),
-             "train_flagship": ("train_flagship", flag_launches),
-             "urwkv_serving": ("urwkv_serving", u_launches),
-             "urwkv_cli": ("urwkv_serving", u_cli_launches),
-             "trainer_steps": ("train_96_b4", trainer_train),
-             "trainer_validation": ("serving", trainer_val)}
+    # sliding window (5), the AutoPET-II train steps (6: bf16 and fp32; 7:
+    # bf16, its K5 the fp32 kernels), the fp32 flagship train steps (9;
+    # its bf16 steps are at shapes phase 3 times in fp32 only), the U-RWKV
+    # sliding window (12), the serving CLI's AutoPET-II and U-RWKV runs
+    # (13; its Hecktor and BraTS runs are at shapes phase 3 does not time
+    # as a unit), the training CLI's main run (14: its bf16 steps at B = 4,
+    # its validation forwards of 4 patches). ms, plain_ms, bound_ms:
+    # summed over the kernel's calls in its headline unit (``per``).
+    # excess_ms, the order of work on the kernels: per path, its launches
+    # × (ms − bound_ms) per call at that path's own shapes (the first of
+    # the path's units that times the kernel)
+    paths = {"serving": (("serving",), launches),
+             "serving_cli": (("serving",), cli_launches),
+             "train_96": (("train_96_bf16", "train_96"), train_launches),
+             "train_96_fp32": (("train_96",), train32_launches),
+             "train_96_conv_drop0": (("train_96_bf16", "train_96"),
+                                     nodrop_launches),
+             "train_flagship": (("train_flagship",), flag_launches),
+             "urwkv_serving": (("urwkv_serving",), u_launches),
+             "urwkv_cli": (("urwkv_serving",), u_cli_launches),
+             "trainer_steps": (("train_96_b4_bf16", "train_96_b4"),
+                               trainer_train),
+             "trainer_validation": (("serving",), trainer_val)}
     line = {"kernels": []}
     for n, (src, replaces) in meta.items():
         k = units[headline[n]][n]
         by_path = {}
-        for key, (unit, got) in paths.items():
+        for key, (unit_names, got) in paths.items():
             if not got[n]:
                 continue
-            u = units.get(unit, {}).get(n)
+            u = next((units[un][n] for un in unit_names
+                      if n in units.get(un, {})), None)
             if u is None:
                 raise AssertionError(f"{n} ran on {key}, but phase 3 did "
                                      f"not time it at that path's shapes")
@@ -2053,6 +2442,9 @@ def main() -> int:
                              f"{missing}")
     report["kernels"] = line["kernels"]
     report["wall_s"] = time.perf_counter() - t_start
+    lap(15)
+    report["phase_s"] = phase_s
+    print(f"[15] seconds per phase: {json.dumps(phase_s)}", flush=True)
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

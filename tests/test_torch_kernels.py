@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import TINY, cf, cuda_or_skip, normal, randomize_
+from torch_port_helpers import (TINY, assert_bf16_match, cf, cuda_or_skip,
+                                normal, randomize_)
 from veloxseg_torch.core.config import VeloxSegConfig
 from veloxseg_torch.nn.conv_blocks import JLC
 from veloxseg_torch.nn.veloxseg import build_veloxseg
@@ -192,8 +193,8 @@ def test_train_attention_kernels_match_plain(b, h, n, c_qk, c_v, l, p):
     scale = 1.0 / np.sqrt(c_qk)
     f0 = pwa_attention.window_attention_train_fwd.launches
     b0 = pwa_attention.window_attention_train_bwd.launches
-    out, lse = pwa_attention.window_attention_train_fwd(q, k, v, bias, seed,
-                                                        scale, p)
+    out, lse, _ = pwa_attention.window_attention_train_fwd(q, k, v, bias,
+                                                           seed, scale, p)
     grads = pwa_attention.window_attention_train_bwd(q, k, v, bias, seed,
                                                      do, scale, p, out, lse)
     again = pwa_attention.window_attention_train_bwd(q, k, v, bias, seed,
@@ -225,8 +226,8 @@ def test_train_attention_backward_at_main_path_shapes(b, h, n, c_qk, c_v, l,
     q, k, v, bias, do = _train_inputs(dev, b, h, n, c_qk, c_v, l, seed=3)
     seed = torch.tensor([99, 2], dtype=torch.int32, device=dev)
     scale = 1.0 / np.sqrt(c_qk)
-    out, lse = pwa_attention.window_attention_train_fwd(q, k, v, bias, seed,
-                                                        scale, p)
+    out, lse, _ = pwa_attention.window_attention_train_fwd(q, k, v, bias,
+                                                           seed, scale, p)
     grads = pwa_attention.window_attention_train_bwd(q, k, v, bias, seed,
                                                      do, scale, p, out, lse)
     again = pwa_attention.window_attention_train_bwd(q, k, v, bias, seed,
@@ -272,7 +273,7 @@ def test_long_train_attention_kernels_match_plain(b, h, n, c_qk, c_v, l, p):
     scale = 1.0 / np.sqrt(c_qk)
     f0 = pwa_attention.window_attention_train_fwd_long.launches
     b0 = pwa_attention.window_attention_train_bwd_long.launches
-    out, lse = pwa_attention.window_attention_train_fwd_long(
+    out, lse, _ = pwa_attention.window_attention_train_fwd_long(
         q, k, v, bias, seed, scale, p)
     grads = pwa_attention.window_attention_train_bwd_long(
         q, k, v, bias, seed, do, scale, p, out, lse)
@@ -305,7 +306,7 @@ def test_long_train_attention_backward_matches_its_decomposition(l, p):
     q, k, v, bias, do = _train_inputs(dev, 2, 2, 3, 8, 8, l, seed=5)
     seed = torch.tensor([77, 1], dtype=torch.int32, device=dev)
     scale = 1.0 / np.sqrt(8)
-    out, lse = pwa_attention.window_attention_train_fwd_long(
+    out, lse, _ = pwa_attention.window_attention_train_fwd_long(
         q, k, v, bias, seed, scale, p)
     grads = pwa_attention.window_attention_train_bwd_long(
         q, k, v, bias, seed, do, scale, p, out, lse)
@@ -350,7 +351,7 @@ def test_train_forward_at_main_path_shapes(long, b, h, n, c_qk, c_v, l, p):
         b, h, n, l, c_qk, c_v,
         torch.cuda.get_device_properties(dev).multi_processor_count)
     f0 = fwd.launches
-    out, lse = fwd(q, k, v, bias, seed, scale, p)
+    out, lse, _ = fwd(q, k, v, bias, seed, scale, p)
     again = fwd(q, k, v, bias, seed, scale, p)
     torch.cuda.synchronize()
     assert fwd.launches == f0 + 2
@@ -386,7 +387,7 @@ def test_train_forward_at_other_geometries(c_qk, c_v, l, slabs, windows,
     rows = slabs * 8 * pa._fwd_rows_per_lane(c_qk, c_v)
     lw = pa.TrainFwdLaunch(slabs, windows, -(-b * n // per), per, rows)
     assert pa._k2f_smem_floats(slabs, windows, l, c_qk, c_v) * 4 <= 232448
-    out, lse = pa._train_fwd_kernel(
+    out, lse, _ = pa._train_fwd_kernel(
         pa.window_attention_train_fwd, "vs_pwa_attention_train",
         pa.KERNEL_WIDTHS, q, k, v, bias, seed, scale, p, launch=lw)
     torch.cuda.synchronize()
@@ -577,6 +578,87 @@ def test_jlc_stage1_kernels_match_plain_at_every_tiling(shape, cg):
     # wgrad launches alone give K4b's own
     for a, a2, a3 in zip(dws, again, alone):
         assert torch.equal(a, a2) and torch.equal(a, a3)
+
+
+# The bf16 forms, on the operands the JAX trainer passes: K2f and K2b at the
+# AutoPET-II train step's four levels (B = 2) and the flagship's L0, K4f,
+# K4b and its wgrad at the four JLC levels, each against its bf16 plain
+# version. bf16 outputs: at least 99% of the elements bit for bit equal,
+# the rest within 1 bf16 ulp (torch_port_helpers.assert_bf16_match); the
+# fp32 ones (lse, K2f's out32, dbias) as the fp32 forms' tests hold them.
+K2_BF16 = K2_MAIN_PATH[:5]
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,n,c_qk,c_v,l", K2_BF16)
+def test_train_attention_bf16_forms_match_plain(b, h, n, c_qk, c_v, l, p):
+    dev = cuda_or_skip()
+    pa = pwa_attention
+    q, k, v, bias, do = _train_inputs(dev, b, h, n, c_qk, c_v, l, seed=21)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    seed = torch.tensor([1234, 0], dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(c_qk)
+    f0 = pa.window_attention_train_fwd.launches_bf16
+    b0 = pa.window_attention_train_bwd.launches_bf16
+    out, lse, out32 = pa.window_attention_train_fwd(q, k, v, bias, seed,
+                                                    scale, p)
+    grads = pa.window_attention_train_bwd(q, k, v, bias, seed, do, scale, p,
+                                          out32, lse)
+    again = pa.window_attention_train_bwd(q, k, v, bias, seed, do, scale, p,
+                                          out32, lse)
+    torch.cuda.synchronize()
+    assert pa.window_attention_train_fwd.launches_bf16 == f0 + 1
+    assert pa.window_attention_train_bwd.launches_bf16 == b0 + 2
+    assert_bf16_match(out, pa.window_attention_train_fwd_plain(
+        q, k, v, bias, seed, scale, p), "K2f out")
+    torch.testing.assert_close(out32, pa.window_attention_train_fwd_plain(
+        q.float(), k.float(), v.float(), bias, seed, scale, p), rtol=1e-4,
+        atol=1e-5)
+    torch.testing.assert_close(lse, pa.train_lse_plain(q, k, bias, scale),
+                               rtol=1e-5, atol=1e-5)
+    refs = pa.window_attention_train_bwd_plain(q, k, v, bias, seed, do,
+                                               scale, p)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert_bf16_match(got, r, f"K2b {name}")
+    assert grads[3].dtype == torch.float32
+    torch.testing.assert_close(grads[3], refs[3], rtol=1e-4,
+                               atol=1e-4 * float(refs[3].abs().max()))
+    for a, a2 in zip(grads, again):
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("c,groups,expansion,s", JLC_LEVELS)
+def test_jlc_stage1_bf16_forms_match_plain(c, groups, expansion, s):
+    dev = cuda_or_skip()
+    bf = torch.bfloat16
+    cg = c // groups
+    x, g = (cf(normal((2, s, s, s, c), seed=sd)).contiguous().to(dev, bf)
+            for sd in (31, 32))
+    ws = [torch.from_numpy(normal((c, cg, k, k, k), seed=33 + k,
+                                  scale=(2.0 / (cg * k ** 3)) ** 0.5))
+          .to(dev, bf) for k in (1, 3, 5)]
+    bs = [torch.zeros(c, device=dev, dtype=bf) for _ in ws]
+    n4f = fused_jlc.jlc_stage1.launches_bf16
+    n4b = fused_jlc.jlc_stage1_bwd.launches_bf16
+    nw = fused_jlc.jlc_branch_wgrad.launches_bf16
+    with torch.no_grad():
+        out1 = fused_jlc.jlc_stage1(x, ws, bs, groups)
+    dy, dws = fused_jlc.jlc_stage1_bwd(x, ws, g, groups)
+    alone = fused_jlc.jlc_branch_wgrad(x, dy, ws, groups)
+    torch.cuda.synchronize()
+    assert fused_jlc.jlc_stage1.launches_bf16 == n4f + 1
+    assert fused_jlc.jlc_stage1_bwd.launches_bf16 == n4b + 1
+    assert fused_jlc.jlc_branch_wgrad.launches_bf16 == nw + 2
+    assert_bf16_match(out1, fused_jlc.jlc_stage1_plain(x, ws, bs, groups),
+                      "K4f out1")
+    ref_dy, _ = fused_jlc.jlc_stage1_bwd_plain(x, ws, g, groups)
+    assert_bf16_match(dy, ref_dy, "K4b dy")
+    # the wgrad on the kernel's own dy, against the library's on it
+    for j, (got, r) in enumerate(zip(dws, fused_jlc.jlc_branch_wgrad_plain(
+            x, dy, ws, groups))):
+        assert_bf16_match(got, r, f"K4b dW{j}")
+    for a, a2 in zip(dws, alone):
+        assert torch.equal(a, a2)
 
 
 def test_jlc_stage1_kernels_refuse_other_kernel_sets():

@@ -128,7 +128,7 @@ def test_long_bwd_decomposition_matches_jax_vjp():
     seed, scale, p = [99, 1], 1.0 / np.sqrt(8), 0.1
     ts = [torch.from_numpy(a) for a in (q, k, v, bias, do)]
     st = torch.tensor(seed, dtype=torch.int32)
-    out, lse = port.window_attention_train_fwd_long(*ts[:4], st, scale, p)
+    out, lse, _ = port.window_attention_train_fwd_long(*ts[:4], st, scale, p)
     # K3b's tiles of 128, all windows of a head in one chunk
     grads = port.window_attention_train_bwd_tiled_plain(
         *ts[:4], st, ts[4], out, lse, scale, p, 128, 2)

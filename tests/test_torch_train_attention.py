@@ -153,7 +153,7 @@ def test_tiled_backward_matches_train_xla_vjp(b, h, n, c_qk, c_v, l, sms, p):
     seed, scale = [4321, 1], 1.0 / np.sqrt(c_qk)
     ts = [torch.from_numpy(a) for a in (q, k, v, bias, do)]
     st = torch.tensor(seed, dtype=torch.int32)
-    out, lse = port.window_attention_train_fwd(*ts[:4], st, scale, p)
+    out, lse, _ = port.window_attention_train_fwd(*ts[:4], st, scale, p)
     grads = port.window_attention_train_bwd_tiled_plain(
         *ts[:4], st, ts[4], out, lse, scale, p, lw.tile, lw.per)
     sj = jnp.asarray([seed], jnp.int32)
@@ -170,7 +170,7 @@ def test_tiled_backward_matches_interpret_pallas_backward():
     q, k, v, bias, do = _inputs(b, h, n, c_qk, c_v, l, seed=17)
     ts = [torch.from_numpy(a) for a in (q, k, v, bias, do)]
     st = torch.tensor([5, 0], dtype=torch.int32)
-    out, lse = port.window_attention_train_fwd(*ts[:4], st, 0.5, 0.0)
+    out, lse, _ = port.window_attention_train_fwd(*ts[:4], st, 0.5, 0.0)
     grads = port.window_attention_train_bwd_tiled_plain(
         *ts[:4], st, ts[4], out, lse, 0.5, 0.0, lw.tile, lw.per)
     refs = _train_bwd_pallas(*map(jnp.asarray, (q, k, v, bias)),

@@ -8,9 +8,11 @@ after one optax step, epoch 0) on the same NIfTI fixtures
 (``tests/make_fixtures.py``, AutoPET-II, 5 cases: 3 train, 1 val, 1 test)
 at the TINY config with every dropout rate at 0, and train epochs 2 and 3
 (2 steps each: 4 then 2 patches of 32³) with validation and checkpoints
-every epoch. The JAX trainer steps in bf16; the test forces its step to
-fp32 by replacing ``veloxseg_tpu.train.trainer.train_step_fn`` (inside the
-test only); both steps are wrapped to record each iteration's loss.
+every epoch. Both trainers step in bf16; the test forces both steps to
+fp32 by replacing each trainer module's ``train_step_fn`` (inside the test
+only; ``torch_port_helpers.run_both_trainers``), so that these tests hold
+the loop and not bf16 rounding (``test_torch_bf16.py`` holds the bf16
+step); both steps are wrapped to record each iteration's loss.
 
 Tolerances, from the one-step tests (``test_torch_train_step.py``): each
 iteration's loss 1e-4 relative (the one-step test's 1e-5, with room for
@@ -25,9 +27,9 @@ holds them. The same two trainers on BraTS (four-modality fixtures with
 labels 0-3, 5 cases; one 4-channel modality, 4 classes): the BraTS
 profile (no foreground crop, labels kept multi-class) and its validation
 by ``brats_dice`` (avg, ET, TC, WT), to the same tolerances. Also, on the
-port alone: its options (``steps_per_dispatch`` against the plain loop bit
-for bit, ``grad_accum``, ``async_checkpoint``, ``profile_dir``), and what
-it refuses. About 175 s alone.
+port alone, stepping in bf16: its options (``steps_per_dispatch`` against
+the plain loop bit for bit, ``grad_accum``, ``async_checkpoint``,
+``profile_dir``), and what it refuses. About 175 s alone.
 """
 
 import argparse
@@ -106,7 +108,8 @@ def test_best_dice_and_checkpoints_match_jax(runs):
     assert stems["port"] == stems["jax"] == ["1", "2", "train_best",
                                              "val_best"]
     assert "Resumed from" in port["log"] and "at epoch 1" in port["log"]
-    assert "compute float32" in port["log"]
+    # the trainer steps in bf16 (the fixture forces its step to fp32)
+    assert "steps in bfloat16" in port["log"]
     assert "epoch 3 split:" in port["log"]
     payload = torch.load(os.path.join(port["save_path"], "2.pth"),
                          weights_only=True)

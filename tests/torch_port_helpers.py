@@ -99,6 +99,47 @@ def cuda_or_skip() -> torch.device:
     return torch.device("cuda")
 
 
+def bf16_ulps(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance of two bf16 tensors in units in the last place:
+    adjacent bf16 values are 1 apart, +0 and −0 are equal."""
+    def key(t):
+        i = t.detach().cpu().contiguous().view(torch.int16).to(torch.int32)
+        mag = i & 0x7FFF
+        return torch.where(i < 0, -mag, mag)
+    return (key(got) - key(ref)).abs()
+
+
+def assert_bf16_match(got: torch.Tensor, ref: torch.Tensor, what: str,
+                      share: float = 0.99) -> None:
+    """The rule a bf16 kernel form and its bf16 plain twin (or the Pallas
+    kernel) are held to: both bf16, at least ``share`` of the elements bit
+    for bit equal, every other within 1 bf16 ulp. The two sum in other
+    orders in fp32 before one rounding, so an fp32 sum near a rounding
+    boundary may round the other way; a twin that skips a rounding point
+    is off by an ulp at far more elements. Two cases move an element by
+    more than its own ulp, at a few elements: a sum that cancels near 0
+    (its ulp is finer than the fp32 resolution of the sum), and a flip of a
+    value rounded inside the function (K4b's normalized value before the
+    GELU's gradient) that the rest of the function then scales. At most
+    0.1% of the elements may lie more than 1 ulp apart, each within 1 ulp
+    of the tensor's largest magnitude (2^-8 of it)."""
+    assert got.dtype == ref.dtype == torch.bfloat16, (what, got.dtype,
+                                                      ref.dtype)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    if not got.numel():
+        return
+    d = bf16_ulps(got, ref)
+    equal = float((d == 0).double().mean())
+    far = d > 1
+    g, r = got.detach().cpu().double(), ref.detach().cpu().double()
+    gap = float((g - r).abs()[far].max()) if bool(far.any()) else 0.0
+    floor = 2.0 ** -8 * float(r.abs().max())
+    assert (equal >= share and float(far.double().mean()) <= 1e-3
+            and gap <= floor), (
+        f"{what}: {equal:.4%} bit-equal, {int(far.sum())} elements more "
+        f"than 1 ulp apart, by up to {gap:.3e} (floor {floor:.3e})")
+
+
 # ---------------------------------------------------------------------------
 # Whole-volume driver parity: both CLIs over the same NIfTI fixtures and
 # checkpoint file, the CSVs and masks compared.
@@ -394,9 +435,10 @@ def jax_resume_checkpoint(path, model_json: dict, seed: int, lr: float):
 
 def run_both_trainers(root, dataset: str, model_config: dict,
                       train_config: dict, ckpt: str):
-    """``veloxseg_tpu.train.trainer.run_train`` (its step forced to fp32 by
-    replacing the module's ``train_step_fn``) and the port's ``run_train``
-    (``device="cpu"``), each resuming from ``ckpt`` with its results under
+    """``veloxseg_tpu.train.trainer.run_train`` and the port's ``run_train``
+    (``device="cpu"``), both forced to step in fp32 by replacing each
+    trainer module's ``train_step_fn`` (both trainers step in bf16), each
+    resuming from ``ckpt`` with its results under
     ``root/<side>/save``; both steps record each iteration's loss, and the
     JAX step each element's largest |gradient| over the run, read from
     optax's first moment (adamw's ``mu_t = b1·mu_{t-1} + (1 - b1)·g_t``,
@@ -447,7 +489,7 @@ def run_both_trainers(root, dataset: str, model_config: dict,
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jtrainer, "train_step_fn", jax_fp32_step)
         mp.setattr(ttrainer, "train_step_fn", lambda *a, **kw: recording(
-            "port", port_step_fn(*a, **kw)))
+            "port", port_step_fn(*a, **dict(kw, compute_dtype=None))))
         for side, fn, kw in (("jax", jtrainer.run_train, {}),
                              ("port", ttrainer.run_train,
                               {"device": "cpu"})):

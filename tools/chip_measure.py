@@ -7,10 +7,12 @@ of them bounds. PyTorch is imported only by the timers."""
 
 from __future__ import annotations
 
+import math
 import subprocess
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOP_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense
 
 
 def card() -> str:
@@ -82,11 +84,18 @@ def trace_split(trace_dir):
                 device_ops=len(device))
 
 
-def bound(n_bytes, n_flop):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the fp32 rate."""
+def ops_ms(n_flop, tc_flop=0):
+    """The least ms for ``n_flop`` fp32 operations and ``tc_flop`` products
+    of bf16 operands (which the tensor cores could run beside them)."""
+    return max(n_flop / FP32_FLOP_PER_S, tc_flop / BF16_TC_FLOP_PER_S) * 1e3
+
+
+def bound(n_bytes, n_flop, tc_flop=0):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and the
+    operations' least time (:func:`ops_ms`: fp32 operations over the fp32
+    rate, products of bf16 operands over the bf16 tensor-core rate)."""
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_o = n_flop / FP32_FLOP_PER_S * 1e3
+    t_o = ops_ms(n_flop, tc_flop)
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
@@ -111,6 +120,24 @@ def train_attention_work(b, h, n, cqk, cv, L):
     b_flop = (2 * scores * (2 * cqk + 2 * cv) + 5 * scores + 3 * scores
               + 16 * scores + scores)
     return (f_bytes, f_flop), (b_bytes, b_flop)
+
+
+def train_attention_work_bf16(b, h, n, cqk, cv, L):
+    """As :func:`train_attention_work` for the bf16 forms of K2f and K2b:
+    ``((fwd_bytes, fwd_flop, fwd_tc_flop), (bwd_bytes, ...))``. q, k, v,
+    dO, out, dq, dk, dv of 2 bytes; bias, lse, dbias and the forward's
+    fp32 out (written by K2f, read by K2b) of 4. The products of bf16
+    operands (QKᵀ and PV; dOᵀV, dV, dQ, dK) are counted at the tensor
+    cores' rate (``tc_flop``), the rest as fp32."""
+    scores, rows = b * h * n * L * L, b * h * n * L
+    qk, vv, bias = b * h * n * cqk * L, b * h * n * cv * L, h * L * L
+    f_bytes = 2 * (2 * qk + 2 * vv) + 4 * (vv + bias + rows) + 8
+    f_tc = 2 * scores * (cqk + cv)
+    f_flop = 5 * scores + rows * cv + 16 * scores
+    b_bytes = 2 * (2 * (2 * qk + vv) + vv) + 4 * (vv + 2 * bias + rows) + 8
+    b_tc = 2 * scores * (2 * cqk + 2 * cv)
+    b_flop = 5 * scores + 3 * scores + 16 * scores + scores
+    return (f_bytes, f_flop, f_tc), (b_bytes, b_flop, b_tc)
 
 
 def eval_attention_work(b, h, n, cqk, cv, L):
@@ -175,3 +202,64 @@ def stage2_bwd_work(b, c, e, s):
     # backward (8)
     n_flop = 10 * vox * e * c + 2 * vox + 14 * vox * e + 8 * vox
     return n_bytes, n_flop
+
+
+# The bound of a bf16 train step against a reference bf16 step, from the
+# reference's own bf16-to-fp32 distance (step_distances): the most (or, for
+# grads_to_fp32, the least) of each ratio. A step that computes in fp32
+# lies 1.0 of that distance from the reference in its loss and ~0 from
+# the fp32 step in its gradients, and fails. Two bf16 steps that round in
+# other places make nearly independent rounding noise in the gradients, so
+# the gradients are held over all tensors together to 1.5 of the distance
+# and each tensor to 4 (measured, the largest per-tensor ratio: the port
+# against JAX at TINY on the CPU 0.95 over all tensors; the port on the
+# card against the CPU at full width 0.62; the losses 0.06 and 0.22).
+STEP_BOUND = {"loss": 0.5, "grads_to_bf16": 1.5, "grads_to_fp32": 0.5,
+              "tensor_to_bf16": 4.0}
+
+
+def step_distances(got, ref16, ref32) -> dict:
+    """A bf16 step's distances from a reference bf16 step and the same
+    reference in fp32, each relative to the reference's own bf16-to-fp32
+    distance. Each argument is ``(loss, {key: gradient})`` (arrays or CPU
+    tensors). ``loss``: |L − L16| / |L16 − L32|; over all gradients
+    together (the root of the summed squared L2 norms) ``grads_to_bf16``
+    G(got, ref16) / G(ref16, ref32) and ``grads_to_fp32`` G(got, ref32) /
+    G(ref16, ref32); per tensor the largest ‖got − ref16‖ / (‖ref16 −
+    ref32‖ + 2^-8·‖ref32‖ + floor), ``tensor_to_bf16`` (its key
+    ``tensor``): 2^-8·‖ref32‖ is one bf16 ulp of the tensor's gradient,
+    which the last rounding of a bf16 step may move by while the
+    reference's rounding happens to land near its fp32 value (a bias of two
+    elements whose gradient is one bf16 sum), and the floor, 1e-5 of the
+    largest gradient times √n, covers the gradients that are 0 in exact
+    arithmetic (biases in front of an InstanceNorm)."""
+    import numpy as np
+
+    def arr(t):
+        return np.asarray(t, dtype=np.float64)
+
+    (loss, g), (l16, g16), (l32, g32) = got, ref16, ref32
+    g_all = max(float(np.abs(arr(v)).max()) for v in g32.values())
+    d2 = e2 = f2 = 0.0
+    worst, worst_key = 0.0, None
+    for k, r32 in g32.items():
+        r32, r16, p = arr(r32), arr(g16[k]), arr(g[k])
+        d = float(np.linalg.norm(r16 - r32))
+        e = float(np.linalg.norm(p - r16))
+        d2 += d * d
+        e2 += e * e
+        f2 += float(np.linalg.norm(p - r32)) ** 2
+        ratio = e / (d + 2.0 ** -8 * float(np.linalg.norm(r32))
+                     + 1e-5 * g_all * math.sqrt(p.size))
+        if ratio > worst:
+            worst, worst_key = ratio, k
+    return {"loss": abs(loss - l16) / abs(l16 - l32),
+            "grads_to_bf16": math.sqrt(e2 / d2),
+            "grads_to_fp32": math.sqrt(f2 / d2),
+            "tensor_to_bf16": worst, "tensor": worst_key}
+
+
+def step_bound_violations(d: dict) -> list:
+    """The ratios of :func:`step_distances` outside :data:`STEP_BOUND`."""
+    return [k for k, lim in STEP_BOUND.items()
+            if not (d[k] >= lim if k == "grads_to_fp32" else d[k] <= lim)]

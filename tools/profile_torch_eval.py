@@ -3,7 +3,7 @@
 on one GPU.
 
     python3 tools/profile_torch_eval.py [--model autopet|flagship|urwkv]
-        [--batch N] [--train] [--out DIR]
+        [--batch N] [--train [--bf16]] [--out DIR]
 
 Builds the model at full width with seeded weights on the card: the
 AutoPET-II VeloxSeg (``config/models_config_autopetii.json``, 96³), the
@@ -12,15 +12,16 @@ U-RWKV (96³, eval only). It runs, on a seeded (batch, size³, 2) input, the
 eval forward (batch 4 by default: one sliding-window batch) or, with
 ``--train``, the train step (dropout at the config's rates;
 ``config/train_config_bs4.json``'s loss weights and AdamW, which bench.py
-uses too; batch 2 by default, 16 for the flagship, bench.py's) with labels
+uses too; batch 2 by default, 16 for the flagship, bench.py's; in fp32,
+or with ``--bf16`` in bf16 as the trainer steps) with labels
 that threshold the PET channel. It prints, per forward or
 step: the wall time (host clock around iterations ended by a
 synchronize), the device time summed by ``torch.profiler``, the device's
 idle share (1 − device time / wall time), the device operations, the
 device time by kernel family, the kernels by device time and the
 library's convolutions (forward and backward) by input shapes. The JSON
-goes to ``<out>/profile_torch_<model>_{eval,train}_b<batch>.json``
-(default ``runs``). Needs CUDA; fp32, TF32 off.
+goes to ``<out>/profile_torch_<model>_{eval,train,train_bf16}_b<batch>.json``
+(default ``runs``). Needs CUDA; TF32 off.
 """
 
 from __future__ import annotations
@@ -103,6 +104,8 @@ def main() -> int:
                     help="default 4 (eval) or the train config's 2")
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the forward")
+    ap.add_argument("--bf16", action="store_true",
+                    help="the train step in bf16 (compute_dtype)")
     ap.add_argument("--out", default=os.path.join(ROOT, "runs"))
     args = ap.parse_args()
     iters = 5
@@ -116,6 +119,8 @@ def main() -> int:
         ROOT, "config", "train_config_bs4.json"))
     if args.train and args.model == "urwkv":
         ap.error("U-RWKV is profiled in eval only")
+    if args.bf16 and not args.train:
+        ap.error("--bf16 profiles the train step")
     size = 128 if args.model == "flagship" else 96
     batch = args.batch or (4 if not args.train else
                            16 if args.model == "flagship"
@@ -138,7 +143,9 @@ def main() -> int:
         state = create_train_state(model, build_optimizer(
             opt["optimizer_type"], opt["optimizer_args"],
             model.parameters()))
-        train_step = train_step_fn(CompositeLoss(train_cfg, model.cfg))
+        train_step = train_step_fn(
+            CompositeLoss(train_cfg, model.cfg),
+            compute_dtype=torch.bfloat16 if args.bf16 else None)
         y = (x[..., 0] > 1.0).long()
         gen = torch.Generator(device="cuda").manual_seed(2)
 
@@ -199,7 +206,8 @@ def main() -> int:
                           [list(s) for s in e.input_shapes[:3]]))
     convs.sort(key=lambda r: -r[2])
     unit = "step" if args.train else "forward"
-    kind = "train" if args.train else "eval"
+    kind = ("train_bf16" if args.bf16 else "train") if args.train \
+        else "eval"
     print(f"card: {card}")
     print(f"{args.model} {size}³ {kind} batch {batch}: wall {wall_ms:.3f} "
           f"ms/{unit} | device {device_ms:.3f} ms/{unit} ({launches:.0f} "

@@ -1,12 +1,51 @@
-// Shared helpers of the port's CUDA kernels (plain C interface, fp32).
+// Shared helpers of the port's CUDA kernels (plain C interface, fp32, and
+// bf16 elements for the sources built with -DVS_BF16).
 //
 // Each kernel library is its own translation unit and includes this header
 // once, so the definitions below are private to that library.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+// The element type of a library's entry points: the tokens, activations,
+// weights and their gradients. float, or bf16 where the source is built
+// with -DVS_BF16 (veloxseg_torch/ops/_cuda.py:BF16_SOURCES). The kernels
+// take it as a template parameter T; every product, sum, statistic and
+// scratch buffer stays fp32, and a bf16 form rounds only where the Pallas
+// kernel it replaces rounds.
+#ifdef VS_BF16
+using Elem = __nv_bfloat16;
+#else
+using Elem = float;
+#endif
+
+template <typename T>
+constexpr bool kIsF32 = std::is_same<T, float>::value;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (kIsF32<T>) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
+}
+
+// x rounded to T (to nearest even) and back: the identity for float.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return to_f32(from_f32<T>(x));
+}
 
 extern "C" const char* vs_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -20,6 +59,22 @@ constexpr int kDefaultSmemBytes = 48 * 1024;
 // Exact (erf) GELU, grouped as veloxseg_tpu/ops/fused_jlc.py:_gelu_exact.
 __device__ __forceinline__ float gelu_exact(float x) {
   return x * (0.5f * (1.0f + erff(x * 0.70710678118654752f)));
+}
+
+// GELU in the element type T of the stream, as _gelu_exact applies it to
+// its input's dtype (veloxseg_tpu/ops/fused_jlc.py:73-77): for bf16 the
+// value n is rounded, Phi(n) is computed in fp32 and rounded, and so is
+// their product; for float gelu_exact.
+template <typename T>
+__device__ __forceinline__ float gelu_in(float n) {
+  if constexpr (kIsF32<T>) {
+    return gelu_exact(n);
+  } else {
+    const float nb = round_to<T>(n);
+    const float phi =
+        round_to<T>(0.5f * (1.0f + erff(nb * 0.70710678118654752f)));
+    return round_to<T>(nb * phi);
+  }
 }
 
 // d/dx GELU(x) = Phi(x) + x * phi(x) (veloxseg_tpu/ops/fused_jlc.py:80-84).
@@ -74,6 +129,38 @@ __device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src,
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Staging of T elements from global memory into fp32 shared memory,
+// zero where `valid` is false. float: the cp.async copies above (complete
+// after cp_async_wait_all); bf16: loaded and converted at once (cp.async
+// copies bytes and cannot widen). stage4: four consecutive elements, dst
+// 16-byte aligned and src aligned to 4 elements.
+template <typename T>
+__device__ __forceinline__ void stage1(float* dst, const T* src, bool valid) {
+  if constexpr (kIsF32<T>) {
+    cp_async_f32(dst, src, valid);
+  } else {
+    *dst = valid ? to_f32(*src) : 0.f;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void stage4(float* dst, const T* src, bool valid) {
+  if constexpr (kIsF32<T>) {
+    cp_async_f32x4(dst, src, valid);
+  } else {
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (valid) {  // one 8-byte load of 4 bf16
+      const uint2 u = *reinterpret_cast<const uint2*>(src);
+      const float2 a = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+      const float2 b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+      f = make_float4(a.x, a.y, b.x, b.y);
+    }
+    *reinterpret_cast<float4*>(dst) = f;
+  }
 }
 
 // A 16-byte load or store of shared memory (16-byte aligned).

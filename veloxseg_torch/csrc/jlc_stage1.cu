@@ -1,6 +1,6 @@
-// K4f and K4b: JLC stage 1 forward and backward, fp32, channels-first
-// (B, C, D, H, W), for the branch set k = (1, 3, 5), the only one any
-// config uses (the wrapper raises for another).
+// K4f and K4b: JLC stage 1 forward and backward, fp32 or bf16 (built with
+// -DVS_BF16), channels-first (B, C, D, H, W), for the branch set k = (1, 3,
+// 5), the only one any config uses (the wrapper raises for another).
 //
 //   out1 = x + sum_k GELU(InstanceNorm(gconv_k(x)))
 //
@@ -55,6 +55,17 @@
 // The kernels run the taps that fall into the zero halo as well (7% more
 // FMAs at 32^3, 2.9x at 4^3), and the scratch costs one write and two
 // reads of 3·B·C·S floats.
+//
+// The bf16 form (T = bf16: x, the weights, g, out, dy and dW) is the same
+// kernels, rounding where the Pallas kernels round (fused_jlc.py:111-170):
+// x and the weights are converted to fp32 as they are staged (loaded at
+// once, not by cp.async), so the convs accumulate in fp32 into the fp32
+// scratch and the statistics are those of the fp32 sums; the apply pass
+// rounds the normalized value before the GELU (gelu_in), adds each branch
+// into a bf16 sum and the residual in bf16; the planes pass takes the
+// GELU's gradient at the rounded normalized value and writes dy rounded to
+// bf16 beside the scratch; the wgrad stages x and that dy and rounds each
+// weight gradient once, as XLA's bf16 wgrad gives it.
 #include "common.cuh"
 
 constexpr int kOq = 4;                    // output channels per thread
@@ -132,8 +143,9 @@ struct RadixWalk {
 // cbase) of the tile at (z0, y0, x0) plus the halo into xs, planes
 // ``plane`` floats apart; zero outside the volume. Asynchronous: wait with
 // cp_async_wait_all.
+template <typename T>
 __device__ __forceinline__ void stage_x(
-    const float* __restrict__ x, float* xs, int64_t cbase, int nc, int z0,
+    const T* __restrict__ x, float* xs, int64_t cbase, int nc, int z0,
     int y0, int x0, int D, int H, int W, int PZ, int PY, int PX, int plane) {
   const int64_t S = (int64_t)D * H * W;
   const int radix[4] = {nc, PZ, PY, PX};
@@ -143,10 +155,10 @@ __device__ __forceinline__ void stage_x(
     const int gz = z0 + pz - kHalo, gy = y0 + py - kHalo, gx = x0 + px - kHalo;
     const bool in =
         gz >= 0 && gz < D && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    cp_async_f32(xs + ci * plane + (pz * PY + py) * PX + px,
-                 in ? x + (cbase + ci) * S + ((int64_t)gz * H + gy) * W + gx
-                    : x,
-                 in);
+    stage1<T>(xs + ci * plane + (pz * PY + py) * PX + px,
+              in ? x + (cbase + ci) * S + ((int64_t)gz * H + gy) * W + gx
+                 : x,
+              in);
     it.step();
   }
 }
@@ -180,10 +192,10 @@ __device__ __forceinline__ void fma_tap(float (&a)[VX][kOq], const float* xv,
 // ks · oqb · nsp threads, nsp = tz · ty · tx / VX. Thread t: spatial slot
 // t % nsp, output quad (t / nsp) % oqb of the block's oqb, input-channel
 // slice t / (nsp · oqb) of the ks slices of a round (4·ks channels).
-template <int VX>
+template <typename T, int VX>
 __global__ void __launch_bounds__(kConvMaxThreads)
-jlc_branch_conv(const float* __restrict__ x, const float* __restrict__ w1,
-                const float* __restrict__ w3, const float* __restrict__ w5,
+jlc_branch_conv(const T* __restrict__ x, const T* __restrict__ w1,
+                const T* __restrict__ w3, const T* __restrict__ w5,
                 float* __restrict__ y, double2* __restrict__ pstat, int B,
                 int C, int D, int H, int W, int cg, Tiles tl, int ks,
                 int oqb) {
@@ -224,15 +236,15 @@ jlc_branch_conv(const float* __restrict__ x, const float* __restrict__ w1,
     RadixWalk<3> wi(wradix, t, blockDim.x);
     for (int i = t; i < oqb * rc * kTaps; i += blockDim.x, wi.step()) {
       const int q = wi.d[0], ci = wi.d[1], tap = wi.d[2];
-      const float* wp = tap < 125 ? w5 : tap < 152 ? w3 : w1;
+      const T* wp = tap < 125 ? w5 : tap < 152 ? w3 : w1;
       const int taps = tap < 125 ? 125 : tap < 152 ? 27 : 1;
       const int tt = tap < 125 ? tap : tap < 152 ? tap - 125 : 0;
       const int64_t o = (int64_t)g * cg + (oq0 + q) * kOq;
       const int64_t st = (int64_t)cg * taps;
-      const float* p = wp + (o * cg + c0 + ci) * taps + tt;
+      const T* p = wp + (o * cg + c0 + ci) * taps + tt;
       float* d = reinterpret_cast<float*>(ws + i);
 #pragma unroll
-      for (int k = 0; k < kOq; ++k) cp_async_f32(d + k, p + k * st, true);
+      for (int k = 0; k < kOq; ++k) stage1<T>(d + k, p + k * st, true);
     }
     cp_async_wait_all();
     __syncthreads();
@@ -371,11 +383,14 @@ __global__ void jlc_conv_stats(const double2* __restrict__ pstat, int tiles,
   rstd[p] = static_cast<float>(1.0 / sqrt(var + eps));
 }
 
-__global__ void jlc_stage1_apply(const float* __restrict__ x,
+// out1 = x + sum_j GELU(ŷ_j), the branches added in order into a sum of
+// T (its first term exact) and the residual added in T.
+template <typename T>
+__global__ void jlc_stage1_apply(const T* __restrict__ x,
                                  const float* __restrict__ y,
                                  const float* __restrict__ mean,
                                  const float* __restrict__ rstd,
-                                 float* __restrict__ out, int64_t planes,
+                                 T* __restrict__ out, int64_t planes,
                                  int64_t S) {
   const int64_t n = planes * S;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -384,26 +399,31 @@ __global__ void jlc_stage1_apply(const float* __restrict__ x,
     float acc = 0.f;
     for (int j = 0; j < 3; ++j) {
       const int64_t pj = j * planes + p;
-      acc += gelu_exact((y[j * n + i] - mean[pj]) * rstd[pj]);
+      acc = round_to<T>(
+          acc + gelu_in<T>((y[j * n + i] - mean[pj]) * rstd[pj]));
     }
-    out[i] = x[i] + acc;
+    out[i] = from_f32<T>(to_f32(x[i]) + acc);
   }
 }
 
-// K4b's planes pass: one block per (branch, b, c) plane of the scratch.
+// K4b's planes pass: one block per (branch, b, c) plane of the scratch y;
+// dy in T (for float the scratch itself, overwritten in place: y and dy
+// may alias). The GELU's gradient at ŷ rounded to T (fused_jlc.py:155-162).
+template <typename T>
 __global__ void __launch_bounds__(kStatsThreads)
-jlc_stage1_bwd_planes(float* __restrict__ y, const float* __restrict__ g,
+jlc_stage1_bwd_planes(const float* y, const T* __restrict__ g, T* dy,
                       const float* __restrict__ mean,
                       const float* __restrict__ rstd, int64_t planes,
                       int64_t S) {
   const int64_t pj = blockIdx.x;              // branch-major plane index
-  float* yp = y + pj * S;
-  const float* gp = g + (pj % planes) * S;
+  const float* yp = y + pj * S;
+  T* dyp = dy + pj * S;
+  const T* gp = g + (pj % planes) * S;
   const float m = mean[pj], r = rstd[pj];
   double s1 = 0.0, s2 = 0.0;
   for (int64_t i = threadIdx.x; i < S; i += blockDim.x) {
     const float yh = (yp[i] - m) * r;
-    const float dn = gp[i] * gelu_grad(yh);
+    const float dn = to_f32(gp[i]) * gelu_grad(round_to<T>(yh));
     s1 += dn;
     s2 += static_cast<double>(dn) * yh;
   }
@@ -412,8 +432,8 @@ jlc_stage1_bwd_planes(float* __restrict__ y, const float* __restrict__ g,
   const float mdny = static_cast<float>(s2 / static_cast<double>(S));
   for (int64_t i = threadIdx.x; i < S; i += blockDim.x) {
     const float yh = (yp[i] - m) * r;
-    const float dn = gp[i] * gelu_grad(yh);
-    yp[i] = r * (dn - mdn - yh * mdny);
+    const float dn = to_f32(gp[i]) * gelu_grad(round_to<T>(yh));
+    dyp[i] = from_f32<T>(r * (dn - mdn - yh * mdny));
   }
 }
 
@@ -437,8 +457,9 @@ __device__ __forceinline__ void wgrad_row(int r, int& dz, int& dy) {
 // channel t % kCi of the block's 4, output quad (t / kCi) % oqb. Block x
 // walks the (b, tile) units [x · per, min(units, (x + 1) · per)) and
 // writes its sums to its slab part[x][C][cg][kTaps].
+template <typename T>
 __global__ void __launch_bounds__(kRows * kCi * kWgradMaxOq)
-jlc_branch_wgrad(const float* __restrict__ x, const float* __restrict__ dy,
+jlc_branch_wgrad(const T* __restrict__ x, const T* __restrict__ dy,
                  float* __restrict__ part, int B, int C, int D, int H, int W,
                  int cg, Tiles tl, int oqb, int per) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -490,11 +511,11 @@ jlc_branch_wgrad(const float* __restrict__ x, const float* __restrict__ dy,
       // voxels off the volume add nothing
       const bool in = vx < tl.tx && gz < D && gy < H && gx < W;
       const int64_t c = (int64_t)g * cg + (oc * oqb + q) * kOq + o;
-      cp_async_f32(dsf + ((v * 3 + j) * oqb + q) * kOq + o,
-                   in ? dy + ((int64_t)j * B * C + (int64_t)b * C + c) * S +
-                            ((int64_t)gz * H + gy) * W + gx
-                      : dy,
-                   in);
+      stage1<T>(dsf + ((v * 3 + j) * oqb + q) * kOq + o,
+                in ? dy + ((int64_t)j * B * C + (int64_t)b * C + c) * S +
+                         ((int64_t)gz * H + gy) * W + gx
+                   : dy,
+                in);
     }
     cp_async_wait_all();
     __syncthreads();
@@ -556,20 +577,20 @@ jlc_branch_wgrad(const float* __restrict__ x, const float* __restrict__ dy,
 }
 
 // The slabs summed over the chunks in order, scattered into the three
-// branches' (C, cg, k, k, k) weight gradients.
+// branches' (C, cg, k, k, k) weight gradients, rounded once to T.
+template <typename T>
 __global__ void jlc_wgrad_reduce(const float* __restrict__ part, int chunks,
-                                 int64_t n, float* __restrict__ dw1,
-                                 float* __restrict__ dw3,
-                                 float* __restrict__ dw5) {
+                                 int64_t n, T* __restrict__ dw1,
+                                 T* __restrict__ dw3, T* __restrict__ dw5) {
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * blockDim.x) {
     float s = 0.f;
     for (int k = 0; k < chunks; ++k) s += part[k * n + i];
     const int64_t oc = i / kTaps;        // o · cg + ci
     const int tap = (int)(i - oc * kTaps);
-    if (tap < 125) dw5[oc * 125 + tap] = s;
-    else if (tap < 152) dw3[oc * 27 + tap - 125] = s;
-    else dw1[oc] = s;
+    if (tap < 125) dw5[oc * 125 + tap] = from_f32<T>(s);
+    else if (tap < 152) dw3[oc * 27 + tap - 125] = from_f32<T>(s);
+    else dw1[oc] = from_f32<T>(s);
   }
 }
 
@@ -590,9 +611,9 @@ static bool make_tiles(int D, int H, int W, int tz, int ty, int tx,
   return true;
 }
 
-template <int VX>
-static cudaError_t launch_conv(const float* x, const float* w1,
-                               const float* w3, const float* w5, float* y,
+template <typename T, int VX>
+static cudaError_t launch_conv(const T* x, const T* w1, const T* w3,
+                               const T* w5, float* y,
                                double2* pstat, int B, int C, int D, int H,
                                int W, int groups, const Tiles& tl, int ks,
                                int oqb, cudaStream_t stream) {
@@ -614,27 +635,28 @@ static cudaError_t launch_conv(const float* x, const float* w1,
                         (size_t)oqb * kPairs * kSeg) * sizeof(double2);
   const size_t smem = conv > slices ? (conv > stats ? conv : stats)
                                     : (slices > stats ? slices : stats);
-  cudaError_t err = allow_smem(jlc_branch_conv<VX>, smem);
+  cudaError_t err = allow_smem(jlc_branch_conv<T, VX>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)tl.n, groups * (noq / oqb), B);
-  jlc_branch_conv<VX><<<grid, threads, smem, stream>>>(
+  jlc_branch_conv<T, VX><<<grid, threads, smem, stream>>>(
       x, w1, w3, w5, y, pstat, B, C, D, H, W, cg, tl, ks, oqb);
   return cudaGetLastError();
 }
 
 // The branch convolution of the three branches into scratch (3, B, C, S),
 // then their per-plane statistics: the part K4f and K4b share.
-static cudaError_t conv_and_stats(const float* x, const float* w1,
-                                  const float* w3, const float* w5,
-                                  float* scratch, double2* pstat, float* mean,
+template <typename T>
+static cudaError_t conv_and_stats(const T* x, const T* w1, const T* w3,
+                                  const T* w5, float* scratch,
+                                  double2* pstat, float* mean,
                                   float* rstd, int B, int C, int D, int H,
                                   int W, int groups, const Tiles& tl, int vx,
                                   int ks, int oqb, cudaStream_t stream) {
   cudaError_t err =
-      vx == 4 ? launch_conv<4>(x, w1, w3, w5, scratch, pstat, B, C, D, H, W,
-                               groups, tl, ks, oqb, stream)
-      : vx == 1 ? launch_conv<1>(x, w1, w3, w5, scratch, pstat, B, C, D, H,
-                                 W, groups, tl, ks, oqb, stream)
+      vx == 4 ? launch_conv<T, 4>(x, w1, w3, w5, scratch, pstat, B, C, D, H,
+                                  W, groups, tl, ks, oqb, stream)
+      : vx == 1 ? launch_conv<T, 1>(x, w1, w3, w5, scratch, pstat, B, C, D,
+                                    H, W, groups, tl, ks, oqb, stream)
                 : cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
   const int64_t planes = 3LL * B * C;
@@ -643,8 +665,9 @@ static cudaError_t conv_and_stats(const float* x, const float* w1,
   return cudaGetLastError();
 }
 
-static cudaError_t wgrad(const float* x, const float* dy, float* part,
-                         float* dw1, float* dw3, float* dw5, int B, int C,
+template <typename T>
+static cudaError_t wgrad(const T* x, const T* dy, float* part, T* dw1,
+                         T* dw3, T* dw5, int B, int C,
                          int D, int H, int W, int groups, const Tiles& tl,
                          int oqb, int chunks, cudaStream_t stream) {
   const int cg = C / groups, noq = cg / kOq;
@@ -658,18 +681,18 @@ static cudaError_t wgrad(const float* x, const float* dy, float* part,
   const int nvox = tl.tz * tl.ty * round4(tl.tx);
   const size_t smem = (size_t)kCi * plane * sizeof(float) +
                       (size_t)nvox * 3 * oqb * sizeof(float4);
-  cudaError_t err = allow_smem(jlc_branch_wgrad, smem);
+  cudaError_t err = allow_smem(jlc_branch_wgrad<T>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(chunks, groups * (noq / oqb) * (cg / kCi));
-  jlc_branch_wgrad<<<grid, kRows * kCi * oqb, smem, stream>>>(
+  jlc_branch_wgrad<T><<<grid, kRows * kCi * oqb, smem, stream>>>(
       x, dy, part, B, C, D, H, W, cg, tl, oqb, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t n = (int64_t)C * cg * kTaps;
   const unsigned blocks = (unsigned)((n + 255) / 256 < 4096 ? (n + 255) / 256
                                                             : 4096);
-  jlc_wgrad_reduce<<<blocks, 256, 0, stream>>>(part, chunks, n, dw1, dw3,
-                                               dw5);
+  jlc_wgrad_reduce<T><<<blocks, 256, 0, stream>>>(part, chunks, n, dw1, dw3,
+                                                  dw5);
   return cudaGetLastError();
 }
 
@@ -678,12 +701,12 @@ static bool shape_ok(int C, int groups) {
 }
 
 // K4f. x: (B, C, D, H, W); w1, w3, w5: the k = 1, 3, 5 branches'
-// (C, C/groups, k, k, k) weights; scratch: 3·B·C·S floats; pstat:
-// 3·B·C·tiles double2; mean, rstd: 3·B·C floats each; out: like x. The
+// (C, C/groups, k, k, k) weights; out: like x (all Elem); scratch: 3·B·C·S
+// floats; pstat: 3·B·C·tiles double2; mean, rstd: 3·B·C floats each. The
 // tiling (tz, ty, tx, vx, ks, oqb) comes from the wrapper.
-extern "C" int vs_jlc_stage1(const float* x, const float* w1, const float* w3,
-                             const float* w5, float* scratch, void* pstat,
-                             float* mean, float* rstd, float* out, int B,
+extern "C" int vs_jlc_stage1(const Elem* x, const Elem* w1, const Elem* w3,
+                             const Elem* w5, float* scratch, void* pstat,
+                             float* mean, float* rstd, Elem* out, int B,
                              int C, int D, int H, int W, int groups, int tz,
                              int ty, int tx, int vx, int ks, int oqb,
                              void* stream_ptr) {
@@ -703,17 +726,18 @@ extern "C" int vs_jlc_stage1(const float* x, const float* w1, const float* w3,
   const unsigned blocks = (unsigned)((n + threads - 1) / threads < 65536 * 8
                                          ? (n + threads - 1) / threads
                                          : 65536 * 8);
-  jlc_stage1_apply<<<blocks, threads, 0, stream>>>(x, scratch, mean, rstd, out,
-                                                   planes, S);
+  jlc_stage1_apply<Elem><<<blocks, threads, 0, stream>>>(
+      x, scratch, mean, rstd, out, planes, S);
   return cudaGetLastError();
 }
 
 // The branch weight gradients alone, given x and dy (3, B, C, S): what K4b
 // runs after its planes pass. part: chunks·C·(C/groups)·153 floats; dw1,
-// dw3, dw5: the branches' (C, C/groups, k, k, k) gradients.
-extern "C" int vs_jlc_branch_wgrad(const float* x, const float* dy,
-                                   float* part, float* dw1, float* dw3,
-                                   float* dw5, int B, int C, int D, int H,
+// dw3, dw5: the branches' (C, C/groups, k, k, k) gradients (x, dy and dW
+// Elem).
+extern "C" int vs_jlc_branch_wgrad(const Elem* x, const Elem* dy,
+                                   float* part, Elem* dw1, Elem* dw3,
+                                   Elem* dw5, int B, int C, int D, int H,
                                    int W, int groups, int tz, int ty, int tx,
                                    int oqb, int chunks, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -725,15 +749,16 @@ extern "C" int vs_jlc_branch_wgrad(const float* x, const float* dy,
                chunks, stream);
 }
 
-// K4b. x, g: (B, C, D, H, W); w1, w3, w5 as for vs_jlc_stage1; dy: 3·B·C·S
-// floats, the cotangent at each branch's conv output (branch-major, used as
-// the recompute scratch first); pstat, mean, rstd as for vs_jlc_stage1;
-// part, dw1, dw3, dw5 as for vs_jlc_branch_wgrad.
+// K4b. x, g: (B, C, D, H, W); w1, w3, w5 as for vs_jlc_stage1; scratch:
+// 3·B·C·S floats, the recomputed branch outputs; dy: 3·B·C·S, the
+// cotangent at each branch's conv output (branch-major; in fp32 it may be
+// the scratch itself, overwritten in place); pstat, mean, rstd as for
+// vs_jlc_stage1; part, dw1, dw3, dw5 as for vs_jlc_branch_wgrad.
 extern "C" int vs_jlc_stage1_bwd(
-    const float* x, const float* w1, const float* w3, const float* w5,
-    const float* g, float* dy, void* pstat, float* mean, float* rstd,
-    float* part, float* dw1, float* dw3, float* dw5, int B, int C, int D,
-    int H, int W, int groups, int tz, int ty, int tx, int vx, int ks,
+    const Elem* x, const Elem* w1, const Elem* w3, const Elem* w5,
+    const Elem* g, float* scratch, Elem* dy, void* pstat, float* mean,
+    float* rstd, float* part, Elem* dw1, Elem* dw3, Elem* dw5, int B, int C,
+    int D, int H, int W, int groups, int tz, int ty, int tx, int vx, int ks,
     int oqb, int wgrad_oqb, int chunks, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int64_t S = (int64_t)D * H * W;
@@ -742,11 +767,11 @@ extern "C" int vs_jlc_stage1_bwd(
   if (!shape_ok(C, groups) || !make_tiles(D, H, W, tz, ty, tx, tl))
     return cudaErrorInvalidValue;
   cudaError_t err = conv_and_stats(
-      x, w1, w3, w5, dy, static_cast<double2*>(pstat), mean, rstd, B, C, D,
-      H, W, groups, tl, vx, ks, oqb, stream);
+      x, w1, w3, w5, scratch, static_cast<double2*>(pstat), mean, rstd, B, C,
+      D, H, W, groups, tl, vx, ks, oqb, stream);
   if (err != cudaSuccess) return err;
-  jlc_stage1_bwd_planes<<<3 * B * C, kStatsThreads, 0, stream>>>(
-      dy, g, mean, rstd, (int64_t)B * C, S);
+  jlc_stage1_bwd_planes<Elem><<<3 * B * C, kStatsThreads, 0, stream>>>(
+      scratch, g, dy, mean, rstd, (int64_t)B * C, S);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return wgrad(x, dy, part, dw1, dw3, dw5, B, C, D, H, W, groups, tl,

@@ -1,5 +1,6 @@
-// K2b: backward of the train paired-window attention (K2f), fp32, for
-// windows of L <= 512 tokens.
+// K2b: backward of the train paired-window attention (K2f), fp32 or bf16
+// (q, k, v, dO and dq, dk, dv; built with -DVS_BF16), for windows of
+// L <= 512 tokens.
 //
 // Replaces: veloxseg_tpu/ops/pwa_attention.py:_train_bwd_kernel (344-404),
 // called through _train_bwd_pallas (605-630) from the custom VJP
@@ -38,6 +39,13 @@
 //   reduce the dq, dk, dv partials over the tiles and the dbias partials
 //          over the chunks, each in order (only where there are partials).
 // Tensor cores are not used (ROADMAP: 3×TF32).
+//
+// The bf16 form (T = bf16) is the same kernel: q, k, v and dO are converted
+// to fp32 as they are staged, every product and sum is fp32, dq, dk and dv
+// are rounded once to bf16 and dbias stays fp32, as _train_bwd_kernel
+// writes them (pwa_attention.py:344-404, 614-630). It takes K2f's output
+// in fp32 before its rounding (out32), so that D is the Pallas kernel's
+// rowsum(P ⊙ dP) up to fp32 rounding.
 #include "common.cuh"
 
 constexpr int kPass = 64;          // columns per pass over a tile
@@ -45,8 +53,8 @@ constexpr int kDS = kPass + 4;     // row stride of the dS and W tiles
 
 // K2b launch 1: per window and row, the forward's log-sum-exp in base 2
 // and D = Σ_c dO·out (= Σ_j P·dP); stats: [window][2][L].
-template <int CV>
-__global__ void pwa_bwd_prep(const float* __restrict__ dout,
+template <typename T, int CV>
+__global__ void pwa_bwd_prep(const T* __restrict__ dout,
                              const float* __restrict__ out,
                              const float* __restrict__ lse,
                              float* __restrict__ stats, int64_t W, int L) {
@@ -58,7 +66,8 @@ __global__ void pwa_bwd_prep(const float* __restrict__ dout,
   float d = 0.f;
 #pragma unroll
   for (int c = 0; c < CV; ++c)
-    d = fmaf(dout[(w * CV + c) * L + l], out[(w * CV + c) * L + l], d);
+    d = fmaf(to_f32(dout[(w * CV + c) * L + l]), out[(w * CV + c) * L + l],
+             d);
   stats[(w * 2) * L + l] = lse[i] * kLog2e;
   stats[(w * 2 + 1) * L + l] = d;
 }
@@ -75,16 +84,16 @@ struct Stage {
 
 // Issue the copies of window w's tokens for row tile l0 and column tile m0
 // into buf; past L everything reads 0.
-template <int CQK, int CV, int T>
+template <typename E, int CQK, int CV, int T>
 __device__ __forceinline__ void stage_window(
-    float* buf, const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
+    float* buf, const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const E* __restrict__ dout,
     const float* __restrict__ stats, int64_t w, int L, int l0, int m0) {
   using St = Stage<CQK, CV, T>;
   constexpr int n = (2 * CQK + 2 * CV) * T + 2 * T;
   for (int i = threadIdx.x; i < n; i += 4 * T) {
     const int row = i / T, j = i - row * T;   // T is a power of two
-    const float* src;
+    const E* src;
     int t, c;
     if (row < CQK) {
       src = q; c = row; t = l0 + j;
@@ -100,14 +109,14 @@ __device__ __forceinline__ void stage_window(
       src += (w * CV + c) * L;
     } else {
       c = row - 2 * CQK - 2 * CV;   // 0: lse2, 1: D
-      src = stats + (w * 2 + c) * L;
+      const float* st = stats + (w * 2 + c) * L;
       t = l0 + j;
       const bool ok = t < L;
-      cp_async_f32(buf + St::kStats + c * T + j, src + (ok ? t : 0), ok);
+      cp_async_f32(buf + St::kStats + c * T + j, st + (ok ? t : 0), ok);
       continue;
     }
     const bool ok = t < L;
-    cp_async_f32(buf + row * St::kTS + j, src + (ok ? t : 0), ok);
+    stage1<E>(buf + row * St::kTS + j, src + (ok ? t : 0), ok);
   }
 }
 
@@ -117,13 +126,13 @@ __device__ __forceinline__ void stage_window(
 // each [tile][window][c][L] (dq over the column tiles J, dk and dv over the
 // row tiles I; with one tile dq, dk, dv are written whole, scaled), and
 // partb [chunk][h][L][L] (with one chunk dbias is written whole).
-template <int CQK, int CV, int T, bool DROP>
+template <typename E, int CQK, int CV, int T, bool DROP>
 __global__ void __launch_bounds__(4 * T, T == 64 ? 2 : 1)
-pwa_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ bias,
-              const int* __restrict__ seed, const float* __restrict__ dout,
-              const float* __restrict__ stats, float* __restrict__ dq,
-              float* __restrict__ dk, float* __restrict__ dv,
+pwa_bwd_tiles(const E* __restrict__ q, const E* __restrict__ k,
+              const E* __restrict__ v, const float* __restrict__ bias,
+              const int* __restrict__ seed, const E* __restrict__ dout,
+              const float* __restrict__ stats, E* __restrict__ dq,
+              E* __restrict__ dk, E* __restrict__ dv,
               float* __restrict__ dbias, float* __restrict__ part,
               float* __restrict__ partb, int B, int H, int N, int L, int per,
               float scale, uint32_t thresh, float inv_keep) {
@@ -179,8 +188,8 @@ pwa_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
     return (static_cast<int64_t>(b) * H + h) * N + n;
   };
   if (j0 < j1)
-    stage_window<CQK, CV, T>(stage, q, k, v, dout, stats, window(j0), L,
-                             l0, m0);
+    stage_window<E, CQK, CV, T>(stage, q, k, v, dout, stats, window(j0),
+                                L, l0, m0);
   for (int j = j0; j < j1; ++j) {
     const int64_t w = window(j);
     const float* cur = stage + ((j - j0) & 1) * St::kFloats;
@@ -188,8 +197,9 @@ pwa_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();  // this window is staged; the last one is done with
                       // the other buffer and with dss, ws
     if (j + 1 < j1)
-      stage_window<CQK, CV, T>(stage + ((j + 1 - j0) & 1) * St::kFloats, q,
-                               k, v, dout, stats, window(j + 1), L, l0, m0);
+      stage_window<E, CQK, CV, T>(stage + ((j + 1 - j0) & 1) * St::kFloats,
+                                  q, k, v, dout, stats, window(j + 1), L, l0,
+                                  m0);
     const float* qT = cur + St::kQ;
     const float* dT = cur + St::kD;
     const float* kT = cur + St::kK;
@@ -299,29 +309,35 @@ pwa_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
         const int col = m0 + ps * kPass + m;
         if (col < L) {
           const int C = is_v ? CV : CQK;
-          float* dst;
-          float f = 1.f;
           if (whole) {
-            dst = (is_v ? dv : dk) + (w * C + c0) * L + col;
-            f = is_v ? 1.f : scale;
-          } else {
-            dst = (is_v ? dvp + static_cast<int64_t>(I) * W * CV * L
-                        : dkp + static_cast<int64_t>(I) * nq) +
-                  (w * C + c0) * L + col;
-          }
+            E* dst = (is_v ? dv : dk) + (w * C + c0) * L + col;
+            const float f = is_v ? 1.f : scale;
 #pragma unroll
-          for (int cc = 0; cc < 4; ++cc) dst[cc * L] = a[cc] * f;
+            for (int cc = 0; cc < 4; ++cc)
+              dst[cc * L] = from_f32<E>(a[cc] * f);
+          } else {
+            float* dst = (is_v ? dvp + static_cast<int64_t>(I) * W * CV * L
+                               : dkp + static_cast<int64_t>(I) * nq) +
+                         (w * C + c0) * L + col;
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) dst[cc * L] = a[cc];
+          }
         }
       }
       if (ps + 1 < kPasses) __syncthreads();  // dss, ws are rewritten
     }
     if (has_dq && l0 + pr < L) {
-      float* dst = whole ? dq + (w * CQK + cq) * L + l0 + pr
-                         : dqp + static_cast<int64_t>(J) * nq +
-                               (w * CQK + cq) * L + l0 + pr;
-      const float f = whole ? scale : 1.f;
+      if (whole) {
+        E* dst = dq + (w * CQK + cq) * L + l0 + pr;
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc) dst[cc * L] = dqa[cc] * f;
+        for (int cc = 0; cc < 4; ++cc)
+          dst[cc * L] = from_f32<E>(dqa[cc] * scale);
+      } else {
+        float* dst = dqp + static_cast<int64_t>(J) * nq +
+                     (w * CQK + cq) * L + l0 + pr;
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) dst[cc * L] = dqa[cc];
+      }
     }
   }
   float* dbh = (gridDim.z == 1 ? dbias
@@ -343,13 +359,14 @@ pwa_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // K2b launch 3: dq = scale·Σ_J, dk = scale·Σ_I, dv = Σ_I of the partials
-// over the tiles in order (nT > 1), and dbias = Σ of the chunk partials in
-// order (chunks > 1). Elements [0, 2·nq + nv) are dq | dk | dv when nT > 1,
-// the next nb dbias when chunks > 1.
+// over the tiles in order (nT > 1), rounded to E, and dbias = Σ of the
+// chunk partials in order (chunks > 1). Elements [0, 2·nq + nv) are dq |
+// dk | dv when nT > 1, the next nb dbias when chunks > 1.
+template <typename E>
 __global__ void pwa_bwd_reduce(const float* __restrict__ part,
                                const float* __restrict__ partb,
-                               float* __restrict__ dq, float* __restrict__ dk,
-                               float* __restrict__ dv,
+                               E* __restrict__ dq, E* __restrict__ dk,
+                               E* __restrict__ dv,
                                float* __restrict__ dbias, int64_t nq,
                                int64_t nv, int nT, int64_t nb, int chunks,
                                float scale) {
@@ -365,9 +382,9 @@ __global__ void pwa_bwd_reduce(const float* __restrict__ part,
       const float* p = part + which * nT * nq + e;
       float s = 0.f;
       for (int t = 0; t < nT; ++t) s += p[t * stride];
-      if (which == 0) dq[e] = s * scale;
-      else if (which == 1) dk[e] = s * scale;
-      else dv[e] = s;
+      if (which == 0) dq[e] = from_f32<E>(s * scale);
+      else if (which == 1) dk[e] = from_f32<E>(s * scale);
+      else dv[e] = from_f32<E>(s);
     } else {
       const int64_t e = i - ntok;
       const float* p = partb + e;
@@ -393,11 +410,11 @@ constexpr size_t tiles_smem() {
                              2 * T * kDS) * sizeof(float);
 }
 
-template <int CQK, int CV, int T, bool DROP>
-static cudaError_t launch_tiles(const float* q, const float* k, const float* v,
+template <typename E, int CQK, int CV, int T, bool DROP>
+static cudaError_t launch_tiles(const E* q, const E* k, const E* v,
                                 const float* bias, const int* seed,
-                                const float* dout, const float* stats,
-                                float* dq, float* dk, float* dv, float* dbias,
+                                const E* dout, const float* stats, E* dq,
+                                E* dk, E* dv, float* dbias,
                                 float* part, float* partb, int B, int H,
                                 int N, int L, int chunks, int per,
                                 float scale, uint32_t thresh, float inv_keep,
@@ -406,10 +423,10 @@ static cudaError_t launch_tiles(const float* q, const float* k, const float* v,
     return cudaErrorInvalidValue;
   } else {
     const size_t smem = tiles_smem<CQK, CV, T>();
-    cudaError_t err = allow_smem(pwa_bwd_tiles<CQK, CV, T, DROP>, smem);
+    cudaError_t err = allow_smem(pwa_bwd_tiles<E, CQK, CV, T, DROP>, smem);
     if (err != cudaSuccess) return err;
     const unsigned nT = static_cast<unsigned>((L + T - 1) / T);
-    pwa_bwd_tiles<CQK, CV, T, DROP>
+    pwa_bwd_tiles<E, CQK, CV, T, DROP>
         <<<dim3(nT * nT, static_cast<unsigned>(H),
                 static_cast<unsigned>(chunks)),
            4 * T, smem, stream>>>(q, k, v, bias, seed, dout, stats, dq, dk,
@@ -419,26 +436,26 @@ static cudaError_t launch_tiles(const float* q, const float* k, const float* v,
   }
 }
 
-template <int CQK, int CV>
-static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
+template <typename E, int CQK, int CV>
+static cudaError_t launch_bwd(const E* q, const E* k, const E* v,
                               const float* bias, const int* seed,
-                              const float* dout, const float* out,
-                              const float* lse, float* dq, float* dk,
-                              float* dv, float* dbias, float* stats,
+                              const E* dout, const float* out,
+                              const float* lse, E* dq, E* dk, E* dv,
+                              float* dbias, float* stats,
                               float* part, float* partb, int B, int H, int N,
                               int L, int T, int chunks, int per, float scale,
                               uint32_t thresh, float inv_keep,
                               cudaStream_t stream) {
   const int64_t W = static_cast<int64_t>(B) * H * N;
-  pwa_bwd_prep<CV><<<static_cast<unsigned>((W * L + 255) / 256), 256, 0,
-                     stream>>>(dout, out, lse, stats, W, L);
+  pwa_bwd_prep<E, CV><<<static_cast<unsigned>((W * L + 255) / 256), 256, 0,
+                        stream>>>(dout, out, lse, stats, W, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 #define VS_TILES(TT, DROP)                                                   \
-  err = launch_tiles<CQK, CV, TT, DROP>(q, k, v, bias, seed, dout, stats, dq, \
-                                        dk, dv, dbias, part, partb, B, H, N,  \
-                                        L, chunks, per, scale, thresh,        \
-                                        inv_keep, stream);
+  err = launch_tiles<E, CQK, CV, TT, DROP>(q, k, v, bias, seed, dout, stats, \
+                                           dq, dk, dv, dbias, part, partb, B, \
+                                           H, N, L, chunks, per, scale,       \
+                                           thresh, inv_keep, stream);
   if (T == 64 && thresh == 0) { VS_TILES(64, false) }
   else if (T == 64) { VS_TILES(64, true) }
   else if (T == 128 && thresh == 0) { VS_TILES(128, false) }
@@ -452,30 +469,32 @@ static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
   const int64_t nb = static_cast<int64_t>(H) * L * L;
   const int64_t n = (nT > 1 ? 2 * nq + nv : 0) + (chunks > 1 ? nb : 0);
   const int64_t want = (n + 255) / 256;
-  pwa_bwd_reduce<<<static_cast<unsigned>(want < 4096 ? want : 4096), 256, 0,
-                   stream>>>(part, partb, dq, dk, dv, dbias, nq, nv, nT, nb,
-                             chunks, scale);
+  pwa_bwd_reduce<E><<<static_cast<unsigned>(want < 4096 ? want : 4096), 256,
+                      0, stream>>>(part, partb, dq, dk, dv, dbias, nq, nv,
+                                   nT, nb, chunks, scale);
   return cudaGetLastError();
 }
 
 #define VS_CASE(CQ, CVV)                                                     \
   if (Cqk == CQ && Cv == CVV)                                                \
-    return launch_bwd<CQ, CVV>(q, k, v, bias, seed, dout, out, lse, dq, dk,  \
-                               dv, dbias, stats, part, partb, B, H, N, L, T, \
-                               chunks, per, scale, thresh, inv_keep, stream);
+    return launch_bwd<Elem, CQ, CVV>(q, k, v, bias, seed, dout, out, lse, dq, \
+                                     dk, dv, dbias, stats, part, partb, B, H, \
+                                     N, L, T, chunks, per, scale, thresh,     \
+                                     inv_keep, stream);
 
-// q, k: (B, H, N, Cqk, L); v, dout, out: (B, H, N, Cv, L); lse: (B, H, N,
-// L), K2f's out and log-sum-exp of the same call; bias: (H, L, L); seed:
+// q, k: (B, H, N, Cqk, L); v, dout: (B, H, N, Cv, L), Elem; out: (B, H, N,
+// Cv, L) and lse: (B, H, N, L), float, K2f's output (before its rounding to
+// Elem) and log-sum-exp of the same call; bias: (H, L, L), float; seed:
 // int32 [seed, batch_offset] on the device; thresh = 0: no dropout. dq, dk,
-// dv like q, k, v; dbias: (H, L, L). Scratch: stats B·H·N·2·L floats;
+// dv like q, k, v, Elem; dbias: (H, L, L), float. Scratch: stats B·H·N·2·L floats;
 // part 2·nT·B·H·N·Cqk·L + nT·B·H·N·Cv·L floats (nT = ⌈L/T⌉; unused when
 // nT = 1); partb chunks·H·L·L floats (unused when chunks = 1). The launch
 // geometry (ops/pwa_attention.py:train_bwd_launch): tile edge T (64 or
 // 128), `chunks` chunks of `per` windows of each head.
 extern "C" int vs_pwa_attention_train_bwd(
-    const float* q, const float* k, const float* v, const float* bias,
-    const int* seed, const float* dout, const float* out, const float* lse,
-    float* dq, float* dk, float* dv, float* dbias, float* stats, float* part,
+    const Elem* q, const Elem* k, const Elem* v, const float* bias,
+    const int* seed, const Elem* dout, const float* out, const float* lse,
+    Elem* dq, Elem* dk, Elem* dv, float* dbias, float* stats, float* part,
     float* partb, int B, int H, int N, int Cqk, int Cv, int L, int T,
     int chunks, int per, float scale, unsigned int thresh, float inv_keep,
     void* stream_ptr) {

@@ -1,6 +1,6 @@
 // K1, K2f and K3f: the forward of the paired-window attention, eval (K1)
 // and train with counter-hash weight dropout (K2f, K3f), for every window
-// length; fp32.
+// length; fp32, and K2f also for bf16 q, k, v (built with -DVS_BF16).
 //
 // Replaces: veloxseg_tpu/ops/pwa_attention.py:_attn_kernel (56-74, K1,
 // called through window_attention_pallas, 77-133), _train_fwd_kernel
@@ -51,6 +51,15 @@
 // with no column inside L (L < 16) merges as zero. Warps of a window slot
 // past the chunk compute on stale data and write nothing. Tensor cores are
 // not used.
+//
+// The bf16 form (T = bf16, the JAX trainer's operands) is the same kernel:
+// q, k and v are converted to fp32 as they are staged (loaded at once, not
+// by cp.async, which cannot widen), the scores, the softmax and the kept
+// weights' product with V stay fp32 (the weights are not rounded:
+// pwa_attention.py:324-341), and the output is rounded once to bf16. It
+// also writes the output in fp32 before that rounding (out32), from which
+// K2b forms D = rowsum(dO ⊙ out) as the Pallas backward forms it from
+// unrounded weights. The bias and lse stay fp32.
 #include "common.cuh"
 
 constexpr int kStep = 32;      // columns of one online-softmax step
@@ -112,13 +121,14 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int n,
   }
 }
 
-template <int CQK, int CV, bool DROP, bool LSE, bool LDG>
+template <typename T, int CQK, int CV, bool DROP, bool LSE, bool LDG>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
-pwa_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
+pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
                      const float* __restrict__ bias,
-                     const int* __restrict__ seed, float* __restrict__ out,
-                     float* __restrict__ lse, int B, int H, int N, int L,
+                     const int* __restrict__ seed, T* __restrict__ out,
+                     float* __restrict__ out32, float* __restrict__ lse,
+                     int B, int H, int N, int L,
                      int S, int W, int per, float scale, uint32_t thresh,
                      float inv_keep) {
   constexpr int RM = rows_per_lane(CQK, CV);
@@ -159,30 +169,30 @@ pwa_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (j >= j1) return;
     const int64_t w = window(j);
     float* buf = stage + ((it & 1) * W + wl) * wf;
-    const float* kw = k + w * CQK * L + m0;
-    const float* vw = v + w * CV * L + m0;
+    const T* kw = k + w * CQK * L + m0;
+    const T* vw = v + w * CV * L + m0;
     const int valid = min(kTile, L - m0);
     const int shift = wide ? 4 : 6;  // log2 of the copies a row
     for (int e = slab * 32 + lane; e < (CQK + CV) << shift; e += S * 32) {
       const int r = e >> shift, col = (e & ((1 << shift) - 1)) << (6 - shift);
-      const float* src = r < CQK ? kw + r * L : vw + (r - CQK) * L;
+      const T* src = r < CQK ? kw + r * L : vw + (r - CQK) * L;
       const bool ok = col < valid;
       if (wide)
-        cp_async_f32x4(buf + r * kTile + col, src + (ok ? col : 0), ok);
+        stage4<T>(buf + r * kTile + col, src + (ok ? col : 0), ok);
       else
-        cp_async_f32(buf + r * kTile + col, src + (ok ? col : 0), ok);
+        stage1<T>(buf + r * kTile + col, src + (ok ? col : 0), ok);
     }
     if (t != 0) return;
-    const float* qw = q + w * CQK * L + l0;
+    const T* qw = q + w * CQK * L + l0;
     float* qb = buf + kTile * (CQK + CV);
     const int qvalid = min(rows, L - l0), qrow = wide ? rows / 4 : rows;
     for (int e = slab * 32 + lane; e < CQK * qrow; e += S * 32) {
       const int c = e / qrow, r = (e - c * qrow) * (wide ? 4 : 1);
       const bool ok = r < qvalid;
       if (wide)
-        cp_async_f32x4(qb + c * rows + r, qw + c * L + (ok ? r : 0), ok);
+        stage4<T>(qb + c * rows + r, qw + c * L + (ok ? r : 0), ok);
       else
-        cp_async_f32(qb + c * rows + r, qw + c * L + (ok ? r : 0), ok);
+        stage1<T>(qb + c * rows + r, qw + c * L + (ok ? r : 0), ok);
     }
   };
   if (nstage > 0) stage_copy(0);
@@ -331,41 +341,45 @@ pwa_train_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (LSE && tx == 0) lse[w * L + l] = (m + log2f(tot)) * kLn2;
       const float inv = keep_scale / tot;
 #pragma unroll
-      for (int c = 0; c < CV; ++c)
-        if ((c & (kTX - 1)) == tx) out[(w * CV + c) * L + l] = acc[i][c] * inv;
+      for (int c = 0; c < CV; ++c) {
+        if ((c & (kTX - 1)) != tx) continue;
+        const float o = acc[i][c] * inv;
+        out[(w * CV + c) * L + l] = from_f32<T>(o);
+        if (!kIsF32<T> && LSE) out32[(w * CV + c) * L + l] = o;
+      }
     }
   }
 }
 
-template <int CQK, int CV, bool DROP, bool LSE, bool LDG>
-static cudaError_t launch(const float* q, const float* k, const float* v,
-                          const float* bias, const int* seed, float* out,
-                          float* lse, int B, int H, int N, int L, int S,
-                          int W, int chunks, int per, float scale,
-                          uint32_t thresh, float inv_keep,
+template <typename T, int CQK, int CV, bool DROP, bool LSE, bool LDG>
+static cudaError_t launch(const T* q, const T* k, const T* v,
+                          const float* bias, const int* seed, T* out,
+                          float* out32, float* lse, int B, int H, int N,
+                          int L, int S, int W, int chunks, int per,
+                          float scale, uint32_t thresh, float inv_keep,
                           cudaStream_t stream) {
-  auto kernel = pwa_train_fwd_kernel<CQK, CV, DROP, LSE, LDG>;
+  auto kernel = pwa_train_fwd_kernel<T, CQK, CV, DROP, LSE, LDG>;
   const size_t smem = fwd_smem_floats(S, W, L, CQK, CV, LDG) * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int rows = S * kTY * rows_per_lane(CQK, CV);
   const dim3 grid(static_cast<unsigned>((L + rows - 1) / rows),
                   static_cast<unsigned>(H), static_cast<unsigned>(chunks));
-  kernel<<<grid, 32 * S * W, smem, stream>>>(q, k, v, bias, seed, out, lse,
-                                             B, H, N, L, S, W, per, scale,
-                                             thresh, inv_keep);
+  kernel<<<grid, 32 * S * W, smem, stream>>>(q, k, v, bias, seed, out, out32,
+                                             lse, B, H, N, L, S, W, per,
+                                             scale, thresh, inv_keep);
   return cudaGetLastError();
 }
 
 #define VS_CASE(CQ, CVV)                                                    \
   if (Cqk == CQ && Cv == CVV)                                               \
     return thresh == 0                                                      \
-               ? launch<CQ, CVV, false, true, false>(                       \
-                     q, k, v, bias, seed, out, lse, B, H, N, L, S, W,       \
-                     chunks, per, scale, thresh, inv_keep, stream)          \
-               : launch<CQ, CVV, true, true, false>(                        \
-                     q, k, v, bias, seed, out, lse, B, H, N, L, S, W,       \
-                     chunks, per, scale, thresh, inv_keep, stream);
+               ? launch<Elem, CQ, CVV, false, true, false>(                 \
+                     q, k, v, bias, seed, out, out32, lse, B, H, N, L, S,   \
+                     W, chunks, per, scale, thresh, inv_keep, stream)       \
+               : launch<Elem, CQ, CVV, true, true, false>(                  \
+                     q, k, v, bias, seed, out, out32, lse, B, H, N, L, S,   \
+                     W, chunks, per, scale, thresh, inv_keep, stream);
 
 // The checks both entry points share: a launch geometry that covers every
 // row and window once, within a block's threads.
@@ -378,19 +392,20 @@ static bool geometry_ok(int B, int H, int N, int L, int S, int W, int chunks,
          static_cast<int64_t>(chunks) * per >= bn;
 }
 
-// q, k: (B, H, N, Cqk, L); v, out: (B, H, N, Cv, L); bias: (H, L, L);
-// seed: int32 [seed, batch_offset] on the device; thresh = 0: no dropout
-// (the instance without the hash); lse: (B, H, N, L), each row's
-// log-sum-exp of its logits. Geometry (ops/pwa_attention.py:
-// train_fwd_launch): blocks of S·8·RM rows and S·W warps, `chunks` chunks
-// of `per` windows of each head.
+// q, k: (B, H, N, Cqk, L); v, out: (B, H, N, Cv, L), Elem; bias: (H, L,
+// L), float; seed: int32 [seed, batch_offset] on the device; thresh = 0: no
+// dropout (the instance without the hash); out32: the output in fp32
+// before its rounding to Elem (written by the bf16 form only); lse: (B, H,
+// N, L), each row's log-sum-exp of its logits. Geometry
+// (ops/pwa_attention.py: train_fwd_launch): blocks of S·8·RM rows and S·W
+// warps, `chunks` chunks of `per` windows of each head.
 //
-// K2f: every (Cqk, Cv) of KERNEL_WIDTHS.
+// K2f: every (Cqk, Cv) of KERNEL_WIDTHS, fp32 and bf16.
 extern "C" int vs_pwa_attention_train(
-    const float* q, const float* k, const float* v, const float* bias,
-    const int* seed, float* out, float* lse, int B, int H, int N, int Cqk,
-    int Cv, int L, int S, int W, int chunks, int per, float scale,
-    unsigned int thresh, float inv_keep, void* stream_ptr) {
+    const Elem* q, const Elem* k, const Elem* v, const float* bias,
+    const int* seed, Elem* out, float* out32, float* lse, int B, int H,
+    int N, int Cqk, int Cv, int L, int S, int W, int chunks, int per,
+    float scale, unsigned int thresh, float inv_keep, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!geometry_ok(B, H, N, L, S, W, chunks, per))
     return cudaErrorInvalidValue;
@@ -400,13 +415,15 @@ extern "C" int vs_pwa_attention_train(
   return cudaErrorInvalidValue;
 }
 
+#ifndef VS_BF16
 // K3f: the same kernel for windows longer than 512 tokens, at the widths
-// K3b is built for (LONG_KERNEL_WIDTHS: (8, 8)).
+// K3b is built for (LONG_KERNEL_WIDTHS: (8, 8)); fp32 (bf16 operands are
+// cast at its edges: ops/pwa_attention.py).
 extern "C" int vs_pwa_attention_long_train(
     const float* q, const float* k, const float* v, const float* bias,
-    const int* seed, float* out, float* lse, int B, int H, int N, int Cqk,
-    int Cv, int L, int S, int W, int chunks, int per, float scale,
-    unsigned int thresh, float inv_keep, void* stream_ptr) {
+    const int* seed, float* out, float* out32, float* lse, int B, int H,
+    int N, int Cqk, int Cv, int L, int S, int W, int chunks, int per,
+    float scale, unsigned int thresh, float inv_keep, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!geometry_ok(B, H, N, L, S, W, chunks, per))
     return cudaErrorInvalidValue;
@@ -416,12 +433,12 @@ extern "C" int vs_pwa_attention_long_train(
 
 #define VS_EVAL_CASE(CQ, CVV)                                               \
   if (Cqk == CQ && Cv == CVV)                                               \
-    return ldg ? launch<CQ, CVV, false, false, true>(                       \
-                     q, k, v, bias, nullptr, out, nullptr, B, H, N, L, S,   \
-                     W, chunks, per, scale, 0u, 1.f, stream)                \
-               : launch<CQ, CVV, false, false, false>(                      \
-                     q, k, v, bias, nullptr, out, nullptr, B, H, N, L, S,   \
-                     W, chunks, per, scale, 0u, 1.f, stream);
+    return ldg ? launch<float, CQ, CVV, false, false, true>(                \
+                     q, k, v, bias, nullptr, out, nullptr, nullptr, B, H,   \
+                     N, L, S, W, chunks, per, scale, 0u, 1.f, stream)       \
+               : launch<float, CQ, CVV, false, false, false>(               \
+                     q, k, v, bias, nullptr, out, nullptr, nullptr, B, H,   \
+                     N, L, S, W, chunks, per, scale, 0u, 1.f, stream);
 
 // K1: the eval instance, every (Cqk, Cv) of KERNEL_WIDTHS at every L:
 // no dropout, no lse; the geometry as above (ops/pwa_attention.py:
@@ -440,3 +457,4 @@ extern "C" int vs_pwa_attention(const float* q, const float* k,
   VS_EVAL_CASE(16, 8) VS_EVAL_CASE(16, 16) VS_EVAL_CASE(16, 32)
   return cudaErrorInvalidValue;
 }
+#endif  // VS_BF16

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 # He (kaiming-normal) init with leaky-relu negative slope 1e-2, fan_in: the
@@ -77,9 +78,37 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     return torch.where(mask, x / keep, 0.0)
 
 
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` that, on a tensor narrower than fp32 (bf16), adds its
+    bias to the product already rounded to that dtype, as the JAX package's
+    convolution or einsum and then ``+ bias`` do
+    (``veloxseg_tpu/nn/basic.py:80-88``, ``nn/pwa.py:304-316``); in fp32
+    it is ``nn.Conv3d``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32 or self.bias is None:
+            return super().forward(x)
+        return (self._conv_forward(x, self.weight, None)
+                + self.bias.view(-1, 1, 1, 1))
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    """``nn.ConvTranspose3d`` whose bias is added as :class:`Conv3d`'s
+    (the UpConv's matmul, pixel shuffle, then ``+ bias``:
+    ``veloxseg_tpu/nn/conv_blocks.py:155-177``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32 or self.bias is None:
+            return super().forward(x)
+        return (F.conv_transpose3d(x, self.weight, None, self.stride,
+                                   self.padding, self.output_padding,
+                                   self.groups, self.dilation)
+                + self.bias.view(-1, 1, 1, 1))
+
+
 def GroupedConv3d(in_ch: int, out_ch: int, kernel_size: int, groups: int = 1,
                   stride: int = 1, padding: Optional[int] = None,
-                  bias: bool = True) -> nn.Conv3d:
+                  bias: bool = True) -> Conv3d:
     """Grouped 3-D convolution, "same" padding by default (the reference's
     ``nn.Conv3d(..., groups=g)`` inside JLC blocks,
     ``model/components/conv_blocks.py:50-62``)."""
@@ -88,13 +117,13 @@ def GroupedConv3d(in_ch: int, out_ch: int, kernel_size: int, groups: int = 1,
                          f"groups {groups}")
     if padding is None:
         padding = kernel_size // 2
-    return nn.Conv3d(in_ch, out_ch, kernel_size, stride=stride,
-                     padding=padding, groups=groups, bias=bias)
+    return Conv3d(in_ch, out_ch, kernel_size, stride=stride,
+                  padding=padding, groups=groups, bias=bias)
 
 
-def Conv1x1(in_ch: int, out_ch: int, bias: bool = True) -> nn.Conv3d:
+def Conv1x1(in_ch: int, out_ch: int, bias: bool = True) -> Conv3d:
     """1×1×1 projection, stored as the reference's Conv3d ``(O, I, 1, 1, 1)``."""
-    return nn.Conv3d(in_ch, out_ch, 1, bias=bias)
+    return Conv3d(in_ch, out_ch, 1, bias=bias)
 
 
 class FFN(nn.Module):

@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fused_jlc
-from .basic import Conv1x1, GroupedConv3d, dropout, get_act
+from .basic import (Conv1x1, ConvTranspose3d, GroupedConv3d, dropout,
+                    get_act)
 from .norms import InstanceNorm, instance_norm
 
 
@@ -50,7 +51,7 @@ class UpConv(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, up_rate: int = 2):
         super().__init__()
-        self.up = nn.ConvTranspose3d(in_ch, out_ch, up_rate, stride=up_rate)
+        self.up = ConvTranspose3d(in_ch, out_ch, up_rate, stride=up_rate)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return instance_norm(self.up(x))

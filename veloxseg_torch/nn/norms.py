@@ -6,6 +6,11 @@
 - :func:`instance_norm` normalizes per (sample, channel) over the spatial
   axes with no affine parameters, eps 1e-5 inside the rsqrt and
   ``max(var, 0)``, as ``veloxseg_tpu/nn/norms.py:49-62`` computes it.
+
+Both compute in fp32 and cast the result back to the input's dtype, as the
+JAX package does for bf16 activations (``veloxseg_tpu/nn/norms.py:33-38``,
+``57-63``): the LayerNorm rounds the normalized value, then applies its
+weight and bias in the input's dtype.
 """
 
 from __future__ import annotations
@@ -24,9 +29,10 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=1, keepdim=True)
-        var = (x - mean).square().mean(dim=1, keepdim=True)
-        y = (x - mean) / torch.sqrt(var + self.eps)
+        xf = x.float()
+        mean = xf.mean(dim=1, keepdim=True)
+        var = (xf - mean).square().mean(dim=1, keepdim=True)
+        y = ((xf - mean) / torch.sqrt(var + self.eps)).to(x.dtype)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return y * self.weight.view(shape) + self.bias.view(shape)
 
@@ -37,10 +43,11 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     count = 1
     for a in axes:
         count *= x.shape[a]
-    mean = x.sum(dim=axes, keepdim=True) / count
-    var = x.square().sum(dim=axes, keepdim=True) / count - mean.square()
+    xf = x.float()
+    mean = xf.sum(dim=axes, keepdim=True) / count
+    var = xf.square().sum(dim=axes, keepdim=True) / count - mean.square()
     scale = torch.rsqrt(var.clamp_min(0.0) + eps)
-    return x * scale - mean * scale
+    return (xf * scale - mean * scale).to(x.dtype)
 
 
 class InstanceNorm(nn.Module):

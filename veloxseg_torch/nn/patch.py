@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .basic import Conv1x1
+from .basic import Conv1x1, Conv3d
 from .norms import LayerNorm
 
 
@@ -24,7 +24,7 @@ class PatchEmbed(nn.Module):
                  use_norm: bool = False):
         super().__init__()
         self.patch_size = patch_size
-        self.proj = nn.Conv3d(in_ch, embed_dim, patch_size, stride=patch_size)
+        self.proj = Conv3d(in_ch, embed_dim, patch_size, stride=patch_size)
         self.norm = LayerNorm(embed_dim) if use_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -234,8 +234,10 @@ class MultiModalPWA(nn.Module):
                 seed[0] = torch.randint(
                     0, 2 ** 31 - 1, (1,), generator=generator,
                     device=generator.device, dtype=torch.int32)[0]
-            attn = window_attention_train(q, k, v, bias.contiguous(), seed,
-                                          scale, float(self.attn_drop))
+            # the kernels take the bias in fp32, as the JAX package casts
+            # it at the Pallas call (``ops/pwa_attention.py:602, 627``)
+            attn = window_attention_train(q, k, v, bias.float().contiguous(),
+                                          seed, scale, float(self.attn_drop))
         else:
             attn = window_attention(q, k, v, bias.contiguous(), scale)
 

@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with :mod:`ctypes`
-(no PyTorch headers, so a build takes seconds). All sources build in
-parallel, one ``nvcc`` process each, at first use, into ``_build/`` beside
-this package's sources. A library's file name carries a hash of its
-sources and flags, so an edited source is never served by a stale build.
+(no PyTorch headers, so a build takes seconds). The sources of the bf16
+forms (``BF16_SOURCES``) are compiled once more with ``-DVS_BF16`` into
+``<name>_bf16``: the same kernels and entry points for bf16 elements
+(``csrc/common.cuh:Elem``). All libraries build in parallel, one ``nvcc``
+process each, at first use, into ``_build/`` beside this package's
+sources. A library's file name carries a hash of its sources and flags, so
+an edited source is never served by a stale build.
 
 Every exported function returns the ``cudaError_t`` of its launches
 (``cudaGetLastError()`` after each); :func:`check` raises on a non-zero.
@@ -31,6 +34,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("pwa_attention_train", "pwa_attention_bwd", "pwa_attention_long",
            "jlc_stage1", "jlc_stage2", "wkv")
+BF16_SOURCES = ("pwa_attention_train", "pwa_attention_bwd", "jlc_stage1")
+# library name -> (source, extra nvcc flags)
+LIBRARIES = {**{n: (n, ()) for n in SOURCES},
+             **{f"{n}_bf16": (n, ("-DVS_BF16",)) for n in BF16_SOURCES}}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -42,8 +49,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     "pwa_attention_train": {
         "vs_pwa_attention": [_P] * 5 + [_I] * 11 + [_F, _P],
-        "vs_pwa_attention_train": [_P] * 7 + [_I] * 10 + [_F, _U, _F, _P],
-        "vs_pwa_attention_long_train": [_P] * 7 + [_I] * 10
+        "vs_pwa_attention_train": [_P] * 8 + [_I] * 10 + [_F, _U, _F, _P],
+        "vs_pwa_attention_long_train": [_P] * 8 + [_I] * 10
         + [_F, _U, _F, _P]},
     "pwa_attention_bwd": {
         "vs_pwa_attention_train_bwd": [_P] * 15 + [_I] * 9
@@ -52,12 +59,18 @@ SIGNATURES = {
         "vs_pwa_attention_long_train_bwd": [_P] * 14 + [_I] * 6
         + [_F, _U, _F, _P]},
     "jlc_stage1": {"vs_jlc_stage1": [_P] * 9 + [_I] * 12 + [_P],
-                   "vs_jlc_stage1_bwd": [_P] * 13 + [_I] * 14 + [_P],
+                   "vs_jlc_stage1_bwd": [_P] * 14 + [_I] * 14 + [_P],
                    "vs_jlc_branch_wgrad": [_P] * 6 + [_I] * 11 + [_P]},
     "jlc_stage2": {"vs_jlc_stage2": [_P] * 9 + [_I] * 8 + [_P],
                    "vs_jlc_stage2_bwd": [_P] * 15 + [_I] * 10 + [_P]},
     "wkv": {"vs_wkv": [_P] * 5 + [_I] * 5 + [_P]},
 }
+# the bf16 builds export K2f (no K1, K3f), K2b and K4's entry points
+SIGNATURES["pwa_attention_train_bf16"] = {
+    "vs_pwa_attention_train":
+        SIGNATURES["pwa_attention_train"]["vs_pwa_attention_train"]}
+SIGNATURES["pwa_attention_bwd_bf16"] = SIGNATURES["pwa_attention_bwd"]
+SIGNATURES["jlc_stage1_bf16"] = SIGNATURES["jlc_stage1"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -72,10 +85,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    source, flags = LIBRARIES[name]
     h = hashlib.sha256()
-    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{source}.cu"]:
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + flags).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -85,7 +99,7 @@ def build_all() -> float:
     Returns the wall seconds this call spent building (0 when all were
     already built)."""
     with _LOCK:
-        todo = [n for n in SOURCES if not _lib_path(n).is_file()]
+        todo = [n for n in LIBRARIES if not _lib_path(n).is_file()]
         if not todo:
             return 0.0
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -95,7 +109,9 @@ def build_all() -> float:
         for name in todo:
             out = _lib_path(name)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            source, flags = LIBRARIES[name]
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-o", str(tmp),
+                   str(CSRC / f"{source}.cu")]
             procs.append((name, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         failed = []
@@ -110,8 +126,14 @@ def build_all() -> float:
         return time.perf_counter() - t0
 
 
-def lib(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def lib(name: str, dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` built for ``dtype``
+    elements (float32, or bfloat16 for ``BF16_SOURCES``), built on first
+    use."""
+    if dtype == torch.bfloat16 and name in BF16_SOURCES:
+        name = f"{name}_bf16"
+    elif dtype != torch.float32:
+        raise ValueError(f"{name}: no kernel library for {dtype}")
     handle = _LIBS.get(name)
     if handle is None:
         build_all()
@@ -139,6 +161,15 @@ def sm_count(device: torch.device) -> int:
     backward kernels size their grids of deterministic partial sums by
     it."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def count_launch(fn, dtype: torch.dtype) -> None:
+    """Count one launch of the kernel behind the wrapper ``fn``: its fp32
+    form on ``fn.launches``, its bf16 form on ``fn.launches_bf16``."""
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def stream_ptr(device: torch.device) -> int:

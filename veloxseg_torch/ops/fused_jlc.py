@@ -27,6 +27,17 @@ branch InstanceNorm, so their gradient is an exact 0
 (``fused_jlc.py:29-32``). The plain versions add them, and the tests show
 that the two agree. Each wrapper runs the plain version for a CPU tensor
 and the kernel for a CUDA tensor.
+
+Stage 1 also takes bf16 x and weights, as the JAX trainer passes them to
+the Pallas kernels (``fused_jlc.py:111-170``): the convs accumulate in fp32
+and the InstanceNorm statistics are fp32; the normalized value is rounded
+to bf16 before the GELU, whose output is bf16, each branch is added into
+the bf16 sum and the residual added in bf16; K4b takes the GELU's gradient
+at the rounded value and rounds dy and the weight gradient to bf16. Its
+bf16 forms are the same kernels built for bf16 elements (``_cuda.lib(...,
+torch.bfloat16)``); the plain versions compute in fp32 and round where the
+kernels round. Stage 2 (K5f, K5b) runs bf16 cast to fp32 at its edges
+(``ROADMAP.md`` §2 item 1).
 """
 
 from __future__ import annotations
@@ -49,6 +60,18 @@ _CONV_THREADS = 512  # the most threads of a K4 conv block
 _EDGE = 8  # the longest tile edge
 _TILE = 64  # voxels per K5b tile (csrc/jlc_stage2.cu:kVT)
 _SMEM_FLOATS = 232448 // 4  # the most shared memory a block may hold
+
+
+def _gelu_as(n: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """GELU of the fp32 ``n`` in the stream's dtype: fp32 as ``F.gelu``;
+    bf16 as ``_gelu_exact`` applies it to the rounded value (``fused_jlc.py
+    :73-77``): ``nb · Φ(nb)`` with Φ computed in fp32 and rounded, the
+    product rounded."""
+    if dtype == torch.float32:
+        return F.gelu(n)
+    nb = n.to(dtype)
+    return nb * (0.5 * (1.0 + torch.erf(nb.float() * math.sqrt(0.5)))
+                 ).to(dtype)
 
 
 def _gelu_grad(x: torch.Tensor) -> torch.Tensor:
@@ -84,11 +107,13 @@ def jlc_stage1_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
                      biases: Sequence[torch.Tensor], groups: int
                      ) -> torch.Tensor:
     """Stage 1 with torch ops: grouped conv per branch (+bias) → IN → GELU,
-    summed onto the residual."""
+    summed onto the residual. The convs and the IN run in fp32; for bf16
+    ``x`` the GELU, the branch sum and the residual round as K4f does."""
     branches = 0
     for w, b in zip(weights, biases):
-        y = F.conv3d(x, w, b, padding=w.shape[-1] // 2, groups=groups)
-        branches = branches + F.gelu(instance_norm(y))
+        y = F.conv3d(x.float(), w.float(), b.float(),
+                     padding=w.shape[-1] // 2, groups=groups)
+        branches = branches + _gelu_as(instance_norm(y), x.dtype)
     return x + branches
 
 
@@ -104,9 +129,10 @@ def jlc_branch_wgrad_plain(x: torch.Tensor, dy: torch.Tensor,
                            ) -> List[torch.Tensor]:
     """The branch convs' weight gradients given the cotangent ``dy[j]`` at
     each one's output: the library's wgrad (``fused_jlc.py:369-374`` runs
-    XLA's)."""
+    XLA's), in fp32, rounded once to x's dtype."""
     return [torch.ops.aten.convolution_backward(
-        dyj, x, w, None, *_conv_args(w, groups), [False, True, False])[1]
+        dyj.float(), x.float(), w.float(), None, *_conv_args(w, groups),
+        [False, True, False])[1].to(x.dtype)
         for w, dyj in zip(weights, dy)]
 
 
@@ -116,14 +142,18 @@ def jlc_stage1_bwd_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """K4b's function: ``(dy, [dW_j])``, the cotangent at each branch's
     conv output, ``(nb, B, C, D, H, W)``, given the cotangent ``g`` of
     stage 1's output (``_k1_bwd_kernel``), and the branch weights'
-    gradient."""
+    gradient. In fp32; for bf16 ``x`` the GELU's gradient is taken at the
+    normalized value rounded to bf16 and dy is rounded to bf16
+    (``fused_jlc.py:155-170``)."""
     out = []
     for w in weights:
-        y = F.conv3d(x, w, None, padding=w.shape[-1] // 2, groups=groups)
+        y = F.conv3d(x.float(), w.float(), None, padding=w.shape[-1] // 2,
+                     groups=groups)
         mean, rstd = _plane_stats(y)
         yhat = (y - mean) * rstd
-        out.append(_in_backward(g * _gelu_grad(yhat), yhat, rstd))
-    dy = torch.stack(out)
+        dn = g.float() * _gelu_grad(yhat.to(x.dtype).float())
+        out.append(_in_backward(dn, yhat, rstd))
+    dy = torch.stack(out).to(x.dtype)
     return dy, jlc_branch_wgrad_plain(x, dy, weights, groups)
 
 
@@ -163,13 +193,20 @@ def jlc_stage2_bwd_plain(out1: torch.Tensor, w1: torch.Tensor,
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
-def _check_cuda(x: torch.Tensor, *tensors: torch.Tensor) -> None:
+# element types of the stage-1 kernels (K5's take float32 only)
+_STAGE1_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_cuda(x: torch.Tensor, *tensors: torch.Tensor,
+                dtypes=(torch.float32,)) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    if x.dtype not in dtypes:
+        raise ValueError(f"no kernel instance for {x.dtype}")
     for t in (x,) + tensors:
-        if t.device != x.device or t.dtype != torch.float32 \
+        if t.device != x.device or t.dtype != x.dtype \
                 or not t.is_contiguous():
-            raise ValueError(f"expected contiguous float32 tensors on "
+            raise ValueError(f"expected contiguous {x.dtype} tensors on "
                              f"{x.device}, got {t.dtype} on {t.device}")
 
 
@@ -252,7 +289,7 @@ def _stage1_args(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """Checked kernel arguments shared by K4f and K4b: the contiguous
     weights and the launch geometry."""
     weights = [w.contiguous() for w in weights]
-    _check_cuda(x, *weights)
+    _check_cuda(x, *weights, dtypes=_STAGE1_DTYPES)
     b, c, d, h, w = x.shape
     ks = tuple(int(wt.shape[-1]) for wt in weights)
     cg = c // groups
@@ -267,8 +304,8 @@ def _stage1_args(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 
 def _stage1_scratch(x: torch.Tensor, lw: Stage1Launch):
-    """The branch outputs (3, B, C, D, H, W), the per-tile statistics and
-    the per-plane mean and rstd."""
+    """The branch outputs (3, B, C, D, H, W) in fp32, the per-tile
+    statistics and the per-plane mean and rstd."""
     b, c = x.shape[:2]
     planes = 3 * b * c
     return (torch.empty((3,) + tuple(x.shape), device=x.device),
@@ -281,13 +318,13 @@ def _stage1_scratch(x: torch.Tensor, lw: Stage1Launch):
 def _jlc_stage1_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
                     biases: Sequence[torch.Tensor], groups: int
                     ) -> torch.Tensor:
-    """K4f (or the plain version for a CPU tensor)."""
+    """K4f, fp32 or bf16 (or the plain version for a CPU tensor)."""
     if x.device.type == "cpu":
         return jlc_stage1_plain(x, weights, biases, groups)
     weights, lw = _stage1_args(x, weights, groups)
     scratch, pstat, mean, rstd = _stage1_scratch(x, lw)
     out = torch.empty_like(x)
-    lib = _cuda.lib("jlc_stage1")
+    lib = _cuda.lib("jlc_stage1", x.dtype)
     with torch.cuda.device(x.device):
         err = lib.vs_jlc_stage1(
             x.data_ptr(), *(wt.data_ptr() for wt in weights),
@@ -295,13 +332,14 @@ def _jlc_stage1_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
             rstd.data_ptr(), out.data_ptr(), *x.shape, groups, lw.tz, lw.ty,
             lw.tx, lw.vx, lw.ks, lw.oqb, _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "jlc_stage1")
-    jlc_stage1.launches += 1
+    _cuda.count_launch(jlc_stage1, x.dtype)
     return out
 
 
 def _wgrad_out(x: torch.Tensor, weights: Sequence[torch.Tensor],
                lw: Stage1Launch):
-    """The wgrad's per-block slabs and the branches' weight gradients."""
+    """The wgrad's per-block fp32 slabs and the branches' weight
+    gradients (in the weights' dtype)."""
     c, cg = weights[0].shape[:2]
     return (torch.empty((lw.chunks, c * cg * _TAPS), device=x.device),
             [torch.empty_like(wt) for wt in weights])
@@ -312,30 +350,36 @@ def jlc_stage1_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """K4b: ``(dy, [dW_j])``, the cotangent at each branch's conv output,
     (3, B, C, D, H, W), and the branch weights' gradient, which K4b's own
-    wgrad launches compute from dy and x."""
+    wgrad launches compute from dy and x; both in x's dtype (fp32 or
+    bf16)."""
     if x.device.type == "cpu":
         return jlc_stage1_bwd_plain(x, weights, g, groups)
     weights, lw = _stage1_args(x, weights, groups)
-    _check_cuda(x, g)
+    _check_cuda(x, g, dtypes=_STAGE1_DTYPES)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} differs from x {tuple(x.shape)}")
-    dy, pstat, mean, rstd = _stage1_scratch(x, lw)
+    scratch, pstat, mean, rstd = _stage1_scratch(x, lw)
+    # fp32: dy overwrites the recompute scratch in place
+    dy = scratch if x.dtype == torch.float32 \
+        else torch.empty_like(scratch, dtype=x.dtype)
     part, dws = _wgrad_out(x, weights, lw)
-    lib = _cuda.lib("jlc_stage1")
+    lib = _cuda.lib("jlc_stage1", x.dtype)
     with torch.cuda.device(x.device):
         err = lib.vs_jlc_stage1_bwd(
             x.data_ptr(), *(wt.data_ptr() for wt in weights), g.data_ptr(),
-            dy.data_ptr(), pstat.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), part.data_ptr(), *(t.data_ptr() for t in dws),
+            scratch.data_ptr(), dy.data_ptr(), pstat.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), part.data_ptr(),
+            *(t.data_ptr() for t in dws),
             *x.shape, groups, lw.tz, lw.ty, lw.tx, lw.vx, lw.ks, lw.oqb,
             lw.wgrad_oqb, lw.chunks, _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "jlc_stage1_bwd")
-    jlc_stage1_bwd.launches += 1
-    jlc_branch_wgrad.launches += 1
+    _cuda.count_launch(jlc_stage1_bwd, x.dtype)
+    _cuda.count_launch(jlc_branch_wgrad, x.dtype)
     return dy, dws
 
 
 jlc_stage1_bwd.launches = 0
+jlc_stage1_bwd.launches_bf16 = 0
 
 
 def jlc_branch_wgrad(x: torch.Tensor, dy: torch.Tensor,
@@ -348,22 +392,23 @@ def jlc_branch_wgrad(x: torch.Tensor, dy: torch.Tensor,
     if x.device.type == "cpu":
         return jlc_branch_wgrad_plain(x, dy, weights, groups)
     weights, lw = _stage1_args(x, weights, groups)
-    _check_cuda(x, dy)
+    _check_cuda(x, dy, dtypes=_STAGE1_DTYPES)
     if dy.shape != (3,) + tuple(x.shape):
         raise ValueError(f"dy {tuple(dy.shape)} is not 3 x {tuple(x.shape)}")
     part, dws = _wgrad_out(x, weights, lw)
-    lib = _cuda.lib("jlc_stage1")
+    lib = _cuda.lib("jlc_stage1", x.dtype)
     with torch.cuda.device(x.device):
         err = lib.vs_jlc_branch_wgrad(
             x.data_ptr(), dy.data_ptr(), part.data_ptr(),
             *(t.data_ptr() for t in dws), *x.shape, groups, lw.tz, lw.ty,
             lw.tx, lw.wgrad_oqb, lw.chunks, _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "jlc_branch_wgrad")
-    jlc_branch_wgrad.launches += 1
+    _cuda.count_launch(jlc_branch_wgrad, x.dtype)
     return dws
 
 
 jlc_branch_wgrad.launches = 0
+jlc_branch_wgrad.launches_bf16 = 0
 
 
 def _stage2_mats(out1, w1, w2):
@@ -498,7 +543,9 @@ def _jlc_stage2_fwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                     w2: torch.Tensor, b2: torch.Tensor):
     """K5f (or the plain version for a CPU tensor): ``(out, mean, rstd)``,
     the plane statistics K5f took (B·C floats each; None on the CPU).
-    Widths the kernel does not take run padded (:func:`pad_stage2_fwd`)."""
+    Widths the kernel does not take run padded (:func:`pad_stage2_fwd`).
+    fp32 only: bf16 reaches it cast at the edges of :func:`jlc_stage2`
+    (``ROADMAP.md`` §2 item 1)."""
     if out1.device.type == "cpu":
         return jlc_stage2_plain(out1, w1, b1, w2, b2), None, None
     b, c, d, h, w = out1.shape
@@ -675,7 +722,7 @@ def jlc_stage2_bwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """K5b: ``(dx, dw1, db1, dw2, db2)`` of stage 2. ``mean``, ``rstd``:
     K5f's plane statistics of ``out1`` (B·C floats each; the plain version
     recomputes them). Widths the kernel does not take run padded
-    (:func:`pad_stage2_bwd`)."""
+    (:func:`pad_stage2_bwd`). fp32 only, as K5f."""
     if out1.device.type == "cpu":
         return jlc_stage2_bwd_plain(out1, w1, b1, w2, g)
     b, c, d, h, w = out1.shape
@@ -735,12 +782,16 @@ class _Stage1(torch.autograd.Function):
         x, *weights = ctx.saved_tensors
         g = g.contiguous()
         dy, dws = jlc_stage1_bwd(x, weights, g, ctx.groups)
-        dx = g
+        # the branch convs' dgrads on cuDNN (CPU: ATen) in x's dtype, summed
+        # in fp32 and rounded once, then added to g, as the JAX package's
+        # one dgrad of the packed branch conv (fused_jlc.py:369-375)
+        dxc = None
         for w, dyj in zip(weights, dy):
-            # the branch conv's dgrad on cuDNN (CPU: ATen)
-            dx = dx + torch.ops.aten.convolution_backward(
+            d = torch.ops.aten.convolution_backward(
                 dyj, x, w, None, *_conv_args(w, ctx.groups),
-                [True, False, False])[0]
+                [True, False, False])[0].float()
+            dxc = d if dxc is None else dxc + d
+        dx = g + dxc.to(g.dtype)
         zeros = [torch.zeros(w.shape[0], device=w.device, dtype=w.dtype)
                  for w in weights]
         return (dx, None, None, *dws, *zeros)
@@ -767,9 +818,9 @@ def _needs_graph(*tensors: torch.Tensor) -> bool:
 
 def jlc_stage1(x: torch.Tensor, weights: Sequence[torch.Tensor],
                biases: Sequence[torch.Tensor], groups: int) -> torch.Tensor:
-    """JLC stage 1 on ``(B, C, D, H, W)``; ``weights[j]`` is the
-    ``(C, C/groups, k, k, k)`` kernel of branch j (odd k; the kernels take
-    k = 1, 3, 5). K4f forward; under autograd, K4b (with the weight
+    """JLC stage 1 on ``(B, C, D, H, W)``, fp32 or bf16; ``weights[j]`` is
+    the ``(C, C/groups, k, k, k)`` kernel of branch j (odd k; the kernels
+    take k = 1, 3, 5). K4f forward; under autograd, K4b (with the weight
     gradient) and the convs' dgrad backward."""
     if not _needs_graph(x, *weights, *biases):
         return _jlc_stage1_fwd(x, weights, biases, groups)
@@ -777,11 +828,17 @@ def jlc_stage1(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 
 jlc_stage1.launches = 0
+jlc_stage1.launches_bf16 = 0
 
 
 def jlc_stage2(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """JLC stage 2 on ``(B, C, D, H, W)``: K5f forward, K5b backward."""
+    """JLC stage 2 on ``(B, C, D, H, W)``: K5f forward, K5b backward. bf16
+    runs cast to fp32 at the edges of K5f and K5b, the output rounded to
+    bf16 (K5 has no bf16 form yet: ``ROADMAP.md`` §2 item 1)."""
+    if out1.dtype != torch.float32:
+        return jlc_stage2(*(t.float() for t in (out1, w1, b1, w2, b2))
+                          ).to(out1.dtype)
     if not _needs_graph(out1, w1, b1, w2, b2):
         return _jlc_stage2_fwd(out1, w1, b1, w2, b2)[0]
     return _Stage2.apply(out1, w1, b1, w2, b2)

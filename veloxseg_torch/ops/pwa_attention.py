@@ -23,6 +23,15 @@ oracle). The seed is an int32 tensor ``[seed, batch_offset]``.
 
 Every wrapper runs the plain version for a CPU tensor and the kernel for
 a CUDA tensor; there is no fallback between the two.
+
+K2f and K2b also take bf16 q, k, v (and dO), as the JAX trainer passes them
+to the Pallas kernels: scores, softmax and every product in fp32, the
+outputs rounded once to the operands' dtype; the bias, the lse and dbias
+stay fp32 (``veloxseg_tpu/ops/pwa_attention.py:572-649``). Their bf16 forms
+are the same kernels built for bf16 elements (``_cuda.lib(...,
+torch.bfloat16)``); the plain versions compute in fp32 and round where the
+kernels round. K3f and K3b run bf16 operands cast to fp32 at their edges,
+and K1 takes fp32 only (``ROADMAP.md`` §2 item 1).
 """
 
 from __future__ import annotations
@@ -51,22 +60,28 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhnlm,bhncm->bhncl", weights, v)
 
 
-def _check(q, k, v, bias, *more, seed=None, widths=KERNEL_WIDTHS):
-    """Device, type, contiguity and shape checks of a kernel call."""
+def _check(q, k, v, bias, *more, seed=None, widths=KERNEL_WIDTHS,
+           tokens=(), dtypes=(torch.float32,)):
+    """Device, type, contiguity and shape checks of a kernel call: q, k, v
+    and ``tokens`` (dO) of one dtype of ``dtypes``; bias and ``more`` (the
+    forward's fp32 out and lse) float32."""
     b, h, n, c_qk, l = q.shape
     c_v = v.shape[3]
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in dtypes:
+        raise ValueError(f"no kernel instance for {q.dtype}")
     if seed is not None and (seed.device != q.device
                              or seed.dtype != torch.int32
                              or seed.shape != (2,)):
         raise ValueError(f"seed must be int32 [seed, batch_offset] on "
                          f"{q.device}, got {seed.dtype} {tuple(seed.shape)} "
                          f"on {seed.device}")
-    for t in (q, k, v, bias) + more:
-        if t.device != q.device or t.dtype != torch.float32 \
+    for t, want in [(t, q.dtype) for t in (q, k, v) + tuple(tokens)] \
+            + [(t, torch.float32) for t in (bias,) + more]:
+        if t.device != q.device or t.dtype != want \
                 or not t.is_contiguous():
-            raise ValueError(f"expected contiguous float32 tensors on "
+            raise ValueError(f"expected contiguous {want} tensors on "
                              f"{q.device}, got {t.dtype} on {t.device}")
     if k.shape != q.shape or v.shape != (b, h, n, c_v, l) \
             or bias.shape != (h, l, l):
@@ -169,9 +184,13 @@ def _train_probs(q, k, bias, scale):
     return torch.softmax(scores + bias[None, :, None], dim=-1)
 
 
-def window_attention_train_fwd_plain(q, k, v, bias, seed, scale: float,
-                                     p: float) -> torch.Tensor:
-    """``_train_xla``: softmax, the hash mask with weights / (1 − p), ·V."""
+def _fp32(*ts):
+    return tuple(t.float() for t in ts)
+
+
+def _train_fwd_plain32(q, k, v, bias, seed, scale: float, p: float):
+    """The train forward in fp32 on fp32 copies of the operands."""
+    q, k, v, bias = _fp32(q, k, v, bias)
     weights = _train_probs(q, k, bias, scale)
     if p > 0.0:
         s, off = _seed_pair(seed)
@@ -181,10 +200,22 @@ def window_attention_train_fwd_plain(q, k, v, bias, seed, scale: float,
     return torch.einsum("bhnlm,bhncm->bhncl", weights, v)
 
 
+def window_attention_train_fwd_plain(q, k, v, bias, seed, scale: float,
+                                     p: float) -> torch.Tensor:
+    """``_train_xla``: softmax, the hash mask with weights / (1 − p), ·V,
+    in fp32 (the probabilities are not rounded), the output rounded once
+    to v's dtype (``_train_fwd_kernel``, ``pwa_attention.py:322-341``)."""
+    return _train_fwd_plain32(q, k, v, bias, seed, scale, p).to(v.dtype)
+
+
 def window_attention_train_bwd_plain(q, k, v, bias, seed, do, scale: float,
                                      p: float):
     """dq, dk, dv and dbias (summed over batch and windows) of the train
-    attention, recomputing the softmax from q, k and bias (``_wat_bwd``)."""
+    attention, recomputing the softmax from q, k and bias (``_wat_bwd``),
+    in fp32; dq, dk, dv rounded once to the operands' dtype, dbias fp32
+    (``_train_bwd_kernel``, ``pwa_attention.py:344-404``)."""
+    dtypes = (q.dtype, k.dtype, v.dtype)
+    q, k, v, bias, do = _fp32(q, k, v, bias, do)
     prob = _train_probs(q, k, bias, scale)
     if p > 0.0:
         s, off = _seed_pair(seed)
@@ -201,58 +232,71 @@ def window_attention_train_bwd_plain(q, k, v, bias, seed, do, scale: float,
     ds = t - prob * t.sum(dim=-1, keepdim=True)
     dq = torch.einsum("bhncm,bhnlm->bhncl", k, ds) * scale
     dk = torch.einsum("bhncl,bhnlm->bhncm", q, ds) * scale
-    return dq, dk, dv, ds.sum(dim=(0, 2))
+    return (*(g.to(dt) for g, dt in zip((dq, dk, dv), dtypes)),
+            ds.sum(dim=(0, 2)))
 
 
 def _train_fwd_kernel(fn, name: str, widths, q, k, v, bias, seed,
-                      scale: float, p: float, launch=None):
+                      scale: float, p: float, launch=None,
+                      dtypes=(torch.float32,)):
     """Launch the train forward (``csrc/pwa_attention_train.cu``) through
     its entry point ``name`` on CUDA tensors; ``fn`` is the wrapper whose
     launches are counted. ``launch``: a :class:`TrainFwdLaunch` in place
-    of :func:`train_fwd_launch`'s (the card tests and the bench's sweep)."""
+    of :func:`train_fwd_launch`'s (the card tests and the bench's sweep).
+    Returns (out, lse, out32): a bf16 form also writes the output in fp32
+    before its rounding, for K2b; in fp32 out32 is out."""
     seed = seed.reshape(-1).contiguous()
-    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, seed=seed, widths=widths)
+    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, seed=seed, widths=widths,
+                                   dtypes=dtypes)
     if b * n == 0:
         raise ValueError("no windows")
     lw = launch or train_fwd_launch(b, h, n, l, c_qk, c_v,
                                     _cuda.sm_count(q.device))
     out = torch.empty_like(v)
+    out32 = out if v.dtype == torch.float32 \
+        else torch.empty_like(v, dtype=torch.float32)
     lse = torch.empty((b, h, n, l), device=q.device)
-    lib = _cuda.lib("pwa_attention_train")
+    lib = _cuda.lib("pwa_attention_train", q.dtype)
     with torch.cuda.device(q.device):
         err = getattr(lib, name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            seed.data_ptr(), out.data_ptr(), lse.data_ptr(), b, h, n, c_qk,
-            c_v, l, lw.slabs, lw.windows, lw.chunks, lw.per, float(scale),
+            seed.data_ptr(), out.data_ptr(), out32.data_ptr(),
+            lse.data_ptr(), b, h, n, c_qk, c_v, l, lw.slabs, lw.windows,
+            lw.chunks, lw.per, float(scale),
             drop_threshold(p) if p > 0.0 else 0, 1.0 / (1.0 - p),
             _cuda.stream_ptr(q.device))
     _cuda.check(lib, err, name)
-    fn.launches += 1
-    return out, lse
+    _cuda.count_launch(fn, q.dtype)
+    return out, lse, out32
 
 
 def window_attention_train_fwd(q, k, v, bias, seed, scale: float,
                                p: float):
-    """K2f: train attention forward; (B, h, N, Cv, L) out and each row's
-    log-sum-exp (B, h, N, L), which K2b takes. Its plain version is
+    """K2f: train attention forward on fp32 or bf16 q, k, v (bias fp32);
+    (out, lse, out32): the (B, h, N, Cv, L) output in v's dtype, each row's
+    log-sum-exp (B, h, N, L) and the output in fp32 before its rounding
+    (``out`` itself for fp32), the two K2b takes. Its plain version is
     :func:`window_attention_train_fwd_plain` with :func:`train_lse_plain`;
     :func:`window_attention_train_fwd_tiled_plain` mirrors the kernel's
     decomposition."""
     if q.device.type == "cpu":
-        return (window_attention_train_fwd_plain(q, k, v, bias, seed, scale,
-                                                 p),
-                train_lse_plain(q, k, bias, scale))
+        out32 = _train_fwd_plain32(q, k, v, bias, seed, scale, p)
+        return (out32.to(v.dtype), train_lse_plain(q, k, bias, scale),
+                out32)
     return _train_fwd_kernel(window_attention_train_fwd,
                              "vs_pwa_attention_train", KERNEL_WIDTHS, q, k, v,
-                             bias, seed, scale, p)
+                             bias, seed, scale, p,
+                             dtypes=(torch.float32, torch.bfloat16))
 
 
 window_attention_train_fwd.launches = 0
+window_attention_train_fwd.launches_bf16 = 0
 
 
 def train_lse_plain(q, k, bias, scale: float) -> torch.Tensor:
-    """Each row's log-sum-exp of its logits, (B, h, N, L): what K2f and K3f
-    write beside their output for K2b and K3b."""
+    """Each row's log-sum-exp of its logits, (B, h, N, L), in fp32: what
+    K2f and K3f write beside their output for K2b and K3b."""
+    q, k, bias = _fp32(q, k, bias)
     scores = torch.einsum("bhncl,bhncm->bhnlm", q, k) * scale
     return torch.logsumexp(scores + bias[None, :, None], dim=-1)
 
@@ -594,13 +638,16 @@ def window_attention_train_bwd_tiled_plain(q, k, v, bias, seed, do, out, lse,
 def window_attention_train_bwd(q, k, v, bias, seed, do, scale: float,
                                p: float, out, lse):
     """K2b: (dq, dk, dv, dbias) of the train attention, every sum in a fixed
-    order, from K2f's ``out`` and ``lse`` of the same inputs. Its plain
-    version recomputes the softmax and takes neither."""
+    order, from K2f's fp32 ``out`` (its ``out32``) and ``lse`` of the same
+    inputs; q, k, v and do fp32 or bf16, dq, dk, dv in their dtype, dbias
+    fp32. Its plain version recomputes the softmax and takes neither."""
     if q.device.type == "cpu":
         return window_attention_train_bwd_plain(q, k, v, bias, seed, do,
                                                 scale, p)
     seed = seed.reshape(-1).contiguous()
-    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, do, out, lse, seed=seed)
+    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, out, lse, seed=seed,
+                                   tokens=(do,),
+                                   dtypes=(torch.float32, torch.bfloat16))
     if do.shape != v.shape or out.shape != v.shape \
             or lse.shape != (b, h, n, l):
         raise ValueError(f"do {tuple(do.shape)}, out {tuple(out.shape)} or "
@@ -617,7 +664,7 @@ def window_attention_train_bwd(q, k, v, bias, seed, do, scale: float,
                         if lw.tiles > 1 else 1,), device=dev)
     partb = torch.empty((lw.chunks * bias.numel() if lw.chunks > 1 else 1,),
                         device=dev)
-    lib = _cuda.lib("pwa_attention_bwd")
+    lib = _cuda.lib("pwa_attention_bwd", q.dtype)
     with torch.cuda.device(dev):
         err = lib.vs_pwa_attention_train_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -628,11 +675,12 @@ def window_attention_train_bwd(q, k, v, bias, seed, do, scale: float,
             drop_threshold(p) if p > 0.0 else 0, 1.0 / (1.0 - p),
             _cuda.stream_ptr(dev))
     _cuda.check(lib, err, "pwa_attention_train_bwd")
-    window_attention_train_bwd.launches += 1
+    _cuda.count_launch(window_attention_train_bwd, q.dtype)
     return dq, dk, dv, dbias
 
 
 window_attention_train_bwd.launches = 0
+window_attention_train_bwd.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -659,13 +707,17 @@ def window_attention_train_fwd_long(q, k, v, bias, seed, scale: float,
     """K3f: train attention forward for windows longer than 512 tokens, at
     the widths K3b is built for; the same kernel as K2f, whose on-chip
     memory grows with L only by its bias rows (32 rows of L at L = 1024).
-    (B, h, N, Cv, L) out and each row's log-sum-exp (B, h, N, L), which
-    K3b takes. Its plain version is K2's (the same function) with
-    :func:`train_lse_plain`."""
+    (out, lse, out32) as K2f returns them, which K3b takes. Its plain
+    version is K2's (the same function) with :func:`train_lse_plain`.
+    bf16 operands run cast to fp32 at its edges, the output rounded to
+    their dtype (K3 has no bf16 form yet: ``ROADMAP.md`` §2 item 1)."""
+    if v.dtype != torch.float32:
+        out, lse, out32 = window_attention_train_fwd_long(
+            *_fp32(q, k, v), bias, seed, scale, p)
+        return out.to(v.dtype), lse, out32
     if q.device.type == "cpu":
-        return (window_attention_train_fwd_plain(q, k, v, bias, seed, scale,
-                                                 p),
-                train_lse_plain(q, k, bias, scale))
+        out = window_attention_train_fwd_plain(q, k, v, bias, seed, scale, p)
+        return out, train_lse_plain(q, k, bias, scale), out
     return _train_fwd_kernel(window_attention_train_fwd_long,
                              "vs_pwa_attention_long_train",
                              LONG_KERNEL_WIDTHS, q, k, v, bias, seed, scale, p)
@@ -687,9 +739,15 @@ def long_bwd_tiles(l: int) -> int:
 def window_attention_train_bwd_long(q, k, v, bias, seed, do, scale: float,
                                     p: float, out, lse):
     """K3b: (dq, dk, dv, dbias) of the train attention, dbias summed over
-    the windows in a fixed order, from K3f's ``out`` and ``lse`` of the
-    same inputs. Its plain version is K2's, which recomputes the softmax
-    and takes neither."""
+    the windows in a fixed order, from K3f's fp32 ``out`` and ``lse`` of
+    the same inputs. Its plain version is K2's, which recomputes the
+    softmax and takes neither. bf16 operands run cast to fp32 at its
+    edges, dq, dk, dv rounded to their dtype (``ROADMAP.md`` §2 item 1)."""
+    if q.dtype != torch.float32:
+        grads = window_attention_train_bwd_long(
+            *_fp32(q, k, v), bias, seed, do.float(), scale, p, out, lse)
+        return (*(g.to(t.dtype) for g, t in zip(grads, (q, k, v))),
+                grads[3])
     if q.device.type == "cpu":
         return window_attention_train_bwd_plain(q, k, v, bias, seed, do,
                                                 scale, p)
@@ -726,8 +784,8 @@ window_attention_train_bwd_long.launches = 0
 
 
 class _TrainAttention(torch.autograd.Function):
-    """Saves the inputs with the forward's output and log-sum-exp, which
-    the backward kernel takes (``_wat_fwd`` / ``_wat_bwd``; the plain
+    """Saves the inputs with the forward's fp32 output and log-sum-exp,
+    which the backward kernel takes (``_wat_fwd`` / ``_wat_bwd``; the plain
     backward on the CPU recomputes the softmax and takes neither). K2 or K3
     by :func:`uses_long_kernel` of the window length."""
 
@@ -737,8 +795,8 @@ class _TrainAttention(torch.autograd.Function):
         ctx.long = uses_long_kernel(q.shape[-1])
         fwd = window_attention_train_fwd_long if ctx.long \
             else window_attention_train_fwd
-        out, lse = fwd(q, k, v, bias, seed, scale, p)
-        ctx.save_for_backward(q, k, v, bias, seed, out, lse)
+        out, lse, out32 = fwd(q, k, v, bias, seed, scale, p)
+        ctx.save_for_backward(q, k, v, bias, seed, out32, lse)
         return out
 
     @staticmethod
@@ -756,6 +814,7 @@ def window_attention_train(q: torch.Tensor, k: torch.Tensor,
                            seed: torch.Tensor, scale: float,
                            p: float) -> torch.Tensor:
     """Train attention with weight dropout at rate ``p``, differentiable in
-    q, k, v and bias. ``seed``: int32 ``[step_seed, batch_offset]`` on the
-    tensors' device (the offset is 0 on one device)."""
+    q, k, v and bias. q, k, v fp32 or bf16, bias fp32. ``seed``: int32
+    ``[step_seed, batch_offset]`` on the tensors' device (the offset is 0
+    on one device)."""
     return _TrainAttention.apply(q, k, v, bias, seed, scale, p)

@@ -1,6 +1,15 @@
 """The training steps: forward (train-mode output contract), composite
 loss, backward, the optimizer update and the step's metrics
-(``veloxseg_tpu/train/train_state.py:42-256``), fp32.
+(``veloxseg_tpu/train/train_state.py:42-256``).
+
+Mixed precision as the JAX package's (``train_state.py:34-69``): with a
+``compute_dtype`` (bf16; None is fp32) the forward runs on copies of the
+fp32 parameters and of the inputs cast to that dtype, and the
+reconstruction target is the input as cast; the casts' backward brings each
+gradient back to its fp32 parameter, so the master weights and the
+optimizer's state stay fp32. The norms, the Gram matrices and the loss
+compute in fp32 inside the forward (``nn/norms.py``, ``ops/gram.py``,
+``train/loss.py``).
 
 PyTorch runs them eagerly: the model's parameters and the optimizer's
 state are updated in place, where the JAX package returns a new state.
@@ -28,6 +37,7 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Union
 
 import torch
+from torch.func import functional_call
 
 from ..utils.device import resolve_device
 from .loss import CompositeLoss
@@ -49,19 +59,29 @@ def create_train_state(model: torch.nn.Module,
 
 
 def _loss_and_heads(state: TrainState, loss_obj: CompositeLoss,
-                    dev: torch.device, deep_metric_heads: bool):
+                    dev: torch.device, deep_metric_heads: bool,
+                    compute_dtype: Optional[torch.dtype]):
     """``f(inputs, labels, generator) -> (loss, seg heads, labels)`` on
     ``dev``: the forward and the loss of one (micro-)batch, without the
-    backward."""
+    backward; with ``compute_dtype``, the forward on the parameters and
+    inputs cast to it (``_loss_grads_fn``, ``train_state.py:42-69``)."""
 
     def f(inputs, labels, generator):
         if next(state.model.parameters()).device.type != dev.type:
             raise ValueError(f"the model is not on {dev}")
-        inputs = inputs.to(dev, torch.float32)
+        x = inputs.to(dev, torch.float32)
         labels = labels.to(dev)
         state.model.train()
-        outs = state.model(inputs, generator)
-        loss = loss_obj(outs, labels, sr_labels=inputs)
+        if compute_dtype in (None, torch.float32):
+            outs = state.model(x, generator)
+        else:
+            x = x.to(compute_dtype)
+            params = {k: p.to(compute_dtype) if p.is_floating_point() else p
+                      for k, p in state.model.named_parameters()}
+            outs = functional_call(state.model, params, (x, generator))
+        # the reconstruction target is the input as the forward saw it
+        # (``sr_labels=x.astype(jnp.float32)``, ``train_state.py:55-59``)
+        loss = loss_obj(outs, labels, sr_labels=x.float())
         heads = (loss_obj.metric_outputs(outs) if deep_metric_heads
                  else [outs[0]])
         return loss, [h.detach() for h in heads], labels
@@ -90,9 +110,11 @@ def _metrics_aux(heads: List[torch.Tensor], labels: torch.Tensor,
 def train_step_fn(loss_obj: CompositeLoss,
                   device: Optional[Union[str, torch.device]] = None,
                   with_metrics: bool = True,
-                  deep_metric_heads: bool = False) -> Callable:
+                  deep_metric_heads: bool = False,
+                  compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """Build the train step on ``device`` (default ``"cuda"``; raises
-    without CUDA unless ``device="cpu"``).
+    without CUDA unless ``device="cpu"``), computing in ``compute_dtype``
+    (None: fp32; the trainer passes ``torch.bfloat16``).
 
     Returns ``step(state, inputs, labels, generator) -> (state, aux)``:
     ``inputs`` (B, D, H, W, C) fp32 and ``labels`` (B, D, H, W) integer,
@@ -103,7 +125,8 @@ def train_step_fn(loss_obj: CompositeLoss,
 
     def step(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor,
              generator: Optional[torch.Generator]):
-        forward = _loss_and_heads(state, loss_obj, dev, deep_metric_heads)
+        forward = _loss_and_heads(state, loss_obj, dev, deep_metric_heads,
+                                  compute_dtype)
         state.optimizer.zero_grad(set_to_none=True)
         loss, heads, labels = forward(inputs, labels, generator)
         loss.backward()
@@ -138,7 +161,9 @@ def _stack_aux(auxs: List[Dict], combine: Optional[Callable] = None) -> Dict:
 def train_multi_step_fn(loss_obj: CompositeLoss,
                         device: Optional[Union[str, torch.device]] = None,
                         with_metrics: bool = True,
-                        deep_metric_heads: bool = False) -> Callable:
+                        deep_metric_heads: bool = False,
+                        compute_dtype: Optional[torch.dtype] = None
+                        ) -> Callable:
     """K optimizer steps per call: ``multi(state, inputs, labels,
     generator) -> (state, auxs)`` with ``inputs`` (K, B, D, H, W, C) and
     ``labels`` (K, B, D, H, W); each slice is one full step drawing its
@@ -146,7 +171,8 @@ def train_multi_step_fn(loss_obj: CompositeLoss,
     stacked on a leading K axis. The JAX package scans the K steps in one
     dispatch; eager PyTorch issues them one after another, with the same
     numbers as K :func:`train_step_fn` calls."""
-    step = train_step_fn(loss_obj, device, with_metrics, deep_metric_heads)
+    step = train_step_fn(loss_obj, device, with_metrics, deep_metric_heads,
+                         compute_dtype)
 
     def multi(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor,
               generator: Optional[torch.Generator]):
@@ -162,7 +188,9 @@ def train_multi_step_fn(loss_obj: CompositeLoss,
 def train_accum_step_fn(loss_obj: CompositeLoss,
                         device: Optional[Union[str, torch.device]] = None,
                         with_metrics: bool = True,
-                        deep_metric_heads: bool = False) -> Callable:
+                        deep_metric_heads: bool = False,
+                        compute_dtype: Optional[torch.dtype] = None
+                        ) -> Callable:
     """ONE optimizer update from the gradients averaged over A
     micro-batches: ``step(state, inputs, labels, generator) -> (state,
     aux)`` with ``inputs`` (A, b, D, H, W, C) and ``labels`` (A, b, D, H,
@@ -178,7 +206,8 @@ def train_accum_step_fn(loss_obj: CompositeLoss,
 
     def step(state: TrainState, inputs: torch.Tensor, labels: torch.Tensor,
              generator: Optional[torch.Generator]):
-        forward = _loss_and_heads(state, loss_obj, dev, deep_metric_heads)
+        forward = _loss_and_heads(state, loss_obj, dev, deep_metric_heads,
+                                  compute_dtype)
         state.optimizer.zero_grad(set_to_none=True)
         auxs = []
         for x, y in zip(inputs, labels):
@@ -202,8 +231,8 @@ def train_accum_step_fn(loss_obj: CompositeLoss,
 
 def eval_step_fn(model: torch.nn.Module) -> Callable:
     """``step(inputs) -> (argmax int32, logits)``: the eval forward on the
-    model's device, without autograd; the first maximum wins, as
-    ``jnp.argmax``."""
+    model's device, without autograd, in fp32 (the JAX ``eval_step_fn``
+    takes no dtype); the first maximum wins, as ``jnp.argmax``."""
 
     @torch.inference_mode()
     def step(inputs: torch.Tensor):

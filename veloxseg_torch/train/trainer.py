@@ -23,10 +23,13 @@ runs the reference's three per-dataset trainers
   ``async_checkpoint`` writes on a background thread; ``profile_dir``
   traces dispatches 2-12 of the first epoch.
 
+The steps compute in bf16 with fp32 master weights and optimizer state,
+as the JAX trainer's (``trainer.py:297-348``: ``compute_dtype=bfloat16``
+for the single step, ``grad_accum`` and ``steps_per_dispatch``); the
+validation forward runs in fp32, as the JAX ``eval_step_fn`` does.
+
 Deltas from the JAX trainer:
 
-- fp32 compute: the JAX trainer steps in bf16 (``trainer.py:297-348``);
-  bf16 is ``ROADMAP.md`` §1 item 3. Logged at the start.
 - no blocked heads (``trainer.py:240-250``, a TPU layout): the same metrics
   come from the unblocked head 0.
 - one device: ``--mesh`` and ``--distributed`` raise (``ROADMAP.md`` §1
@@ -236,8 +239,8 @@ def run_train(args, train_config: dict, model_config: dict,
         f"{args.dataset_name}_{args.model_name}_{date}{index}.log"))
     logger.info(f"Checkpoint Save path: {save_path}")
     logger.info(f"Now Model Config: \n{model_config[args.model_name]}\n")
-    logger.info(f"device {dev}; compute float32 (the JAX trainer steps in "
-                "bfloat16: ROADMAP.md §1 item 3); " + native_status())
+    logger.info(f"device {dev}; steps in bfloat16, validation in float32; "
+                + native_status())
 
     modal_index = validate_selected_modal(
         args.model_name, model_config,
@@ -285,7 +288,8 @@ def run_train(args, train_config: dict, model_config: dict,
     # Per-deep-head metric reporting (reference ``show_deep_metric`` key,
     # ``utils/train_autopet.py:252`` → ``utils/metric/metrics.py:6-25``).
     show_deep = bool(train_config.get("show_deep_metric", True))
-    step = train_step_fn(loss_obj, dev, deep_metric_heads=show_deep)
+    step = train_step_fn(loss_obj, dev, deep_metric_heads=show_deep,
+                         compute_dtype=torch.bfloat16)
     # ``grad_accum`` A > 1: one update from A loader batches' averaged
     # gradients, logged as one iteration. ``steps_per_dispatch`` K > 1 is
     # the JAX trainer's K steps in one dispatch; eager PyTorch issues them
@@ -299,7 +303,8 @@ def run_train(args, train_config: dict, model_config: dict,
     if grad_accum > 1:
         from .train_state import train_accum_step_fn
         accum_step = train_accum_step_fn(loss_obj, dev,
-                                         deep_metric_heads=show_deep)
+                                         deep_metric_heads=show_deep,
+                                         compute_dtype=torch.bfloat16)
         logger.info(f"grad_accum: {grad_accum}")
     elif steps_per_dispatch > 1:
         logger.info(f"steps_per_dispatch: {steps_per_dispatch} (the port "
