@@ -51,11 +51,20 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    within 2^-8 of the largest magnitude), timed beside
    its fp32 form on the same values, bounded with 2-byte elements and the
    products of bf16 operands at the tensor cores' rate; the yardsticks in
-   bf16 (SDPA; cuDNN's weight-only ``convolution_backward``).
+   bf16 (SDPA; cuDNN's weight-only ``convolution_backward``). At B = 2
+   also K5f and K5b in bf16 (the step at ``conv_drop`` 0, phase 7; K5b's
+   outputs repeat bit for bit). For the speed CLI (phase 16) at its batch,
+   B = 16: K1 in bf16 at AutoPET-II's four levels (beside SDPA in bf16),
+   at Hecktor's L = 512 and BraTS's L = 216, K4f and K5f in bf16 at the
+   four JLC levels, K6 on bf16 operands (cast at its edges).
 4. build the AutoPET-II model (``config/models_config_autopetii.json``) at
    full width with seeded weights on the card; run the eval forward on a
    seeded (1, 96, 96, 96, 2) tile and hold it against the same model and
    weights on the CPU (``device="cpu"``: every kernel's plain version).
+   Then the same forward in bf16 (``model.to(torch.bfloat16)``, as the
+   speed CLI runs it: K1, K4f and K5f in their bf16 forms, 4, 7 and 7
+   launches) on both, held to ``chip_measure.FORWARD_BOUND`` relative to
+   the CPU's own bf16-to-fp32 distance.
 5. sliding-window inference on a seeded (1, 192, 192, 192, 2) volume:
    ROI 96³, overlap 0.25, ``sw_batch_size`` 4, constant blending. The
    kernel launch counts are zeroed just before and read just after: every
@@ -71,7 +80,7 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    K4b 13 (each with its weight-gradient launches: wgrad 13), of the bf16
    forms in bf16 and of the fp32 ones in fp32, and no other.
 7. two bf16 steps with ``conv_drop`` 0, where stage 2 runs through its
-   kernels, cast to fp32 at their edges: K5f 13 and K5b 13 per step.
+   kernels in their bf16 forms: K5f 13 and K5b 13 per step.
 8. one step at full width, B = 1, every dropout 0, on the card and on the
    CPU from the same weights: the loss and every parameter's gradient
    must agree (tolerance printed). Then the same step in bf16 on both,
@@ -83,14 +92,16 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    bench.py's B = 16 with its loss weights and AdamW, in bf16 and then in
    fp32: a warm-up step, then 10 timed steps (ms per step, peak memory,
    the loss falling). Launches per step: K2f 3, K2b 3, K3f 1, K3b 1, K4f,
-   K4b (and its wgrad), K5f, K5b 13 each (in bf16 the bf16 forms of K2 and
-   K4; K3 and K5 cast to fp32 at their edges), and the fp32 ones must
+   K4b (and its wgrad), K5f, K5b 13 each (in bf16 the bf16 forms of K2, K4
+   and K5; K3 cast to fp32 at its edges), and the fp32 ones must
    equal phase 3's calls per step.
 10. one flagship step at B = 1, every dropout 0, card against CPU, as 8.
 11. path B, U-RWKV (``load_model("U-RWKV", models_config_autopetii)``)
     with seeded weights: the forward of a seeded (4, 96, 96, 96, 2) batch
     on the card and on the CPU (batch norms take the statistics of the 4
-    tiles on both), and K6's launches per forward (6).
+    tiles on both), and K6's launches per forward (6); then in bf16 on
+    both, held to ``chip_measure.FORWARD_BOUND`` (K6's fp32 kernel, cast
+    at its edges as the JAX package's ``wkv_pallas`` casts).
 12. U-RWKV sliding window over phase 5's volume (ROI 96³, overlap 0.25,
     ``sw_batch_size`` 4, constant), counts zeroed before and read after:
     s and volumes/s; the voxels only the first tile covers must equal the
@@ -144,6 +155,14 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     batch, the trainer's own device ms per step and idle share from its
     ``profile_dir`` trace (steps 3-12), and the step outside the trainer,
     alone and beside a thread that drains the warm loader.
+16. (run before 15) the speed CLI (``veloxseg_torch.cli.speed_main.main``
+    → the bf16 eval forward): VeloxSeg and U-RWKV on AutoPET-II, VeloxSeg
+    on Hecktor2022 and BraTS2021, with ``T_TIMED`` cut to
+    ``SPEED_T_TIMED``; counts zeroed before each run and read after: the
+    bf16 forms of K1, K4f and K5f (and K6 with U-RWKV) launched, no fp32
+    form; per model images/s, batch size, Params and FLOPS. The operations
+    per image at AutoPET-II's full shape, counted on the card (the kernels
+    report theirs) and on the CPU (the plain versions), must be equal.
 15. print the seconds of each phase, one ``{"kernels": [...]}`` line (a
     row per kernel and per bf16 form, with ``excess_ms``, each path's
     launches × (ms − bound) per call at that path's own shapes, summed),
@@ -165,13 +184,21 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 # the timers, the card query and the bounds, shared with the bench tools
-from chip_measure import (HBM_BYTES_PER_S, STEP_BOUND,  # noqa: E402
-                          bound, card as card_line, cuda_ms,
-                          eval_attention_work, ops_ms, sdpa_backend,
-                          stage2_bwd_work, stage2_fwd_work,
+from chip_measure import (FORWARD_BOUND, HBM_BYTES_PER_S,  # noqa: E402
+                          STEP_BOUND, bound, card as card_line, cuda_ms,
+                          device_ms,
+                          eval_attention_work, eval_attention_work_bf16,
+                          forward_distances, ops_ms, sdpa_backend,
+                          stage2_bwd_work, stage2_bwd_work_bf16,
+                          stage2_fwd_work, stage2_fwd_work_bf16,
                           step_bound_violations, step_distances,
                           train_attention_work, train_attention_work_bf16,
                           wkv_work)
+
+
+# the speed CLI's timing in phase 16: three windows of 1 s (the CLI's own
+# default is 12 s, three of 4)
+SPEED_T_TIMED = 3.0
 
 
 def taps_in_bounds(s, k):
@@ -1227,6 +1254,8 @@ def main() -> int:
     cfg_dict = all_models["VeloxSeg"]
     hk_dict = load_json_config(os.path.join(
         ROOT, "config", "models_config_hecktor2022.json"))["VeloxSeg"]
+    bt_dict = load_json_config(os.path.join(
+        ROOT, "config", "models_config_brats2021.json"))["VeloxSeg"]
     train_cfg = load_json_config(os.path.join(
         ROOT, "config", "train_config_bs4.json"))
     tiles = 4                                    # sw_batch_size
@@ -1645,6 +1674,15 @@ def main() -> int:
     # -- phase 3: the bf16 forms, on the operands the trainer's steps pass --
     bf = torch.bfloat16
     vs_fp32 = {}     # (kernel, shape): (bf16 ms, the fp32 form's ms)
+    # K1's, K5f's and K5b's forms, by device time (events at these sizes
+    # time the host's issue): (kernel, shape): (bf16 device ms, the fp32
+    # form's)
+    vs_fp32_dev = {}
+
+    def device_pair(key, fn16, fn32):
+        vs_fp32_dev[key] = (device_ms(fn16), device_ms(fn32))
+        return f"device {vs_fp32_dev[key][0]:.4f} ms (fp32 form " \
+               f"{vs_fp32_dev[key][1]:.4f})"
 
     def train_attention_bf16(name, b, h, n, cqk, cv, L, weight, unit):
         """K2f and K2b on bf16 q, k, v, dO (bias fp32) at p = 0.1 against
@@ -1733,12 +1771,90 @@ def main() -> int:
         del out, lse, out32, o32, l32
         torch.cuda.empty_cache()
 
-    def jlc_bf16_cases(tag, jcfg, b, unit, weights):
+    def stage2_bf16(name, out1, e, weight, unit, backward):
+        """K5f's bf16 form on the bf16 ``out1`` and seeded bf16 weights
+        (and with ``backward`` K5b's, on K5f's statistics as the train step
+        runs it) against the bf16 plain versions, timed beside the fp32
+        forms on the same values; no one library call computes them. The
+        statistics and every K5b output must repeat bit for bit."""
+        b, c, s = out1.shape[0], out1.shape[1], out1.shape[2]
+        w1 = randn(e * c, c, 1, 1, 1, scale=(2.0 / c) ** 0.5).to(bf)
+        b1 = randn(e * c, scale=0.1).to(bf)
+        w2 = randn(c, e * c, 1, 1, 1, scale=(2.0 / (e * c)) ** 0.5).to(bf)
+        b2 = randn(c, scale=0.1).to(bf)
+        f32 = [t.float() for t in (out1, w1, b1, w2, b2)]
+        with torch.inference_mode():
+            out, mean, rstd = fused_jlc._jlc_stage2_fwd(out1, w1, b1, w2, b2)
+            again = fused_jlc._jlc_stage2_fwd(out1, w1, b1, w2, b2)
+            ref = fused_jlc.jlc_stage2_plain(out1, w1, b1, w2, b2)
+            torch.cuda.synchronize()
+            err5, equal = require_bf16_match(f"K5f bf16 {name}", out, ref)
+            for what, t, t2 in zip(("out", "mean", "rstd"),
+                                   (out, mean, rstd), again):
+                if not torch.equal(t, t2):
+                    raise AssertionError(f"K5f bf16 {name}: {what} differs "
+                                         f"between calls")
+            del out, again, ref
+            f_bytes, f_flop, f_tc = stage2_fwd_work_bf16(b, c, e, s ** 3)
+            ms5f = cuda_ms(lambda: fused_jlc.jlc_stage2(out1, w1, b1, w2,
+                                                        b2))
+            record("jlc_stage2_bf16", name, weight, f_bytes, f_flop, err5,
+                   ms5f, cuda_ms(lambda: fused_jlc.jlc_stage2_plain(
+                       out1, w1, b1, w2, b2), 5), None, unit, f_tc)
+            vs_fp32[f"K5f {name}"] = (ms5f, cuda_ms(
+                lambda: fused_jlc.jlc_stage2(*f32)))
+            _, m32, r32 = fused_jlc._jlc_stage2_fwd(*f32)
+            dev5f = device_pair(
+                f"K5f {name}",
+                lambda: fused_jlc.jlc_stage2(out1, w1, b1, w2, b2),
+                lambda: fused_jlc.jlc_stage2(*f32))
+        text = (f"K5f {ms5f:.4f} ms (fp32 form "
+                f"{vs_fp32[f'K5f {name}'][1]:.4f}), {dev5f}")
+        if backward:
+            g = randn(*out1.shape).to(bf)
+            args = (out1, w1, b1, w2, g, mean, rstd)
+            got = fused_jlc.jlc_stage2_bwd(*args)
+            again = fused_jlc.jlc_stage2_bwd(*args)
+            refs = fused_jlc.jlc_stage2_bwd_plain(out1, w1, b1, w2, g)
+            torch.cuda.synchronize()
+            errs5 = [require_bf16_match(f"K5b bf16 {name} {gname}", a,
+                                        r)[0]
+                     for gname, a, r in zip(("dx", "dw1", "db1", "dw2",
+                                             "db2"), got, refs)]
+            for gname, a, a2 in zip(("dx", "dW1", "db1", "dW2", "db2"),
+                                    got, again):
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"K5b bf16 {name}: {gname} "
+                                         f"differs between calls")
+            sums[f"K5b bf16 {name} dW1"] = checksum(got[1])
+            sums[f"K5b bf16 {name} dW2"] = checksum(got[3])
+            del got, again, refs
+            b_bytes, b_flop, b_tc = stage2_bwd_work_bf16(b, c, e, s ** 3)
+            ms5b = cuda_ms(lambda: fused_jlc.jlc_stage2_bwd(*args))
+            record("jlc_stage2_bwd_bf16", name, weight, b_bytes, b_flop,
+                   (max(x_[0] for x_ in errs5), max(x_[1] for x_ in errs5)),
+                   ms5b, cuda_ms(lambda: fused_jlc.jlc_stage2_bwd_plain(
+                       out1, w1, b1, w2, g), 5), None, unit, b_tc)
+            g32 = g.float()
+            vs_fp32[f"K5b {name}"] = (ms5b, cuda_ms(
+                lambda: fused_jlc.jlc_stage2_bwd(*f32[:4], g32, m32, r32)))
+            dev5b = device_pair(
+                f"K5b {name}", lambda: fused_jlc.jlc_stage2_bwd(*args),
+                lambda: fused_jlc.jlc_stage2_bwd(*f32[:4], g32, m32, r32))
+            text += (f"; K5b {ms5b:.4f} ms (fp32 form "
+                     f"{vs_fp32[f'K5b {name}'][1]:.4f}), {dev5b}")
+        print(f"[3] K5 bf16 {name}: out {equal:.4%} bit-equal to the plain "
+              f"version | {text}", flush=True)
+        torch.cuda.empty_cache()
+
+    def jlc_bf16_cases(tag, jcfg, b, unit, weights, stage2=False):
         """K4f, K4b and its wgrad on bf16 x, g and weights at the four JLC
         levels against their bf16 plain versions (the wgrad on the
         kernel's own dy), timed beside the fp32 forms on the same values;
         the wgrad's yardstick cuDNN's bf16 weight-only
-        ``convolution_backward``."""
+        ``convolution_backward``. With ``stage2``, K5f and K5b on x as
+        :func:`stage2_bf16` runs them (the train step at ``conv_drop``
+        0)."""
         spatial0 = jcfg["input_size"][0] // jcfg["patch_size"]
         for i in range(4):
             c = jcfg["base_ch"] * 2 ** i
@@ -1831,16 +1947,114 @@ def main() -> int:
                   f"{vs_fp32[f'wgrad {name}'][1]:.4f})", flush=True)
             del dy, dws, dy32
             torch.cuda.empty_cache()
+            if stage2:
+                stage2_bf16(name, x, jcfg["conv_expansion_factor"][i],
+                            weight, unit, True)
 
-    # the AutoPET-II train step (B = 2, phase 6) and the trainer's (B = 4,
-    # phase 14): K2 at every level, the JLC blocks at their calls per step
+    # the AutoPET-II train step (B = 2, phase 6; at conv_drop 0 with K5,
+    # phase 7) and the trainer's (B = 4, phase 14): K2 at every level, the
+    # JLC blocks at their calls per step
     for bb, unit in ((batch, "train_96_bf16"),
                      (2 * batch, "train_96_b4_bf16")):
         for name, b, h, n, cqk, cv, L in k1_shapes(cfg_dict, range(4), bb):
             train_attention_bf16(f"B{bb}_{name}", b, h, n, cqk, cv, L, 1,
                                  unit)
-        jlc_bf16_cases(f"B{bb}_", cfg_dict, bb, unit, (4, 4, 4, 1))
+        jlc_bf16_cases(f"B{bb}_", cfg_dict, bb, unit, (4, 4, 4, 1),
+                       stage2=bb == batch)
+
+    # the speed CLI's bf16 eval forward (phase 16) at the batch it finds,
+    # B = 16: K1 at AutoPET-II's four levels (Hecktor's L = 512 and
+    # BraTS's L = 216 too, in no unit), K4f and K5f at the four JLC
+    # levels, K6 at U-RWKV's bottleneck (its fp32 kernel, bf16 cast at the
+    # edges as the JAX package casts it)
+    speed_b = 16
+
+    def eval_attention_bf16(name, b, h, n, cqk, cv, L, weight, unit):
+        """K1's bf16 form against its bf16 plain version, timed beside its
+        fp32 form on the same values and beside SDPA in bf16 (the bias a
+        bf16 float mask)."""
+        pa = pwa_attention
+        q, k = randn(b, h, n, cqk, L).to(bf), randn(b, h, n, cqk, L).to(bf)
+        v, bias = randn(b, h, n, cv, L).to(bf), randn(h, L, L, scale=0.5)
+        scale = 1.0 / cqk ** 0.5
+        n_bytes, n_flop, n_tc = eval_attention_work_bf16(b, h, n, cqk, cv, L)
+        with torch.inference_mode():
+            got = pa.window_attention(q, k, v, bias, scale)
+            ref = pa.window_attention_plain(q, k, v, bias, scale)
+            torch.cuda.synchronize()
+            err, equal = require_bf16_match(f"K1 bf16 {name}", got, ref)
+            del got, ref
+            qt, kt, vt = (t.transpose(-1, -2) for t in (q, k, v))
+            mask = bias.to(bf)[None, :, None]
+            ms = cuda_ms(lambda: pa.window_attention(q, k, v, bias, scale))
+            record("pwa_attention_bf16", name, weight, n_bytes, n_flop, err,
+                   ms, cuda_ms(lambda: pa.window_attention_plain(
+                       q, k, v, bias, scale), 5),
+                   cuda_ms(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, mask, scale=scale), 5), unit, n_tc)
+            q32, k32, v32 = q.float(), k.float(), v.float()
+            vs_fp32[f"K1 {name}"] = (ms, cuda_ms(lambda: pa.window_attention(
+                q32, k32, v32, bias, scale)))
+            dev = device_pair(
+                f"K1 {name}", lambda: pa.window_attention(q, k, v, bias, scale),
+                lambda: pa.window_attention(q32, k32, v32, bias, scale))
+        print(f"[3] K1 bf16 {name}: out {equal:.4%} bit-equal to the plain "
+              f"version | {ms:.4f} ms (fp32 form "
+              f"{vs_fp32[f'K1 {name}'][1]:.4f}), {dev}", flush=True)
+        del q, k, v, qt, kt, vt, q32, k32, v32
+        torch.cuda.empty_cache()
+
+    for name, b, h, n, cqk, cv, L in k1_shapes(cfg_dict, range(4), speed_b):
+        eval_attention_bf16(f"B16_{name}", b, h, n, cqk, cv, L, 1,
+                            "speed_autopet")
+    for tag, dcfg, lvl in (("hecktor", hk_dict, 1), ("brats", bt_dict, 1)):
+        for name, b, h, n, cqk, cv, L in k1_shapes(dcfg, [lvl], speed_b):
+            eval_attention_bf16(f"{tag}_B16_{name}", b, h, n, cqk, cv, L, 0,
+                                "speed_autopet")
+    spatial0 = cfg_dict["input_size"][0] // cfg_dict["patch_size"]
+    for i, weight in enumerate((2, 2, 2, 1)):
+        c, s = cfg_dict["base_ch"] * 2 ** i, spatial0 // 2 ** i
+        groups = c // cfg_dict["min_dim_group"][i]
+        cg = c // groups
+        name = f"B16_L{i}"
+        x = randn(speed_b, c, s, s, s).to(bf)
+        ws = [randn(c, cg, k, k, k, scale=(2.0 / (cg * k ** 3)) ** 0.5)
+              .to(bf) for k in (1, 3, 5)]
+        bs = [randn(c, scale=0.1).to(bf) for _ in ws]
+        vox = speed_b * c * s ** 3
+        with torch.inference_mode():
+            out1 = fused_jlc.jlc_stage1(x, ws, bs, groups)
+            ref1 = fused_jlc.jlc_stage1_plain(x, ws, bs, groups)
+            torch.cuda.synchronize()
+            err1, _ = require_bf16_match(f"K4f bf16 {name}", out1, ref1)
+            del ref1
+            ms4f = cuda_ms(lambda: fused_jlc.jlc_stage1(x, ws, bs, groups))
+            record("jlc_stage1_bf16", name, weight,
+                   2 * (2 * vox + sum(w.numel() for w in ws)),
+                   9 * 3 * vox + vox, err1, ms4f,
+                   cuda_ms(lambda: fused_jlc.jlc_stage1_plain(
+                       x, ws, bs, groups), 5), None, "speed_autopet",
+                   2 * speed_b * c * cg * sum(taps_in_bounds(s, k) ** 3
+                                              for k in (1, 3, 5)))
+        stage2_bf16(name, out1, cfg_dict["conv_expansion_factor"][i],
+                    weight, "speed_autopet", False)
+        del x, out1
+    b6s = speed_b
+    k6s, v6s = (randn(b6s, t6, c6).to(bf) for _ in range(2))
+    w6s, u6s = w6.to(bf), u6.to(bf)
+    with torch.inference_mode():
+        got = wkv.wkv(w6s, u6s, k6s, v6s)
+        ref = wkv.wkv_plain(w6s.float(), u6s.float(), k6s.float(),
+                            v6s.float()).to(bf)
+        torch.cuda.synchronize()
+        record("wkv", f"bf16 ({b6s},{t6},{c6})", 6, *wkv_work(b6s, t6, c6),
+               require_bf16_match("K6 bf16", got, ref)[0],
+               cuda_ms(lambda: wkv.wkv(w6s, u6s, k6s, v6s)),
+               cuda_ms(lambda: wkv.wkv_plain(w6s, u6s, k6s, v6s), 5), None,
+               "speed_urwkv")
+        del got, ref
     report["bf16_vs_fp32_ms"] = vs_fp32
+    report["bf16_vs_fp32_device_ms"] = vs_fp32_dev
     print(f"[3] bit-identical on repeat; checksums {json.dumps(sums)}",
           flush=True)
     report["checksums"] = sums
@@ -1866,8 +2080,9 @@ def main() -> int:
     # for the bf16 forms, ``launches_bf16``
     counters = {n: (w, "launches") for n, w in wrappers.items()}
     counters.update({f"{n}_bf16": (wrappers[n], "launches_bf16") for n in (
-        "pwa_attention_train_fwd", "pwa_attention_train_bwd", "jlc_stage1",
-        "jlc_stage1_bwd", "jlc_branch_wgrad")})
+        "pwa_attention", "pwa_attention_train_fwd", "pwa_attention_train_bwd",
+        "jlc_stage1", "jlc_stage2", "jlc_stage1_bwd", "jlc_branch_wgrad",
+        "jlc_stage2_bwd")})
 
     def zero_counts():
         for w, attr in counters.values():
@@ -1912,7 +2127,42 @@ def main() -> int:
     report["forward"] = dict(max_abs_err=fwd_err, scale=scale,
                              gpu_ms=fwd_ms, cpu_s=cpu_s,
                              launches_per_forward=per_forward)
-    del cpu_model, y_cpu
+    # the same forward in bf16, as the speed CLI runs it (the model cast
+    # with .to(bf16)), card against CPU: held to chip_measure.FORWARD_BOUND
+    # relative to the CPU's own bf16-to-fp32 distance
+    model16 = build_veloxseg(cfg_dict, device="cuda", seed=0)[0].to(bf)
+    with torch.inference_mode():
+        x96_16 = x96_dev.to(bf)
+        zero_counts()
+        y16 = model16(x96_16)
+        torch.cuda.synchronize()
+        per_forward16 = {n: c for n, c in counts().items() if c}
+        fwd16_ms = cuda_ms(lambda: model16(x96_16), 5)
+        cpu16 = build_veloxseg(cfg_dict, device="cpu", seed=0)[0].to(bf)
+        t0 = time.perf_counter()
+        y16_cpu = cpu16(x96.to(bf))
+        cpu16_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(y16).all()):
+        raise AssertionError("bf16 forward: non-finite output")
+    want16 = {"pwa_attention_bf16": 4, "jlc_stage1_bf16": 7,
+              "jlc_stage2_bf16": 7}
+    if per_forward16 != want16:
+        raise AssertionError(f"bf16 forward launches {per_forward16}, want "
+                             f"{want16}")
+    d4 = forward_distances(y16.float().cpu(), y16_cpu.float(), y_cpu)
+    if not (d4["to_bf16"] <= FORWARD_BOUND["to_bf16"]
+            and d4["to_fp32"] >= FORWARD_BOUND["to_fp32"]):
+        raise AssertionError(f"bf16 forward card vs CPU outside "
+                             f"{FORWARD_BOUND}: {d4}")
+    print(f"[4] bf16 eval forward (1,96,96,96,2) card vs CPU, relative to "
+          f"the CPU's bf16-to-fp32 distance: to its bf16 "
+          f"{d4['to_bf16']:.4f} (<= {FORWARD_BOUND['to_bf16']}), to its "
+          f"fp32 {d4['to_fp32']:.4f} (>= {FORWARD_BOUND['to_fp32']}) | GPU "
+          f"{fwd16_ms:.3f} ms/forward (fp32 {fwd_ms:.3f}; CPU {cpu16_s:.2f} "
+          f"s) | launches per forward {per_forward16}", flush=True)
+    report["forward_bf16"] = dict(d4, gpu_ms=fwd16_ms, cpu_s=cpu16_s,
+                                  launches_per_forward=per_forward16)
+    del cpu_model, y_cpu, cpu16, y16_cpu, model16, y16, x96_16
 
     lap(4)
     # -- phase 5: sliding-window inference (the serving path) ----------------
@@ -2037,22 +2287,21 @@ def main() -> int:
 
     lap(6)
     # -- phase 7: conv_drop 0, stage 2 through K5f/K5b ---------------------
-    # in bf16, as the trainer steps: K5 runs cast to fp32 at its edges
+    # in bf16, as the trainer steps: K5's bf16 forms
     state = make_state(dict(cfg_dict, conv_drop=0.0), "cuda", 0)
     k5 = {"jlc_stage2": 13, "jlc_stage2_bwd": 13}
-    want0 = dict(want, **k5)
+    want0 = dict(want, **{f"{n}_bf16": c for n, c in k5.items()})
     state, _, step0_ms, nodrop_launches, per_step0 = train_run(
         "AutoPET-II conv_drop 0", state, step, xb_dev, yb_dev, 2, want0)
-    print(f"[7] conv_drop 0, bf16 (K5f, K5b cast to fp32 at their edges): "
+    print(f"[7] conv_drop 0, bf16 (K5f, K5b in their bf16 forms): "
           f"{step0_ms:.3f} ms/step (2 steps) | launches per step "
           f"{per_step0}", flush=True)
     report["train_conv_drop0"] = dict(ms_per_step=step0_ms,
                                       launches_per_step=per_step0)
     del state
-    # phase 3's calls per train step match these runs: the bf16 forms' and
-    # K5's (the fp32 kernels the bf16 step runs), and the fp32 forms'
+    # phase 3's calls per train step match these runs: the bf16 forms'
+    # (K5's at conv_drop 0) and the fp32 forms'
     weights = {n: a["calls"] for n, a in units["train_96_bf16"].items()}
-    weights.update({n: units["train_96"][n]["calls"] for n in k5})
     weights32 = {n: a["calls"] for n, a in units["train_96"].items()}
     if weights != want0 or weights32 != dict(want32, **k5):
         raise AssertionError(f"phase-3 calls per step {weights}, "
@@ -2135,10 +2384,9 @@ def main() -> int:
               "pwa_attention_train_bwd": 3,
               "pwa_attention_train_fwd_long": 1,
               "pwa_attention_train_bwd_long": 1}
-    # in bf16, K3f, K3b, K5f and K5b run cast to fp32 at their edges (no
-    # bf16 form yet), so they count as their fp32 forms
-    edge_cast = ("jlc_stage2", "jlc_stage2_bwd",
-                 "pwa_attention_train_fwd_long",
+    # in bf16, K3f and K3b run cast to fp32 at their edges (no bf16 form
+    # yet), so they count as their fp32 forms
+    edge_cast = ("pwa_attention_train_fwd_long",
                  "pwa_attention_train_bwd_long")
     want_fs = {"bf16": {(n if n in edge_cast else f"{n}_bf16"): c
                         for n, c in want_f.items()}, "fp32": want_f}
@@ -2169,7 +2417,7 @@ def main() -> int:
               f"peak {flag_peak:.2f} GB | loss step 1 {f_losses[0]:.5f} -> "
               f"step 11 {f_losses[-1]:.5f} | launches per step "
               f"{flag_per_step}"
-              + (f" (K3f, K3b, K5f, K5b cast to fp32 at their edges)"
+              + (f" (K3f, K3b cast to fp32 at their edges)"
                  if dt == "bf16" else ""), flush=True)
         del state
     flag_launches = runs9["fp32"].pop("launches")
@@ -2241,7 +2489,38 @@ def main() -> int:
     report["urwkv_forward"] = dict(max_abs_err=u_err, scale=u_scale,
                                    gpu_ms=u_ms, cpu_s=u_cpu_s,
                                    launches_per_forward=u_per_forward)
-    del y4, y4_cpu, x4_dev
+    # in bf16, as the speed CLI runs it, card against CPU (FORWARD_BOUND)
+    urwkv16 = load_model("U-RWKV", all_models, device="cuda", seed=0).to(bf)
+    with torch.inference_mode():
+        x4_16 = x4_dev.to(bf)
+        zero_counts()
+        y4_16 = urwkv16(x4_16)
+        torch.cuda.synchronize()
+        u16_per_forward = {n: c for n, c in counts().items() if c}
+        u16_ms = cuda_ms(lambda: urwkv16(x4_16), 5)
+        cpu16 = load_model("U-RWKV", all_models, device="cpu",
+                           seed=0).to(bf)
+        t0 = time.perf_counter()
+        y4_16_cpu = cpu16(x4.to(bf))
+        u16_cpu_s = time.perf_counter() - t0
+    if not bool(torch.isfinite(y4_16).all()) \
+            or u16_per_forward != {"wkv": 6}:
+        raise AssertionError(f"U-RWKV bf16 forward: launches "
+                             f"{u16_per_forward} (want wkv 6) or non-finite")
+    d11 = forward_distances(y4_16.float().cpu(), y4_16_cpu.float(), y4_cpu)
+    if not (d11["to_bf16"] <= FORWARD_BOUND["to_bf16"]
+            and d11["to_fp32"] >= FORWARD_BOUND["to_fp32"]):
+        raise AssertionError(f"U-RWKV bf16 forward card vs CPU outside "
+                             f"{FORWARD_BOUND}: {d11}")
+    print(f"[11] U-RWKV bf16 forward (4,96,96,96,2) card vs CPU, relative "
+          f"to the CPU's bf16-to-fp32 distance: to its bf16 "
+          f"{d11['to_bf16']:.4f} (<= {FORWARD_BOUND['to_bf16']}), to its "
+          f"fp32 {d11['to_fp32']:.4f} (>= {FORWARD_BOUND['to_fp32']}) | GPU "
+          f"{u16_ms:.3f} ms/forward (fp32 {u_ms:.3f}; CPU {u16_cpu_s:.2f} s) "
+          f"| launches per forward {u16_per_forward}", flush=True)
+    report["urwkv_forward_bf16"] = dict(d11, gpu_ms=u16_ms,
+                                        cpu_s=u16_cpu_s)
+    del y4, y4_cpu, x4_dev, urwkv16, cpu16, y4_16, y4_16_cpu, x4_16
 
     lap(11)
     # -- phase 12: path B, U-RWKV sliding window ---------------------------
@@ -2341,6 +2620,67 @@ def main() -> int:
           flush=True)
 
     lap(14)
+    # -- phase 16: the speed CLI (cli/speed_main -> the bf16 eval forward) -
+    from veloxseg_torch.cli import speed_main
+    from veloxseg_torch.utils.flops import count_flops
+    speed_main.T_TIMED = SPEED_T_TIMED
+    speed_runs, speed_launches = {}, None
+    for dataset, names in (("AutoPETII", "VeloxSeg,U-RWKV"),
+                           ("Hecktor2022", "VeloxSeg"),
+                           ("BraTS2021", "VeloxSeg")):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = speed_main.main([
+            "--dataset", dataset, "--model_list", names, "--model_config",
+            os.path.join(ROOT, "config",
+                         f"models_config_{dataset.lower()}.json")])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        got = counts()
+        if [r["model"] for r in res] != names.split(",") or not all(
+                r["device"] == "default" and r["throughput"] > 0
+                and r["flops"] > 0 for r in res):
+            raise AssertionError(f"speed CLI {dataset}: {res}")
+        need = ["pwa_attention_bf16", "jlc_stage1_bf16", "jlc_stage2_bf16"]
+        need += ["wkv"] if "U-RWKV" in names else []
+        fp32_forms = [n for n in ("pwa_attention", "jlc_stage1",
+                                  "jlc_stage2") if got[n]]
+        if any(not got[n] for n in need) or fp32_forms:
+            raise AssertionError(f"speed CLI {dataset}: launches {got}; "
+                                 f"want {need} and no fp32 form")
+        if dataset == "AutoPETII":
+            speed_launches = got
+        speed_runs[dataset] = dict(results=res, seconds=run_s, launches={
+            n: c for n, c in got.items() if c})
+        for r in res:
+            print(f"[16] speed CLI {dataset} {r['model']}: "
+                  f"{r['throughput']:.2f} images/s @ batch size "
+                  f"{r['batch_size']}, Params {r['params'] / 1e6} M, FLOPS "
+                  f"{r['flops'] / 1e9} G (T_TIMED {SPEED_T_TIMED} s)",
+                  flush=True)
+        print(f"[16] speed CLI {dataset}: {run_s:.1f} s | launches "
+              f"{speed_runs[dataset]['launches']}", flush=True)
+    # the operation count per image, on the card (kernels) and on the CPU
+    # (plain versions), at AutoPET-II's full shape
+    flops = {}
+    for d in ("cuda", "cpu"):
+        m = load_model("VeloxSeg", all_models, device=d, seed=0).to(bf)
+        x1 = torch.zeros((1, *speed_main.INPUT_SIZE["AutoPETII"]), dtype=bf,
+                         device=d)
+        with torch.inference_mode():
+            flops[d] = count_flops(m, x1)
+        del m, x1
+    cli_flops = speed_runs["AutoPETII"]["results"][0]["flops"]
+    if not flops["cuda"] == flops["cpu"] == cli_flops:
+        raise AssertionError(f"FLOPs per image card {flops['cuda']}, CPU "
+                             f"{flops['cpu']}, CLI {cli_flops}")
+    print(f"[16] FLOPs per image, VeloxSeg AutoPET-II (1,96,96,96,2) bf16: "
+          f"card {flops['cuda']} = CPU {flops['cpu']}", flush=True)
+    report["speed_cli"] = dict(runs=speed_runs, flops=flops,
+                               t_timed=SPEED_T_TIMED)
+
+    lap(16)
     # -- phase 15 -----------------------------------------------------------
     meta = {
         "pwa_attention": ("veloxseg_torch/csrc/pwa_attention_train.cu",
@@ -2370,14 +2710,17 @@ def main() -> int:
         "wkv": ("veloxseg_torch/csrc/wkv.cu", "veloxseg_tpu/ops/wkv.py:77"),
     }
     # the bf16 forms: the same sources built with -DVS_BF16
-    bf16_forms = ("pwa_attention_train_fwd", "pwa_attention_train_bwd",
-                  "jlc_stage1", "jlc_stage1_bwd", "jlc_branch_wgrad")
+    bf16_forms = ("pwa_attention", "pwa_attention_train_fwd",
+                  "pwa_attention_train_bwd", "jlc_stage1", "jlc_stage2",
+                  "jlc_stage1_bwd", "jlc_branch_wgrad", "jlc_stage2_bwd")
     meta.update({f"{n}_bf16": meta[n] for n in bf16_forms})
     per = {"serving": "forward, 4 tiles, AutoPET-II 96³",
            "train_96": f"train step, B={batch}, AutoPET-II 96³",
            "train_96_bf16": f"bf16 train step, B={batch}, AutoPET-II 96³",
            "train_flagship": f"train step, B={big_batch}, flagship 128³",
-           "urwkv_serving": "U-RWKV forward, 4 tiles, 96³"}
+           "urwkv_serving": "U-RWKV forward, 4 tiles, 96³",
+           "speed_autopet": f"bf16 forward, B={speed_b}, AutoPET-II 96³ "
+                            f"(speed CLI)"}
     headline = {"pwa_attention": "serving", "jlc_stage1": "serving",
                 "jlc_stage2": "serving", "pwa_attention_train_fwd": "train_96",
                 "pwa_attention_train_bwd": "train_96",
@@ -2387,6 +2730,8 @@ def main() -> int:
                 "pwa_attention_train_bwd_long": "train_flagship",
                 "wkv": "urwkv_serving"}
     headline.update({f"{n}_bf16": "train_96_bf16" for n in bf16_forms})
+    headline.update({"pwa_attention_bf16": "speed_autopet",
+                     "jlc_stage2_bf16": "speed_autopet"})
     # launches: the main-path runs, each counted from 0: the VeloxSeg
     # sliding window (5), the AutoPET-II train steps (6: bf16 and fp32; 7:
     # bf16, its K5 the fp32 kernels), the fp32 flagship train steps (9;
@@ -2410,7 +2755,8 @@ def main() -> int:
              "urwkv_cli": (("urwkv_serving",), u_cli_launches),
              "trainer_steps": (("train_96_b4_bf16", "train_96_b4"),
                                trainer_train),
-             "trainer_validation": (("serving",), trainer_val)}
+             "trainer_validation": (("serving",), trainer_val),
+             "speed_cli": (("speed_autopet", "speed_urwkv"), speed_launches)}
     line = {"kernels": []}
     for n, (src, replaces) in meta.items():
         k = units[headline[n]][n]

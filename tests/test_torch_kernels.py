@@ -6,6 +6,9 @@ on a machine with the card and PyTorch alone:
     python -m pytest tests/test_torch_kernels.py -m cuda
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +19,10 @@ from veloxseg_torch.core.config import VeloxSegConfig
 from veloxseg_torch.nn.conv_blocks import JLC
 from veloxseg_torch.nn.veloxseg import build_veloxseg
 from veloxseg_torch.ops import fused_jlc, pwa_attention
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
+from chip_measure import FORWARD_BOUND, forward_distances  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -659,6 +666,137 @@ def test_jlc_stage1_bf16_forms_match_plain(c, groups, expansion, s):
         assert_bf16_match(got, r, f"K4b dW{j}")
     for a, a2 in zip(dws, alone):
         assert torch.equal(a, a2)
+
+
+# K1's bf16 form at the speed CLI's shapes: AutoPET-II's four levels at
+# B = 16 (the batch the CLI finds), Hecktor's L = 512 and BraTS's L = 216
+K1_BF16 = [(16, 1, 585, 4, 4, 54), (16, 2, 9, 8, 8, 432),
+           (16, 2, 9, 8, 16, 54), (16, 4, 1, 16, 32, 54),
+           (16, 2, 9, 8, 8, 512), (16, 2, 8, 8, 8, 216), (2, 2, 7, 8, 8, 50)]
+
+
+@pytest.mark.parametrize("b,h,n,c_qk,c_v,l", K1_BF16)
+def test_attention_bf16_form_matches_plain(b, h, n, c_qk, c_v, l):
+    dev = cuda_or_skip()
+    pa = pwa_attention
+    q, k, v, bias, _ = _train_inputs(dev, b, h, n, c_qk, c_v, l, seed=41)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    scale = 1.0 / np.sqrt(c_qk)
+    n1 = pa.window_attention.launches_bf16
+    with torch.no_grad():
+        out = pa.window_attention(q, k, v, bias, scale)
+    torch.cuda.synchronize()
+    assert pa.window_attention.launches_bf16 == n1 + 1
+    assert out.dtype == torch.bfloat16
+    assert_bf16_match(out, pa.window_attention_plain(q, k, v, bias, scale),
+                      "K1 out")
+
+
+def _stage2_inputs(dev, b, c, e, shape, dtype, seed):
+    hid = e * c
+    x, g = (torch.from_numpy(normal((b, c) + tuple(shape), seed=seed + i,
+                                    scale=1.5)).to(dev, dtype)
+            for i in (0, 1))
+    w1 = torch.from_numpy(normal((hid, c, 1, 1, 1), seed + 2,
+                                 (2.0 / c) ** 0.5)).to(dev, dtype)
+    b1 = torch.from_numpy(normal((hid,), seed + 3, 0.1)).to(dev, dtype)
+    w2 = torch.from_numpy(normal((c, hid, 1, 1, 1), seed + 4,
+                                 (2.0 / hid) ** 0.5)).to(dev, dtype)
+    b2 = torch.from_numpy(normal((c,), seed + 5, 0.1)).to(dev, dtype)
+    return x, g, w1, b1, w2, b2
+
+
+# K5f's bf16 form at the speed CLI's four JLC levels (B = 16, AutoPET-II
+# 96³: 24³ to 3³), with two hidden slices (B = 2 at L0) and padded widths
+K5_BF16 = [(16, 16 * 2 ** i, e, (24 // 2 ** i,) * 3)
+           for i, e in enumerate((3, 3, 2, 2))] + [
+    (2, 16, 3, (24, 24, 24)), (2, 12, 3, (5, 5, 5)), (3, 6, 3, (3, 5, 7))]
+# K5b's at the bf16 train step's four levels (B = 2) and every tiling
+K5B_BF16 = [(2, 16 * 2 ** i, e, (24 // 2 ** i,) * 3)
+            for i, e in enumerate((3, 3, 2, 2))] + [
+    (2, 128, 2, (3, 5, 7)), (2, 16, 3, (9, 11, 13)), (2, 12, 3, (4, 4, 4))]
+
+
+@pytest.mark.parametrize("b,c,e,shape", K5_BF16)
+def test_jlc_stage2_bf16_form_matches_plain(b, c, e, shape):
+    dev = cuda_or_skip()
+    x, _, w1, b1, w2, b2 = _stage2_inputs(dev, b, c, e, shape,
+                                          torch.bfloat16, 51)
+    n2 = fused_jlc.jlc_stage2.launches_bf16
+    with torch.no_grad():
+        out, mean, rstd = fused_jlc._jlc_stage2_fwd(x, w1, b1, w2, b2)
+        again = fused_jlc._jlc_stage2_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert fused_jlc.jlc_stage2.launches_bf16 == n2 + 2
+    assert out.dtype == torch.bfloat16 and mean.dtype == torch.float32
+    assert_bf16_match(out, fused_jlc.jlc_stage2_plain(x, w1, b1, w2, b2),
+                      "K5f out")
+    m, r = fused_jlc._plane_stats(x.float())
+    torch.testing.assert_close(mean, m.reshape(-1), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(rstd, r.reshape(-1), rtol=1e-5, atol=1e-6)
+    for a, a2 in zip((out, mean, rstd), again):
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("b,c,e,shape", K5B_BF16)
+def test_jlc_stage2_backward_bf16_form_matches_plain(b, c, e, shape):
+    dev = cuda_or_skip()
+    x, g, w1, b1, w2, b2 = _stage2_inputs(dev, b, c, e, shape,
+                                          torch.bfloat16, 61)
+    with torch.no_grad():
+        _, mean, rstd = fused_jlc._jlc_stage2_fwd(x, w1, b1, w2, b2)
+    n2 = fused_jlc.jlc_stage2_bwd.launches_bf16
+    got = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g, mean, rstd)
+    again = fused_jlc.jlc_stage2_bwd(x, w1, b1, w2, g, mean, rstd)
+    torch.cuda.synchronize()
+    assert fused_jlc.jlc_stage2_bwd.launches_bf16 == n2 + 2
+    refs = fused_jlc.jlc_stage2_bwd_plain(x, w1, b1, w2, g)
+    for name, a, r in zip(("dx", "dw1", "db1", "dw2", "db2"), got, refs):
+        assert a.shape == r.shape
+        assert_bf16_match(a, r, f"K5b {name}")
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+
+
+def test_wkv_bf16_runs_the_fp32_kernel_at_its_edges():
+    from veloxseg_torch.models.zoo.urwkv import _fancy_init
+    from veloxseg_torch.ops import wkv
+    dev = cuda_or_skip()
+    b, t, c = 4, 216, 128
+    decay, first, *_ = _fancy_init(c)
+    w, u = (torch.from_numpy(a / t).to(dev, torch.bfloat16)
+            for a in (decay, first))
+    k, v = (torch.from_numpy(normal((b, t, c), seed=s)).to(dev, torch.bfloat16)
+            for s in (71, 72))
+    n6 = wkv.wkv.launches
+    with torch.no_grad():
+        got = wkv.wkv(w, u, k, v)
+    torch.cuda.synchronize()
+    assert wkv.wkv.launches == n6 + 1 and got.dtype == torch.bfloat16
+    ref = wkv.wkv_plain(w.float(), u.float(), k.float(), v.float())
+    assert_bf16_match(got, ref.to(torch.bfloat16), "K6 bf16")
+
+
+def test_tiny_bf16_forward_on_card_matches_cpu():
+    dev = cuda_or_skip()
+    cfg = VeloxSegConfig(**TINY)
+    x = torch.from_numpy(normal((2, 32, 32, 32, 2), seed=4))
+    outs = {}
+    for d in (dev, torch.device("cpu")):
+        model, _ = build_veloxseg(cfg, device=d, seed=3)
+        n1 = pwa_attention.window_attention.launches_bf16
+        with torch.inference_mode():
+            outs[d.type] = model.to(torch.bfloat16)(
+                x.to(d, torch.bfloat16)).float().cpu()
+        if d.type == "cuda":
+            assert pwa_attention.window_attention.launches_bf16 == n1 + 4
+    with torch.no_grad():
+        ref32 = build_veloxseg(cfg, device="cpu", seed=3)[0](x)
+    # the same rounding points on both devices, other fp32 sum orders: held
+    # as phase [4] of chip_smoke.py holds the full-width forward
+    d = forward_distances(outs["cuda"], outs["cpu"], ref32)
+    assert d["to_bf16"] <= FORWARD_BOUND["to_bf16"], d
+    assert d["to_fp32"] >= FORWARD_BOUND["to_fp32"], d
 
 
 def test_jlc_stage1_kernels_refuse_other_kernel_sets():

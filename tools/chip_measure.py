@@ -151,6 +151,16 @@ def eval_attention_work(b, h, n, cqk, cv, L):
     return n_bytes, n_flop
 
 
+def eval_attention_work_bf16(b, h, n, cqk, cv, L):
+    """As :func:`eval_attention_work` for K1's bf16 form: ``(bytes, flop,
+    tc_flop)``; q, k, v and out of 2 bytes, the bias of 4; QKᵀ and PV (bf16
+    operands) at the tensor cores' rate, the rest as fp32."""
+    scores = b * h * n * L * L
+    n_bytes = 2 * b * h * n * L * (2 * cqk + 2 * cv) + 4 * h * L * L
+    return (n_bytes, 5 * scores + b * h * n * L * cv,
+            2 * scores * (cqk + cv))
+
+
 def wkv_work(b, t, c):
     """Bytes and operations of the WKV forward (K6) on (b, t, c): k, v and
     y once, w and u; per (b, t, c) 24 operations (two maxima, four
@@ -202,6 +212,27 @@ def stage2_bwd_work(b, c, e, s):
     # backward (8)
     n_flop = 10 * vox * e * c + 2 * vox + 14 * vox * e + 8 * vox
     return n_bytes, n_flop
+
+
+def stage2_fwd_work_bf16(b, c, e, s):
+    """As :func:`stage2_fwd_work` for K5f's bf16 form: ``(bytes, flop,
+    tc_flop)``; out1, out, the weights and biases of 2 bytes; the two
+    channel products (bf16 operands) at the tensor cores' rate."""
+    vox = b * c * s
+    n_bytes = 2 * (2 * vox + 2 * e * c * c + e * c + c)
+    return (n_bytes, 4 * vox + 5 * vox * e + 2 * vox, 4 * vox * e * c)
+
+
+def stage2_bwd_work_bf16(b, c, e, s):
+    """As :func:`stage2_bwd_work` for K5b's bf16 form: ``(bytes, flop,
+    tc_flop)``; out1, g, dx, the weights and their gradients of 2 bytes,
+    the statistics of 4; the five channel products at the tensor cores'
+    rate."""
+    vox = b * c * s
+    hid = e * c
+    n_bytes = (2 * (3 * vox + 2 * (2 * hid * c) + 2 * hid + 2 * c)
+               + 4 * 2 * b * c)
+    return (n_bytes, 2 * vox + 14 * vox * e + 8 * vox, 10 * vox * e * c)
 
 
 # The bound of a bf16 train step against a reference bf16 step, from the
@@ -263,3 +294,31 @@ def step_bound_violations(d: dict) -> list:
     """The ratios of :func:`step_distances` outside :data:`STEP_BOUND`."""
     return [k for k, lim in STEP_BOUND.items()
             if not (d[k] >= lim if k == "grads_to_fp32" else d[k] <= lim)]
+
+
+def forward_distances(got, ref16, ref32) -> dict:
+    """A bf16 forward's output against a reference forward's in bf16 and in
+    fp32, each relative to the reference's own bf16-to-fp32 distance (L2
+    norms over the whole output; arrays or CPU tensors): ``to_bf16`` ‖got −
+    ref16‖ / ‖ref16 − ref32‖ and ``to_fp32`` ‖got − ref32‖ / ‖ref16 −
+    ref32‖."""
+    import numpy as np
+    got, r16, r32 = (np.asarray(t, dtype=np.float64)
+                     for t in (got, ref16, ref32))
+    d = float(np.linalg.norm(r16 - r32))
+    return {"to_bf16": float(np.linalg.norm(got - r16)) / d,
+            "to_fp32": float(np.linalg.norm(got - r32)) / d}
+
+
+# The bound of a bf16 eval forward against a reference bf16 forward, from
+# the reference's own bf16-to-fp32 distance (forward_distances): the most
+# ``to_bf16`` and the least ``to_fp32``. A forward that computes in fp32
+# lies 1.0 of that distance from the reference bf16 output and ~0 from the
+# fp32 one, and fails both sides. Two bf16 forwards that round in a few
+# other places, through normalizations over few voxels (TINY's deepest
+# levels hold 1-8), drift apart nearly as far as bf16 is from fp32
+# (measured: the port against JAX on the CPU, XLA's excess precision off,
+# the Pallas kernels in interpret mode, 0.796 at TINY VeloxSeg and 0.797
+# at 32³ U-RWKV, ``tools/bf16_eval_reference.py --report``; the TINY
+# forward on the card against the CPU 0.57).
+FORWARD_BOUND = {"to_bf16": 0.9, "to_fp32": 0.5}

@@ -3,7 +3,7 @@
 on one GPU.
 
     python3 tools/profile_torch_eval.py [--model autopet|flagship|urwkv]
-        [--batch N] [--train [--bf16]] [--out DIR]
+        [--batch N] [--train] [--bf16] [--out DIR]
 
 Builds the model at full width with seeded weights on the card: the
 AutoPET-II VeloxSeg (``config/models_config_autopetii.json``, 96³), the
@@ -14,13 +14,14 @@ eval forward (batch 4 by default: one sliding-window batch) or, with
 ``config/train_config_bs4.json``'s loss weights and AdamW, which bench.py
 uses too; batch 2 by default, 16 for the flagship, bench.py's; in fp32,
 or with ``--bf16`` in bf16 as the trainer steps) with labels
-that threshold the PET channel. It prints, per forward or
+that threshold the PET channel. ``--bf16`` without ``--train`` runs the
+eval forward as the speed CLI does: the model cast to bf16, a bf16 input. It prints, per forward or
 step: the wall time (host clock around iterations ended by a
 synchronize), the device time summed by ``torch.profiler``, the device's
 idle share (1 − device time / wall time), the device operations, the
 device time by kernel family, the kernels by device time and the
 library's convolutions (forward and backward) by input shapes. The JSON
-goes to ``<out>/profile_torch_<model>_{eval,train,train_bf16}_b<batch>.json``
+goes to ``<out>/profile_torch_<model>_{eval,eval_bf16,train,train_bf16}_b<batch>.json``
 (default ``runs``). Needs CUDA; TF32 off.
 """
 
@@ -105,7 +106,8 @@ def main() -> int:
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the forward")
     ap.add_argument("--bf16", action="store_true",
-                    help="the train step in bf16 (compute_dtype)")
+                    help="in bf16: the train step's compute_dtype, or the "
+                         "eval model and input cast")
     ap.add_argument("--out", default=os.path.join(ROOT, "runs"))
     args = ap.parse_args()
     iters = 5
@@ -119,8 +121,6 @@ def main() -> int:
         ROOT, "config", "train_config_bs4.json"))
     if args.train and args.model == "urwkv":
         ap.error("U-RWKV is profiled in eval only")
-    if args.bf16 and not args.train:
-        ap.error("--bf16 profiles the train step")
     size = 128 if args.model == "flagship" else 96
     batch = args.batch or (4 if not args.train else
                            16 if args.model == "flagship"
@@ -153,6 +153,9 @@ def main() -> int:
             train_step(state, x, y, gen)
         grad_mode = torch.enable_grad
     else:
+        if args.bf16:
+            model, x = model.to(torch.bfloat16), x.to(torch.bfloat16)
+
         def run():
             model(x)
         grad_mode = torch.inference_mode
@@ -206,8 +209,8 @@ def main() -> int:
                           [list(s) for s in e.input_shapes[:3]]))
     convs.sort(key=lambda r: -r[2])
     unit = "step" if args.train else "forward"
-    kind = ("train_bf16" if args.bf16 else "train") if args.train \
-        else "eval"
+    kind = ("train" if args.train else "eval") + ("_bf16" if args.bf16
+                                                   else "")
     print(f"card: {card}")
     print(f"{args.model} {size}³ {kind} batch {batch}: wall {wall_ms:.3f} "
           f"ms/{unit} | device {device_ms:.3f} ms/{unit} ({launches:.0f} "

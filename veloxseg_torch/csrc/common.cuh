@@ -145,21 +145,44 @@ __device__ __forceinline__ void stage1(float* dst, const T* src, bool valid) {
   }
 }
 
+// Four consecutive T elements of global memory as fp32 (p aligned to 4
+// elements): one 16-byte load of float, one 8-byte load of 4 bf16; and
+// the store of four fp32 values rounded to T.
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
+  if constexpr (kIsF32<T>) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 v) {
+  if constexpr (kIsF32<T>) {
+    *reinterpret_cast<float4*>(p) = v;
+  } else {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+    uint2 u;
+    u.x = *reinterpret_cast<const unsigned*>(&a);
+    u.y = *reinterpret_cast<const unsigned*>(&b);
+    *reinterpret_cast<uint2*>(p) = u;
+  }
+}
+
 template <typename T>
 __device__ __forceinline__ void stage4(float* dst, const T* src, bool valid) {
   if constexpr (kIsF32<T>) {
     cp_async_f32x4(dst, src, valid);
   } else {
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (valid) {  // one 8-byte load of 4 bf16
-      const uint2 u = *reinterpret_cast<const uint2*>(src);
-      const float2 a = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&u.x));
-      const float2 b = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(&u.y));
-      f = make_float4(a.x, a.y, b.x, b.y);
-    }
-    *reinterpret_cast<float4*>(dst) = f;
+    *reinterpret_cast<float4*>(dst) =
+        valid ? load4<T>(src) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -212,7 +235,8 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // Per-plane InstanceNorm statistics: one block reduces one contiguous plane
-// of S floats into its mean and rsqrt(max(var, 0) + eps). Sums run in
+// of S elements (float or bf16, read as fp32) into its mean and
+// rsqrt(max(var, 0) + eps). Sums run in
 // double, in a fixed order (strided per thread, then a fixed tree), so a
 // run repeats bit for bit and E[x^2] - E[x]^2 loses nothing to fp32
 // cancellation. Where S is a multiple of 4 each thread keeps four float4
@@ -224,27 +248,28 @@ __device__ __forceinline__ void add_stats(double& s1, double& s2, float4 v) {
   s2 = s2 + a * a + b * b + c * c + d * d;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kStatsThreads)
-plane_stats_kernel(const float* __restrict__ x, int64_t S, float eps,
+plane_stats_kernel(const T* __restrict__ x, int64_t S, float eps,
                    float* __restrict__ mean, float* __restrict__ rstd) {
-  const float* p = x + static_cast<int64_t>(blockIdx.x) * S;
+  const T* p = x + static_cast<int64_t>(blockIdx.x) * S;
   double s1 = 0.0, s2 = 0.0;
   if ((S & 3) == 0) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
     const int64_t n4 = S / 4, bd = blockDim.x;
     int64_t i = threadIdx.x;
     for (; i + 3 * bd < n4; i += 4 * bd) {
-      const float4 a = p4[i], b = p4[i + bd], c = p4[i + 2 * bd],
-                   d = p4[i + 3 * bd];
+      const float4 a = load4<T>(p + 4 * i), b = load4<T>(p + 4 * (i + bd)),
+                   c = load4<T>(p + 4 * (i + 2 * bd)),
+                   d = load4<T>(p + 4 * (i + 3 * bd));
       add_stats(s1, s2, a);
       add_stats(s1, s2, b);
       add_stats(s1, s2, c);
       add_stats(s1, s2, d);
     }
-    for (; i < n4; i += bd) add_stats(s1, s2, p4[i]);
+    for (; i < n4; i += bd) add_stats(s1, s2, load4<T>(p + 4 * i));
   } else {
     for (int64_t i = threadIdx.x; i < S; i += blockDim.x) {
-      const double v = p[i];
+      const double v = to_f32(p[i]);
       s1 += v;
       s2 += v * v;
     }

@@ -1,5 +1,5 @@
-// K5f and K5b: JLC stage 2 forward and backward, fp32, channels-first
-// (B, C, D, H, W).
+// K5f and K5b: JLC stage 2 forward and backward, channels-first
+// (B, C, D, H, W); fp32, and bf16 where built with -DVS_BF16.
 //
 //   out = out1 + W2 · GELU(W1 · InstanceNorm(out1) + b1) + b2
 //
@@ -65,10 +65,37 @@
 // they were inside the TPU kernel's body.
 // Bound: ~10·C·E·C FLOP per voxel (E = 2..3) for the five products; in HBM
 // out1, g, dx once (dz adds a round trip).
+//
+// The bf16 forms (T = bf16: out1, g, the weights, out, dx and the weight
+// gradients; the statistics and every scratch buffer stay fp32) are the
+// same kernels, staging bf16 by plain loads (cp.async cannot widen) into
+// the fp32 shared-memory tiles, and rounding where the Pallas kernels
+// round. K5f (_k2_kernel, 177-191): the statistics of the bf16 out1 in
+// fp32, z = bf16((x − μ)·r), z1 = bf16(W1·z + b1) (fp32 sums),
+// h = gelu_in<bf16>(z1) = bf16(z1·bf16(Φ(z1))), z2 = bf16(W2·h + b2)
+// (with slices: the fp32 partials summed first, then b2, then the
+// rounding), out = bf16(x + z2). K5b (_k2_bwd_kernel, 194-243): z =
+// bf16(ŷ), z1pb = bf16(W1·z + b1), z1 = gelu_in<bf16>(z1pb), dz1 =
+// (W2ᵀg)·GELU'(z1pb) in fp32 (db1 sums it), dz1b = bf16(dz1) feeds dW1 =
+// Σ dz1b·zᵀ and dz = W1ᵀ·dz1b; the IN backward takes the unrounded ŷ; dx
+// = bf16(g + bf16(din)); dW1, db1, dW2, db2 summed in fp32 and rounded once
+// (fused_jlc.py:375-377). Values rounded to bf16 inside a product (z, dz1b)
+// are rounded where the product reads them from shared memory.
 #include "common.cuh"
 
 __device__ __forceinline__ float f4(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Four fp32 values rounded to T and back (the identity for float).
+template <typename T>
+__device__ __forceinline__ float4 round_to4(float4 v) {
+  if constexpr (kIsF32<T>) {
+    return v;
+  } else {
+    return make_float4(round_to<T>(v.x), round_to<T>(v.y), round_to<T>(v.z),
+                       round_to<T>(v.w));
+  }
 }
 
 constexpr int kMlpThreads = 256;
@@ -83,8 +110,9 @@ __host__ __device__ inline int mlp_fwd_smem_floats(int C, int HS, int VT) {
 // Issue the copies of tile `tile`'s out1 into zs ([C][VT + 4]); voxels past
 // B·S read 0. Thread tid always handles voxel (group) tid % (VT or VT/4):
 // VT divides 256.
+template <typename T>
 __device__ __forceinline__ void stage_fwd_tile(float* zs,
-                                               const float* __restrict__ x,
+                                               const T* __restrict__ x,
                                                int64_t tile, int C, int VT,
                                                int64_t S, int64_t BS) {
   const int VS = VT + 4;
@@ -93,17 +121,17 @@ __device__ __forceinline__ void stage_fwd_tile(float* zs,
     const int64_t u = tile * VT + t;
     const bool ok = u < BS;
     const int64_t b = ok ? u / S : 0, v = ok ? u - b * S : 0;
-    const float* src = x + b * C * S + v;
+    const T* src = x + b * C * S + v;
     for (int c = threadIdx.x / g; c < C; c += kMlpThreads / g)
-      cp_async_f32x4(zs + c * VS + t, src + c * S, ok);
+      stage4<T>(zs + c * VS + t, src + c * S, ok);
   } else {
     const int t = threadIdx.x % VT;
     const int64_t u = tile * VT + t;
     const bool ok = u < BS;
     const int64_t b = ok ? u / S : 0, v = ok ? u - b * S : 0;
-    const float* src = x + b * C * S + v;
+    const T* src = x + b * C * S + v;
     for (int c = threadIdx.x / VT; c < C; c += kMlpThreads / VT)
-      cp_async_f32(zs + c * VS + t, src + c * S, ok);
+      stage1<T>(zs + c * VS + t, src + c * S, ok);
   }
 }
 
@@ -111,11 +139,12 @@ __device__ __forceinline__ void stage_fwd_tile(float* zs,
 // tiles [k·per, min(tiles, (k + 1)·per)); tile i holds flattened voxels
 // u = i·VT + t, sample u / S, voxel u % S. part: slices·B·C·S floats (only
 // with more than one slice).
+template <typename T>
 __global__ void __launch_bounds__(kMlpThreads)
-jlc_stage2_mlp(const float* __restrict__ x, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ w2,
-               const float* __restrict__ b2, const float* __restrict__ mean,
-               const float* __restrict__ rstd, float* __restrict__ out,
+jlc_stage2_mlp(const T* __restrict__ x, const T* __restrict__ w1,
+               const T* __restrict__ b1, const T* __restrict__ w2,
+               const T* __restrict__ b2, const float* __restrict__ mean,
+               const float* __restrict__ rstd, T* __restrict__ out,
                float* __restrict__ part, int B, int C, int HID, int HS,
                int64_t S, int VT, int tiles, int per) {
   extern __shared__ __align__(16) float sm[];
@@ -134,14 +163,14 @@ jlc_stage2_mlp(const float* __restrict__ x, const float* __restrict__ w1,
   if (i0 < i1) stage_fwd_tile(stg, x, i0, C, VT, S, BS);
   for (int i = tid; i < HS * C; i += kMlpThreads) {
     const int e = i / C, c = i - e * C;
-    w1t[c * HS + e] = w1[static_cast<int64_t>(e0 + e) * C + c];
+    w1t[c * HS + e] = to_f32(w1[static_cast<int64_t>(e0 + e) * C + c]);
   }
   for (int i = tid; i < HS * C; i += kMlpThreads) {
     const int c = i / HS, e = i - c * HS;
-    w2t[e * C + c] = w2[static_cast<int64_t>(c) * HID + e0 + e];
+    w2t[e * C + c] = to_f32(w2[static_cast<int64_t>(c) * HID + e0 + e]);
   }
-  for (int i = tid; i < HS; i += kMlpThreads) b1s[i] = b1[e0 + i];
-  for (int i = tid; i < C; i += kMlpThreads) b2s[i] = b2[i];
+  for (int i = tid; i < HS; i += kMlpThreads) b1s[i] = to_f32(b1[e0 + i]);
+  for (int i = tid; i < C; i += kMlpThreads) b2s[i] = to_f32(b2[i]);
 
   const int g4 = VT / 4;             // 4-voxel groups of a tile
   for (int it = i0; it < i1; ++it) {
@@ -152,19 +181,19 @@ jlc_stage2_mlp(const float* __restrict__ x, const float* __restrict__ w1,
     if (it + 1 < i1)
       stage_fwd_tile(stg + ((it + 1 - i0) & 1) * C * VS, x, it + 1, C, VT, S,
                      BS);
-    {  // out1 → ẑ in place; voxels past B·S stay 0
+    {  // out1 → ẑ in place, rounded to T; voxels past B·S stay 0
       const int t = tid % VT;
       const int64_t u = static_cast<int64_t>(it) * VT + t;
       if (u < BS) {
         const int b = static_cast<int>(u / S);
         for (int c = tid / VT; c < C; c += kMlpThreads / VT) {
           float* p = zs + c * VS + t;
-          *p = (*p - mean[b * C + c]) * rstd[b * C + c];
+          *p = round_to<T>((*p - mean[b * C + c]) * rstd[b * C + c]);
         }
       }
     }
     __syncthreads();
-    // h = GELU(W1·ẑ + b1): 4 hidden × 4 voxels per job
+    // h = GELU(W1·ẑ + b1) in T: 4 hidden × 4 voxels per job
     for (int j = tid; j < (HS / 4) * g4; j += kMlpThreads) {
       const int e4 = j / g4, t4 = j - e4 * g4;
       float a[4][4];
@@ -185,9 +214,9 @@ jlc_stage2_mlp(const float* __restrict__ x, const float* __restrict__ w1,
       for (int r = 0; r < 4; ++r) {
         const int e = e4 * 4 + r;
         const float bb = b1s[e];
-        sts4(hs + e * VS + t4 * 4, gelu_exact(a[r][0] + bb),
-             gelu_exact(a[r][1] + bb), gelu_exact(a[r][2] + bb),
-             gelu_exact(a[r][3] + bb));
+        sts4(hs + e * VS + t4 * 4, gelu_in<T>(a[r][0] + bb),
+             gelu_in<T>(a[r][1] + bb), gelu_in<T>(a[r][2] + bb),
+             gelu_in<T>(a[r][3] + bb));
       }
     }
     __syncthreads();
@@ -216,12 +245,14 @@ jlc_stage2_mlp(const float* __restrict__ x, const float* __restrict__ w1,
         for (int r = 0; r < 4; ++r) {
           const int c = c4 * 4 + r;
           const int64_t o = (b * C + c) * S + v;
-          if (nsl == 1) {
-            const float4 xv = *reinterpret_cast<const float4*>(x + o);
+          if (nsl == 1) {  // out = x + z2, z2 = W2·h + b2 rounded to T
+            const float4 xv = load4<T>(x + o);
             const float bb = b2s[c];
-            *reinterpret_cast<float4*>(out + o) = make_float4(
-                xv.x + (a[r][0] + bb), xv.y + (a[r][1] + bb),
-                xv.z + (a[r][2] + bb), xv.w + (a[r][3] + bb));
+            store4<T>(out + o,
+                      make_float4(xv.x + round_to<T>(a[r][0] + bb),
+                                  xv.y + round_to<T>(a[r][1] + bb),
+                                  xv.z + round_to<T>(a[r][2] + bb),
+                                  xv.w + round_to<T>(a[r][3] + bb)));
           } else {
             *reinterpret_cast<float4*>(part + s * BS * C + o) =
                 make_float4(a[r][0], a[r][1], a[r][2], a[r][3]);
@@ -236,7 +267,9 @@ jlc_stage2_mlp(const float* __restrict__ x, const float* __restrict__ w1,
           for (int r = 0; r < 4; ++r) {
             const int c = c4 * 4 + r;
             const int64_t o = (b * C + c) * S + v;
-            if (nsl == 1) out[o] = x[o] + (a[r][k] + b2s[c]);
+            if (nsl == 1)
+              out[o] = from_f32<T>(to_f32(x[o]) +
+                                   round_to<T>(a[r][k] + b2s[c]));
             else part[s * BS * C + o] = a[r][k];
           }
         }
@@ -245,29 +278,32 @@ jlc_stage2_mlp(const float* __restrict__ x, const float* __restrict__ w1,
   }
 }
 
-// K5f launch 3 (slices > 1): out = out1 + (Σ_s part_s + b2), in slice order.
-__global__ void jlc_stage2_sum(const float* __restrict__ x,
+// K5f launch 3 (slices > 1): out = out1 + (Σ_s part_s + b2), in slice order
+// (Σ_s part_s + b2 rounded to T before the residual).
+template <typename T>
+__global__ void jlc_stage2_sum(const T* __restrict__ x,
                                const float* __restrict__ part,
-                               const float* __restrict__ b2,
-                               float* __restrict__ out, int C, int64_t S,
-                               int64_t n, int nsl) {
+                               const T* __restrict__ b2, T* __restrict__ out,
+                               int C, int64_t S, int64_t n, int nsl) {
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     float a = part[i];
     for (int s = 1; s < nsl; ++s) a += part[s * n + i];
-    out[i] = x[i] + (a + b2[(i / S) % C]);
+    out[i] = from_f32<T>(to_f32(x[i]) +
+                         round_to<T>(a + to_f32(b2[(i / S) % C])));
   }
 }
 
 // K5f. x = out1: (B, C, D, H, W); w1: (HID, C); b1: (HID,); w2: (C, HID);
-// b2: (C,); mean, rstd: B·C floats (written; K5b takes them); out: like x;
-// part: slices·B·C·S floats of scratch (slices > 1). The launch geometry
-// (ops/fused_jlc.py:stage2_fwd_launch): HS hidden rows per slice, VT voxels
-// per tile (32 to 256, a power of two), chunks of `per` tiles.
-extern "C" int vs_jlc_stage2(const float* x, const float* w1, const float* b1,
-                             const float* w2, const float* b2, float* mean,
-                             float* rstd, float* out, float* part, int B,
+// b2: (C,); out: like x (all Elem); mean, rstd: B·C floats (written; K5b
+// takes them); part: slices·B·C·S floats of scratch (slices > 1). The
+// launch geometry (ops/fused_jlc.py:stage2_fwd_launch): HS hidden rows per
+// slice, VT voxels per tile (32 to 256, a power of two), chunks of `per`
+// tiles.
+extern "C" int vs_jlc_stage2(const Elem* x, const Elem* w1, const Elem* b1,
+                             const Elem* w2, const Elem* b2, float* mean,
+                             float* rstd, Elem* out, float* part, int B,
                              int C, int HID, int S, int HS, int VT,
                              int chunks, int per, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -284,18 +320,18 @@ extern "C" int vs_jlc_stage2(const float* x, const float* w1, const float* b1,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem = (size_t)mlp_fwd_smem_floats(C, HS, VT) * sizeof(float);
-  err = allow_smem(jlc_stage2_mlp, smem);
+  err = allow_smem(jlc_stage2_mlp<Elem>, smem);
   if (err != cudaSuccess) return err;
   const int nsl = HID / HS;
-  jlc_stage2_mlp<<<dim3(chunks, nsl), kMlpThreads, smem, stream>>>(
+  jlc_stage2_mlp<Elem><<<dim3(chunks, nsl), kMlpThreads, smem, stream>>>(
       x, w1, b1, w2, b2, mean, rstd, out, part, B, C, HID, HS, S, VT,
       static_cast<int>(tiles), per);
   err = cudaGetLastError();
   if (err != cudaSuccess || nsl == 1) return err;
   const int64_t n = bs * C;
   const int64_t want = (n + 255) / 256;
-  jlc_stage2_sum<<<static_cast<unsigned>(want < 4096 ? want : 4096), 256, 0,
-                   stream>>>(x, part, b2, out, C, S, n, nsl);
+  jlc_stage2_sum<Elem><<<static_cast<unsigned>(want < 4096 ? want : 4096),
+                         256, 0, stream>>>(x, part, b2, out, C, S, n, nsl);
   return cudaGetLastError();
 }
 
@@ -315,9 +351,10 @@ __host__ __device__ inline int mlp_bwd_smem_floats(int C, int HS, int TP) {
 
 // Issue the copies of unit (b, v0)'s x and g into one stage buffer, [C][kVS]
 // each; voxels past S read 0.
+template <typename T>
 __device__ __forceinline__ void stage_tile(float* xs, float* gs,
-                                           const float* __restrict__ x,
-                                           const float* __restrict__ g,
+                                           const T* __restrict__ x,
+                                           const T* __restrict__ g,
                                            int b, int64_t v0, int C,
                                            int64_t S) {
   const int64_t base = (int64_t)b * C * S;
@@ -326,16 +363,16 @@ __device__ __forceinline__ void stage_tile(float* xs, float* gs,
       const int c = i / (kVT / 4), t = (i - c * (kVT / 4)) * 4;
       const bool ok = v0 + t < S;
       const int64_t o = base + c * S + (ok ? v0 + t : 0);
-      cp_async_f32x4(xs + c * kVS + t, x + o, ok);
-      cp_async_f32x4(gs + c * kVS + t, g + o, ok);
+      stage4<T>(xs + c * kVS + t, x + o, ok);
+      stage4<T>(gs + c * kVS + t, g + o, ok);
     }
   } else {
     for (int i = threadIdx.x; i < C * kVT; i += kBwdThreads) {
       const int c = i / kVT, t = i - c * kVT;
       const bool ok = v0 + t < S;
       const int64_t o = base + c * S + (ok ? v0 + t : 0);
-      cp_async_f32(xs + c * kVS + t, x + o, ok);
-      cp_async_f32(gs + c * kVS + t, g + o, ok);
+      stage1<T>(xs + c * kVS + t, x + o, ok);
+      stage1<T>(gs + c * kVS + t, g + o, ok);
     }
   }
 }
@@ -348,11 +385,11 @@ __device__ __forceinline__ void stage_tile(float* xs, float* gs,
 // tile's 64 voxels when there are fewer jobs than threads (JPT = 1), and
 // add their sums in tp order at the end. The next unit's x and g arrive by
 // cp.async (two stage buffers) while a unit is computed.
-template <int JPT>
+template <typename T, int JPT>
 __global__ void __launch_bounds__(kBwdThreads, JPT == 1 ? 2 : 1)
-jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
-                  const float* __restrict__ b1, const float* __restrict__ w2,
-                  const float* __restrict__ g, const float* __restrict__ mean,
+jlc_mlp_bwd_tiles(const T* __restrict__ x, const T* __restrict__ w1,
+                  const T* __restrict__ b1, const T* __restrict__ w2,
+                  const T* __restrict__ g, const float* __restrict__ mean,
                   const float* __restrict__ rstd, float* __restrict__ dz,
                   float* __restrict__ tsum, float* __restrict__ part, int B,
                   int C, int HID, int HS, int64_t S, int tps, int units,
@@ -372,16 +409,16 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll 4
   for (int i = tid; i < HS * C; i += kBwdThreads) {
     const int e = i / C, c = i - e * C;
-    const float w = w1[(int64_t)(e0 + e) * C + c];
+    const float w = to_f32(w1[(int64_t)(e0 + e) * C + c]);
     w1n[i] = w;
     w1t[c * HS + e] = w;
   }
 #pragma unroll 4
   for (int i = tid; i < C * HS; i += kBwdThreads) {
     const int c = i / HS, e = i - c * HS;
-    w2s[i] = w2[(int64_t)c * HID + e0 + e];
+    w2s[i] = to_f32(w2[(int64_t)c * HID + e0 + e]);
   }
-  for (int i = tid; i < HS; i += kBwdThreads) b1s[i] = b1[e0 + i];
+  for (int i = tid; i < HS; i += kBwdThreads) b1s[i] = to_f32(b1[e0 + i]);
 
   // weight jobs of this thread: job = tid / TP + q·(256 / TP)
   const int jobs = HS * C / 8, half = jobs / 2, c4n = C / 4, h4n = HS / 4;
@@ -419,7 +456,8 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
       *p = v0 + t < S ? (*p - mean[b * C + c]) * rstd[b * C + c] : 0.f;
     }
     __syncthreads();
-    // z1p = W1·ŷ + b1 and W2ᵀ·g: 4 hidden × 4 voxels per job
+    // z1p = W1·z + b1 (z = ŷ rounded to T) and W2ᵀ·g: 4 hidden × 4
+    // voxels per job
     for (int j = tid; j < h4n * 16; j += kBwdThreads) {
       const int e4 = j >> 4, t4 = j & 15;
       float zp[4][4], gw[4][4];
@@ -430,7 +468,7 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
       for (int c = 0; c < C; ++c) {
         const float4 wa = lds4(w1t + c * HS + e4 * 4);
         const float4 wb = lds4(w2s + c * HS + e4 * 4);
-        const float4 yv = lds4(ys + c * kVS + t4 * 4);
+        const float4 yv = round_to4<T>(lds4(ys + c * kVS + t4 * 4));
         const float4 gv = lds4(gs + c * kVS + t4 * 4);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -445,9 +483,9 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
         const int e = e4 * 4 + i;
         float z[4], d[4];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float p = zp[i][k] + b1s[e];
-          z[k] = gelu_exact(p);
+        for (int k = 0; k < 4; ++k) {  // z1pb = z1p rounded to T
+          const float p = round_to<T>(zp[i][k] + b1s[e]);
+          z[k] = gelu_in<T>(p);
           d[k] = gw[i][k] * gelu_grad(p);
         }
         sts4(z1s + e * kVS + t4 * 4, z[0], z[1], z[2], z[3]);
@@ -455,7 +493,8 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
       }
     }
     __syncthreads();
-    // dz = W1ᵀ·dz1 (this slice's part): 4 channels × 4 voxels per job, and
+    // dz = W1ᵀ·dz1b (this slice's part; dz1b = dz1 rounded to T): 4
+    // channels × 4 voxels per job, and
     // the tile's per-channel sums of dz and dz·ŷ (C % 8 == 0: whole warps).
     // Its jobs start at the last warp, the weight jobs below at the first,
     // so that where there are few of each they run on different warps.
@@ -468,7 +507,7 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
         for (int k = 0; k < 4; ++k) a[i][k] = 0.f;
       for (int e = 0; e < HS; ++e) {
         const float4 wv = lds4(w1n + e * C + c4 * 4);
-        const float4 dv = lds4(d1s + e * kVS + t4 * 4);
+        const float4 dv = round_to4<T>(lds4(d1s + e * kVS + t4 * 4));
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -503,7 +542,7 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
         }
       }
     }
-    // dW1 += dz1·ŷᵀ, dW2 += g·z1ᵀ: job (a4, c4) owns rows a4 + i·HS/4 and
+    // dW1 += dz1b·zᵀ, dW2 += g·z1ᵀ: job (a4, c4) owns rows a4 + i·HS/4 and
     // channels c4 + k·C/4 (interleaved, so neighbouring lanes read
     // neighbouring rows)
 #pragma unroll
@@ -515,12 +554,18 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
       const int a4 = r / c4n, c4 = r - a4 * c4n;
       const float* A = second ? z1s : d1s;
       const float* Bm = second ? gs : ys;
+      // dz1 and ŷ rounded to T for dW1 (z1 and g hold T values already)
+      const bool rnd = !kIsF32<T> && !second;
       for (int t = tb; t < tb + tlen; t += 4) {
         float4 av[4], bv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           av[i] = lds4(A + (a4 + i * h4n) * kVS + t);
           bv[i] = lds4(Bm + (c4 + i * c4n) * kVS + t);
+          if (rnd) {
+            av[i] = round_to4<T>(av[i]);
+            bv[i] = round_to4<T>(bv[i]);
+          }
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
@@ -594,17 +639,19 @@ jlc_mlp_bwd_tiles(const float* __restrict__ x, const float* __restrict__ w1,
 // K5b launch 2. Blocks [0, nred): the weight partials summed over the
 // chunks in order. Block nred + p·ysplit + y: plane p = b·C + c, voxels
 // [y·vchunk, +vchunk): dx = g + r·(Σ_s dz_s − m1 − ŷ·m2), with m1, m2 the
-// plane's means of dz and dz·ŷ from the per-tile sums (double, fixed order).
+// plane's means of dz and dz·ŷ from the per-tile sums (double, fixed order);
+// for T = bf16 din rounded before the residual, dx rounded, the weight
+// gradients rounded once.
+template <typename T>
 __global__ void __launch_bounds__(kStatsThreads)
-jlc_stage2_bwd_planes(const float* __restrict__ x,
-                      const float* __restrict__ g,
+jlc_stage2_bwd_planes(const T* __restrict__ x, const T* __restrict__ g,
                       const float* __restrict__ dz,
                       const float* __restrict__ tsum,
                       const float* __restrict__ part,
                       const float* __restrict__ mean,
-                      const float* __restrict__ rstd, float* __restrict__ dx,
-                      float* __restrict__ dw1, float* __restrict__ dw2,
-                      float* __restrict__ db1, float* __restrict__ db2,
+                      const float* __restrict__ rstd, T* __restrict__ dx,
+                      T* __restrict__ dw1, T* __restrict__ dw2,
+                      T* __restrict__ db1, T* __restrict__ db2,
                       int B, int C, int HID, int64_t S, int tps, int nsl,
                       int chunks, int nred, int ysplit, int64_t vchunk) {
   const int64_t hc = (int64_t)HID * C;
@@ -615,10 +662,11 @@ jlc_stage2_bwd_planes(const float* __restrict__ x,
     float s = 0.f;
 #pragma unroll 8
     for (int k = 0; k < chunks; ++k) s += part[k * slab + i];
-    if (i < hc) dw1[i] = s;
-    else if (i < 2 * hc) dw2[i - hc] = s;
-    else if (i < 2 * hc + HID) db1[i - 2 * hc] = s;
-    else db2[i - 2 * hc - HID] = s;
+    const T v = from_f32<T>(s);
+    if (i < hc) dw1[i] = v;
+    else if (i < 2 * hc) dw2[i - hc] = v;
+    else if (i < 2 * hc + HID) db1[i - 2 * hc] = v;
+    else db2[i - 2 * hc - HID] = v;
     return;
   }
   const int q = blockIdx.x - nred;
@@ -641,25 +689,25 @@ jlc_stage2_bwd_planes(const float* __restrict__ x,
     const int64_t o = (int64_t)p * S + v;
     float d = dz[o];
     for (int sl = 1; sl < nsl; ++sl) d += dz[sl * plane + o];
-    const float yh = (x[o] - m) * r;
-    dx[o] = g[o] + r * (d - m1 - yh * m2);
+    const float yh = (to_f32(x[o]) - m) * r;
+    dx[o] = from_f32<T>(to_f32(g[o]) + round_to<T>(r * (d - m1 - yh * m2)));
   }
 }
 
 // K5b. x = out1, g: (B, C, D, H, W); w1: (HID, C); b1: (HID,); w2:
-// (C, HID); mean, rstd: B·C floats, K5f's statistics; dz: slices·B·C·S
-// floats, tsum: units·slices·C·2, part: chunks·(2·HID·C + HID + C)
-// (scratch); dx: like x; dw1: (HID, C); db1: (HID,); dw2: (C, HID); db2:
-// (C,). The launch geometry (ops/fused_jlc.py:stage2_bwd_launch): HS
+// (C, HID); dx: like x; dw1: (HID, C); db1: (HID,); dw2: (C, HID); db2:
+// (C,) (all Elem); mean, rstd: B·C floats, K5f's statistics; dz:
+// slices·B·C·S floats, tsum: units·slices·C·2, part: chunks·(2·HID·C +
+// HID + C) (fp32 scratch). The launch geometry (ops/fused_jlc.py:stage2_bwd_launch): HS
 // hidden rows per slice, chunks of `per` units, TP voxel parts per weight
 // job, JPT weight jobs per thread, ysplit blocks per plane in the planes
 // launch.
-extern "C" int vs_jlc_stage2_bwd(const float* x, const float* w1,
-                                 const float* b1, const float* w2,
-                                 const float* g, const float* mean,
+extern "C" int vs_jlc_stage2_bwd(const Elem* x, const Elem* w1,
+                                 const Elem* b1, const Elem* w2,
+                                 const Elem* g, const float* mean,
                                  const float* rstd, float* dz, float* tsum,
-                                 float* part, float* dx, float* dw1,
-                                 float* db1, float* dw2, float* db2, int B,
+                                 float* part, Elem* dx, Elem* dw1,
+                                 Elem* db1, Elem* dw2, Elem* db2, int B,
                                  int C, int HID, int S, int HS, int chunks,
                                  int per, int TP, int JPT, int ysplit,
                                  void* stream_ptr) {
@@ -680,9 +728,9 @@ extern "C" int vs_jlc_stage2_bwd(const float* x, const float* w1,
   const dim3 grid(chunks, nsl);
 #define VS_K5B_TILES(J)                                                      \
   if (JPT == J) {                                                            \
-    err = allow_smem(jlc_mlp_bwd_tiles<J>, smem);                            \
+    err = allow_smem(jlc_mlp_bwd_tiles<Elem, J>, smem);                      \
     if (err != cudaSuccess) return err;                                      \
-    jlc_mlp_bwd_tiles<J><<<grid, kBwdThreads, smem, stream>>>(               \
+    jlc_mlp_bwd_tiles<Elem, J><<<grid, kBwdThreads, smem, stream>>>(         \
         x, w1, b1, w2, g, mean, rstd, dz, tsum, part, B, C, HID, HS, S, tps, \
         units, per, TP);                                                     \
   } else
@@ -693,7 +741,8 @@ extern "C" int vs_jlc_stage2_bwd(const float* x, const float* w1,
   const int64_t slab = 2LL * HID * C + HID + C;
   const int nred = (int)((slab + kStatsThreads - 1) / kStatsThreads);
   const int64_t vchunk = (S + ysplit - 1) / ysplit;
-  jlc_stage2_bwd_planes<<<nred + B * C * ysplit, kStatsThreads, 0, stream>>>(
+  jlc_stage2_bwd_planes<Elem>
+      <<<nred + B * C * ysplit, kStatsThreads, 0, stream>>>(
       x, g, dz, tsum, part, mean, rstd, dx, dw1, dw2, db1, db2, B, C, HID, S,
       tps, nsl, chunks, nred, ysplit, vchunk);
   return cudaGetLastError();

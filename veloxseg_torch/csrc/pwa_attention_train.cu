@@ -1,6 +1,7 @@
 // K1, K2f and K3f: the forward of the paired-window attention, eval (K1)
 // and train with counter-hash weight dropout (K2f, K3f), for every window
-// length; fp32, and K2f also for bf16 q, k, v (built with -DVS_BF16).
+// length; fp32, and K1 and K2f also for bf16 q, k, v (built with
+// -DVS_BF16).
 //
 // Replaces: veloxseg_tpu/ops/pwa_attention.py:_attn_kernel (56-74, K1,
 // called through window_attention_pallas, 77-133), _train_fwd_kernel
@@ -52,14 +53,18 @@
 // past the chunk compute on stale data and write nothing. Tensor cores are
 // not used.
 //
-// The bf16 form (T = bf16, the JAX trainer's operands) is the same kernel:
+// The bf16 forms (T = bf16: the JAX trainer's operands for K2f, the bf16
+// eval forward's for K1) are the same kernel:
 // q, k and v are converted to fp32 as they are staged (loaded at once, not
 // by cp.async, which cannot widen), the scores, the softmax and the kept
 // weights' product with V stay fp32 (the weights are not rounded:
 // pwa_attention.py:324-341), and the output is rounded once to bf16. It
 // also writes the output in fp32 before that rounding (out32), from which
 // K2b forms D = rowsum(dO ⊙ out) as the Pallas backward forms it from
-// unrounded weights. The bias and lse stay fp32.
+// unrounded weights. The bias and lse stay fp32. K1's bf16 form is
+// _attn_kernel (56-74) on bf16 operands: fp32 inside, the weights not
+// rounded before ·V (window_attention_xla rounds them; the Pallas kernel
+// does not), the output rounded once; it writes no out32.
 #include "common.cuh"
 
 constexpr int kStep = 32;      // columns of one online-softmax step
@@ -415,6 +420,34 @@ extern "C" int vs_pwa_attention_train(
   return cudaErrorInvalidValue;
 }
 
+#define VS_EVAL_CASE(CQ, CVV)                                               \
+  if (Cqk == CQ && Cv == CVV)                                               \
+    return ldg ? launch<Elem, CQ, CVV, false, false, true>(                 \
+                     q, k, v, bias, nullptr, out, nullptr, nullptr, B, H,   \
+                     N, L, S, W, chunks, per, scale, 0u, 1.f, stream)       \
+               : launch<Elem, CQ, CVV, false, false, false>(                \
+                     q, k, v, bias, nullptr, out, nullptr, nullptr, B, H,   \
+                     N, L, S, W, chunks, per, scale, 0u, 1.f, stream);
+
+// K1: the eval instance, every (Cqk, Cv) of KERNEL_WIDTHS at every L, fp32
+// and bf16 (q, k, v and out of Elem; bias float): no dropout, no lse; the
+// geometry as above (ops/pwa_attention.py: eval_fwd_launch), ldg != 0: the
+// bias read through L1, not staged.
+extern "C" int vs_pwa_attention(const Elem* q, const Elem* k, const Elem* v,
+                                const float* bias, Elem* out, int B, int H,
+                                int N, int Cqk, int Cv, int L, int S, int W,
+                                int chunks, int per, int ldg, float scale,
+                                void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (!geometry_ok(B, H, N, L, S, W, chunks, per))
+    return cudaErrorInvalidValue;
+  VS_EVAL_CASE(4, 4) VS_EVAL_CASE(4, 8) VS_EVAL_CASE(4, 16)
+  VS_EVAL_CASE(4, 32) VS_EVAL_CASE(8, 4) VS_EVAL_CASE(8, 8)
+  VS_EVAL_CASE(8, 16) VS_EVAL_CASE(8, 32) VS_EVAL_CASE(16, 4)
+  VS_EVAL_CASE(16, 8) VS_EVAL_CASE(16, 16) VS_EVAL_CASE(16, 32)
+  return cudaErrorInvalidValue;
+}
+
 #ifndef VS_BF16
 // K3f: the same kernel for windows longer than 512 tokens, at the widths
 // K3b is built for (LONG_KERNEL_WIDTHS: (8, 8)); fp32 (bf16 operands are
@@ -431,30 +464,4 @@ extern "C" int vs_pwa_attention_long_train(
   return cudaErrorInvalidValue;
 }
 
-#define VS_EVAL_CASE(CQ, CVV)                                               \
-  if (Cqk == CQ && Cv == CVV)                                               \
-    return ldg ? launch<float, CQ, CVV, false, false, true>(                \
-                     q, k, v, bias, nullptr, out, nullptr, nullptr, B, H,   \
-                     N, L, S, W, chunks, per, scale, 0u, 1.f, stream)       \
-               : launch<float, CQ, CVV, false, false, false>(               \
-                     q, k, v, bias, nullptr, out, nullptr, nullptr, B, H,   \
-                     N, L, S, W, chunks, per, scale, 0u, 1.f, stream);
-
-// K1: the eval instance, every (Cqk, Cv) of KERNEL_WIDTHS at every L:
-// no dropout, no lse; the geometry as above (ops/pwa_attention.py:
-// eval_fwd_launch), ldg != 0: the bias read through L1, not staged.
-extern "C" int vs_pwa_attention(const float* q, const float* k,
-                                const float* v, const float* bias, float* out,
-                                int B, int H, int N, int Cqk, int Cv, int L,
-                                int S, int W, int chunks, int per, int ldg,
-                                float scale, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (!geometry_ok(B, H, N, L, S, W, chunks, per))
-    return cudaErrorInvalidValue;
-  VS_EVAL_CASE(4, 4) VS_EVAL_CASE(4, 8) VS_EVAL_CASE(4, 16)
-  VS_EVAL_CASE(4, 32) VS_EVAL_CASE(8, 4) VS_EVAL_CASE(8, 8)
-  VS_EVAL_CASE(8, 16) VS_EVAL_CASE(8, 32) VS_EVAL_CASE(16, 4)
-  VS_EVAL_CASE(16, 8) VS_EVAL_CASE(16, 16) VS_EVAL_CASE(16, 32)
-  return cudaErrorInvalidValue;
-}
 #endif  // VS_BF16

@@ -18,7 +18,8 @@ The JAX package's documented quirks, kept:
 - WKV takes ``w = spatial_decay / T`` and ``u = spatial_first / T``
   (decay neither negated nor exponentiated);
 - batch norms normalize over the batch they are given, in eval mode too;
-- GELU is exact (erf); LayerNorms use eps 1e-6, as the JAX package's.
+- GELU is exact (erf); LayerNorms use eps 1e-6, as the JAX package's, and
+  round in bf16 as its own LayerNorm does (:mod:`.common`).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from ...ops.wkv import wkv
 from ...utils.device import resolve_device
 from ...utils.layout import to_channels_first, to_channels_last
 from ..registry import register_model
-from .common import BatchNormNoTrack
+from .common import BatchNormNoTrack, LayerNorm
 
 _LN_EPS = 1e-6
 
@@ -125,8 +126,8 @@ class SpatialMix(nn.Module):
         self.value = nn.Linear(c, c, bias=False)
         self.receptance = nn.Linear(c, c, bias=False)
         self.output = nn.Linear(c, c, bias=False)
-        self.key_norm = nn.LayerNorm(c, eps=_LN_EPS)
-        self.ln1 = nn.LayerNorm(c, eps=_LN_EPS)
+        self.key_norm = LayerNorm(c, eps=_LN_EPS)
+        self.ln1 = LayerNorm(c, eps=_LN_EPS)
         self.gamma1 = nn.Parameter(torch.ones(c))
 
     def forward(self, x_seq: torch.Tensor,
@@ -152,7 +153,7 @@ class SpectralMixer(nn.Module):
         self.spatial_mix_k = _param(mk, (1, 1, c))
         self.spatial_mix_r = _param(mr, (1, 1, c))
         self.key = nn.Linear(c, c * hidden_rate, bias=False)
-        self.key_norm = nn.LayerNorm(c * hidden_rate, eps=_LN_EPS)
+        self.key_norm = LayerNorm(c * hidden_rate, eps=_LN_EPS)
         self.value = nn.Linear(c * hidden_rate, c, bias=False)
         self.receptance = nn.Linear(c, c, bias=False)
 
@@ -174,7 +175,7 @@ class LoRABlock(nn.Module):
         super().__init__()
         self.allinone_spa = SpatialMix(c)
         self.ffn = SpectralMixer(c)
-        self.ln2 = nn.LayerNorm(c, eps=_LN_EPS)
+        self.ln2 = LayerNorm(c, eps=_LN_EPS)
         self.gamma2 = nn.Parameter(torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -239,7 +239,8 @@ class MultiModalPWA(nn.Module):
             attn = window_attention_train(q, k, v, bias.float().contiguous(),
                                           seed, scale, float(self.attn_drop))
         else:
-            attn = window_attention(q, k, v, bias.contiguous(), scale)
+            # K1 too (``ops/pwa_attention.py:130``)
+            attn = window_attention(q, k, v, bias.float().contiguous(), scale)
 
         _, hh, n, _, ml = attn.shape
         l = ml // m_count

@@ -32,6 +32,10 @@ from .pwa import RelativePositionBias
 
 
 class VeloxSeg(nn.Module):
+    # submodules only training runs: the JAX model's eval init holds no
+    # parameters of theirs (the speed CLI counts as it does)
+    TRAIN_ONLY = ("rc_decoders",)
+
     def __init__(self, cfg: VeloxSegConfig):
         super().__init__()
         self.cfg = cfg

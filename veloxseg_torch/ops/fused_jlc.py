@@ -36,8 +36,13 @@ the bf16 sum and the residual added in bf16; K4b takes the GELU's gradient
 at the rounded value and rounds dy and the weight gradient to bf16. Its
 bf16 forms are the same kernels built for bf16 elements (``_cuda.lib(...,
 torch.bfloat16)``); the plain versions compute in fp32 and round where the
-kernels round. Stage 2 (K5f, K5b) runs bf16 cast to fp32 at its edges
-(``ROADMAP.md`` §2 item 1).
+kernels round. Stage 2 takes bf16 out1, weights and cotangent the same way
+(``_k2_kernel``, ``_k2_bwd_kernel``, ``fused_jlc.py:177-243``): fp32
+statistics and sums, the normalized value, both channel products' outputs
+(after their biases) and the GELU rounded to bf16, the residual added in
+bf16; K5b takes the GELU's gradient at the rounded pre-activation, rounds
+dz1 before dW1 and dz, adds the rounded IN backward to g in bf16, and
+rounds the weight gradients once.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn.norms import instance_norm
+from ..utils.flops import add_kernel_flops
 from . import _cuda
 
 # the branch kernel sizes K4's kernels are built for (core/config.py)
@@ -157,44 +163,75 @@ def jlc_stage1_bwd_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return dy, jlc_branch_wgrad_plain(x, dy, weights, groups)
 
 
+def jlc_stage1_flops(x: torch.Tensor, weights: Sequence[torch.Tensor]
+                     ) -> int:
+    """K4f's operations as ``FlopCounterMode`` counts its plain version: per
+    branch the grouped conv, 2·(C·C/groups·k³) per output voxel."""
+    vox = x.shape[0] * math.prod(x.shape[2:])
+    return sum(2 * w.numel() * vox for w in weights)
+
+
+def jlc_stage2_flops(out1: torch.Tensor, w1: torch.Tensor) -> int:
+    """K5f's operations as ``FlopCounterMode`` counts its plain version:
+    the two 1×1 convs, 2·E·C·C each per voxel."""
+    vox = out1.shape[0] * math.prod(out1.shape[2:])
+    return 2 * 2 * w1.numel() * vox
+
+
 def jlc_stage2_plain(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                      w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """Stage 2 with torch ops; ``w1`` (E·C, C, 1, 1, 1), ``w2`` (C, E·C,
-    1, 1, 1) as the reference's 1×1 convs store them."""
-    z = F.conv3d(instance_norm(out1), w1, b1)
-    z = F.conv3d(F.gelu(z), w2, b2)
-    return out1 + z
+    1, 1, 1) as the reference's 1×1 convs store them. In fp32; for bf16
+    the normalized value, both convs' outputs (bias included), the GELU
+    and the residual sum round to bf16 as K5f does (``_k2_kernel``)."""
+    dt = out1.dtype
+    z = instance_norm(out1.float()).to(dt).float()
+    z = F.conv3d(z, w1.float(), b1.float()).to(dt).float()
+    z = _gelu_as(z, dt).float()
+    z = F.conv3d(z, w2.float(), b2.float()).to(dt).float()
+    return (out1.float() + z).to(dt)
 
 
 def jlc_stage2_bwd_plain(out1: torch.Tensor, w1: torch.Tensor,
                          b1: torch.Tensor, w2: torch.Tensor, g: torch.Tensor):
     """K5b's function (``_k2_bwd_kernel``): ``(dx, dw1, db1, dw2, db2)``
     given the cotangent ``g`` of stage 2's output, the weight gradients
-    in the port's weight shapes."""
+    in the port's weight shapes. In fp32; for bf16 as K5b rounds: z =
+    bf16(ŷ), z1pb = bf16(W1·z + b1), z1 = the bf16 GELU of z1pb, GELU' at
+    z1pb, dz1b = bf16(dz1) for dW1 and dz (db1 sums dz1), the IN backward
+    on the unrounded ŷ, dx = bf16(g + bf16(din)), the weight gradients
+    rounded once (``fused_jlc.py:194-243``)."""
+    dt = out1.dtype
     b, c = out1.shape[:2]
     hid = w1.shape[0]
-    mean, rstd = _plane_stats(out1)
-    yhat = ((out1 - mean) * rstd).reshape(b, c, -1)
-    g3 = g.reshape(b, c, -1)
-    w1m, w2m = w1.reshape(hid, c), w2.reshape(c, hid)
-    z1p = torch.einsum("ec,bcs->bes", w1m, yhat) + b1[:, None]
+
+    def r(t):  # t rounded to the stream's dtype, as fp32
+        return t.to(dt).float()
+    x = out1.float()
+    mean, rstd = _plane_stats(x)
+    yhat = ((x - mean) * rstd).reshape(b, c, -1)
+    z = r(yhat)
+    g3 = g.float().reshape(b, c, -1)
+    w1m, w2m = w1.float().reshape(hid, c), w2.float().reshape(c, hid)
+    z1pb = r(torch.einsum("ec,bcs->bes", w1m, z) + b1.float()[:, None])
     db2 = g3.sum(dim=(0, 2))
-    dw2 = torch.einsum("bcs,bes->ce", g3, F.gelu(z1p))
-    dz1 = torch.einsum("ce,bcs->bes", w2m, g3) * _gelu_grad(z1p)
+    dw2 = torch.einsum("bcs,bes->ce", g3, _gelu_as(z1pb, dt).float())
+    dz1 = torch.einsum("ce,bcs->bes", w2m, g3) * _gelu_grad(z1pb)
     db1 = dz1.sum(dim=(0, 2))
-    dw1 = torch.einsum("bes,bcs->ec", dz1, yhat)
-    dz = torch.einsum("ec,bes->bcs", w1m, dz1)
-    dx = g3 + _in_backward(dz, yhat, rstd.reshape(b, c, 1))
-    return (dx.reshape(out1.shape), dw1.reshape(w1.shape), db1,
-            dw2.reshape(w2.shape), db2)
+    dz1b = r(dz1)
+    dw1 = torch.einsum("bes,bcs->ec", dz1b, z)
+    dz = torch.einsum("ec,bes->bcs", w1m, dz1b)
+    dx = g3 + r(_in_backward(dz, yhat, rstd.reshape(b, c, 1)))
+    return (dx.reshape(out1.shape).to(dt), dw1.reshape(w1.shape).to(dt),
+            db1.to(dt), dw2.reshape(w2.shape).to(dt), db2.to(dt))
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
-# element types of the stage-1 kernels (K5's take float32 only)
-_STAGE1_DTYPES = (torch.float32, torch.bfloat16)
+# element types of the stage-1 and stage-2 kernels
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_cuda(x: torch.Tensor, *tensors: torch.Tensor,
@@ -289,7 +326,7 @@ def _stage1_args(x: torch.Tensor, weights: Sequence[torch.Tensor],
     """Checked kernel arguments shared by K4f and K4b: the contiguous
     weights and the launch geometry."""
     weights = [w.contiguous() for w in weights]
-    _check_cuda(x, *weights, dtypes=_STAGE1_DTYPES)
+    _check_cuda(x, *weights, dtypes=_DTYPES)
     b, c, d, h, w = x.shape
     ks = tuple(int(wt.shape[-1]) for wt in weights)
     cg = c // groups
@@ -333,6 +370,7 @@ def _jlc_stage1_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
             lw.tx, lw.vx, lw.ks, lw.oqb, _cuda.stream_ptr(x.device))
     _cuda.check(lib, err, "jlc_stage1")
     _cuda.count_launch(jlc_stage1, x.dtype)
+    add_kernel_flops(jlc_stage1_flops(x, weights))
     return out
 
 
@@ -355,7 +393,7 @@ def jlc_stage1_bwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if x.device.type == "cpu":
         return jlc_stage1_bwd_plain(x, weights, g, groups)
     weights, lw = _stage1_args(x, weights, groups)
-    _check_cuda(x, g, dtypes=_STAGE1_DTYPES)
+    _check_cuda(x, g, dtypes=_DTYPES)
     if g.shape != x.shape:
         raise ValueError(f"g {tuple(g.shape)} differs from x {tuple(x.shape)}")
     scratch, pstat, mean, rstd = _stage1_scratch(x, lw)
@@ -392,7 +430,7 @@ def jlc_branch_wgrad(x: torch.Tensor, dy: torch.Tensor,
     if x.device.type == "cpu":
         return jlc_branch_wgrad_plain(x, dy, weights, groups)
     weights, lw = _stage1_args(x, weights, groups)
-    _check_cuda(x, dy, dtypes=_STAGE1_DTYPES)
+    _check_cuda(x, dy, dtypes=_DTYPES)
     if dy.shape != (3,) + tuple(x.shape):
         raise ValueError(f"dy {tuple(dy.shape)} is not 3 x {tuple(x.shape)}")
     part, dws = _wgrad_out(x, weights, lw)
@@ -541,17 +579,16 @@ def pad_stage2_fwd(out1, w1m, b1, w2m, b2):
 
 def _jlc_stage2_fwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                     w2: torch.Tensor, b2: torch.Tensor):
-    """K5f (or the plain version for a CPU tensor): ``(out, mean, rstd)``,
-    the plane statistics K5f took (B·C floats each; None on the CPU).
-    Widths the kernel does not take run padded (:func:`pad_stage2_fwd`).
-    fp32 only: bf16 reaches it cast at the edges of :func:`jlc_stage2`
-    (``ROADMAP.md`` §2 item 1)."""
+    """K5f (or the plain version for a CPU tensor), fp32 or bf16: ``(out,
+    mean, rstd)``, the plane statistics K5f took (B·C fp32 values each;
+    None on the CPU). Widths the kernel does not take run padded
+    (:func:`pad_stage2_fwd`)."""
     if out1.device.type == "cpu":
         return jlc_stage2_plain(out1, w1, b1, w2, b2), None, None
     b, c, d, h, w = out1.shape
     s = d * h * w
     w1m, w2m, hid = _stage2_mats(out1, w1, w2)
-    _check_cuda(out1, w1m, b1, w2m, b2)
+    _check_cuda(out1, w1m, b1, w2m, b2, dtypes=_DTYPES)
     if b1.shape != (hid,) or b2.shape != (c,):
         raise ValueError(f"K5f bias shapes {tuple(b1.shape)}, "
                          f"{tuple(b2.shape)} do not match C={c}")
@@ -563,17 +600,18 @@ def _jlc_stage2_fwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     lw = stage2_fwd_launch(b, cp, hp, s, _cuda.sm_count(dev))
     mean = torch.empty((b * cp,), device=dev)
     rstd = torch.empty_like(mean)
-    out = torch.empty((b, cp, d, h, w), device=dev)
+    out = torch.empty((b, cp, d, h, w), device=dev, dtype=out1.dtype)
     part = torch.empty((lw.slices * b * cp * s if lw.slices > 1 else 1,),
                        device=dev)
-    lib = _cuda.lib("jlc_stage2")
+    lib = _cuda.lib("jlc_stage2", out1.dtype)
     with torch.cuda.device(dev):
         err = lib.vs_jlc_stage2(
             *(t.data_ptr() for t in ins), mean.data_ptr(), rstd.data_ptr(),
             out.data_ptr(), part.data_ptr(), b, cp, hp, s, lw.hs, lw.vt,
             lw.chunks, lw.per, _cuda.stream_ptr(dev))
     _cuda.check(lib, err, "jlc_stage2")
-    jlc_stage2.launches += 1
+    _cuda.count_launch(jlc_stage2, out1.dtype)
+    add_kernel_flops(jlc_stage2_flops(out1, w1))
     if cp != c:
         out = out[:, :c].contiguous()
         mean, rstd = (t.reshape(b, cp)[:, :c].reshape(-1).contiguous()
@@ -722,15 +760,18 @@ def jlc_stage2_bwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """K5b: ``(dx, dw1, db1, dw2, db2)`` of stage 2. ``mean``, ``rstd``:
     K5f's plane statistics of ``out1`` (B·C floats each; the plain version
     recomputes them). Widths the kernel does not take run padded
-    (:func:`pad_stage2_bwd`). fp32 only, as K5f."""
+    (:func:`pad_stage2_bwd`). fp32 or bf16, as K5f; the gradients in the
+    inputs' dtype."""
     if out1.device.type == "cpu":
         return jlc_stage2_bwd_plain(out1, w1, b1, w2, g)
     b, c, d, h, w = out1.shape
     s = d * h * w
     w1m, w2m, hid = _stage2_mats(out1, w1, w2)
-    _check_cuda(out1, w1m, b1, w2m, g, mean, rstd)
+    _check_cuda(out1, w1m, b1, w2m, g, dtypes=_DTYPES)
+    _check_cuda(mean, rstd)
     if b1.shape != (hid,) or g.shape != out1.shape \
-            or mean.numel() != b * c or rstd.numel() != b * c:
+            or mean.numel() != b * c or rstd.numel() != b * c \
+            or mean.device != out1.device:
         raise ValueError(f"K5b: b1 {tuple(b1.shape)}, g {tuple(g.shape)} or "
                          f"the B·C statistics do not match C={c}, E·C={hid}")
     ins = (out1, w1m, b1, w2m, g, mean, rstd)
@@ -742,12 +783,13 @@ def jlc_stage2_bwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     dz = torch.empty((lw.slices, b, cp, s), device=dev)
     tsum = torch.empty((lw.units, lw.slices, cp, 2), device=dev)
     part = torch.empty((lw.chunks, 2 * hp * cp + hp + cp), device=dev)
-    dx = torch.empty((b, cp, d, h, w), device=dev)
-    dw1 = torch.empty((hp, cp), device=dev)
-    dw2 = torch.empty((cp, hp), device=dev)
-    db1 = torch.empty((hp,), device=dev)
-    db2 = torch.empty((cp,), device=dev)
-    lib = _cuda.lib("jlc_stage2")
+    dt = out1.dtype
+    dx = torch.empty((b, cp, d, h, w), device=dev, dtype=dt)
+    dw1 = torch.empty((hp, cp), device=dev, dtype=dt)
+    dw2 = torch.empty((cp, hp), device=dev, dtype=dt)
+    db1 = torch.empty((hp,), device=dev, dtype=dt)
+    db2 = torch.empty((cp,), device=dev, dtype=dt)
+    lib = _cuda.lib("jlc_stage2", dt)
     with torch.cuda.device(dev):
         err = lib.vs_jlc_stage2_bwd(
             *(t.data_ptr() for t in ins), dz.data_ptr(), tsum.data_ptr(),
@@ -755,12 +797,13 @@ def jlc_stage2_bwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             dw2.data_ptr(), db2.data_ptr(), b, cp, hp, s, lw.hs, lw.chunks,
             lw.per, lw.tp, lw.jpt, lw.ysplit, _cuda.stream_ptr(dev))
     _cuda.check(lib, err, "jlc_stage2_bwd")
-    jlc_stage2_bwd.launches += 1
+    _cuda.count_launch(jlc_stage2_bwd, dt)
     return (dx[:, :c].contiguous(), dw1[:hid, :c].reshape(w1.shape),
             db1[:hid], dw2[:c, :hid].reshape(w2.shape), db2[:c])
 
 
 jlc_stage2_bwd.launches = 0
+jlc_stage2_bwd.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -833,15 +876,12 @@ jlc_stage1.launches_bf16 = 0
 
 def jlc_stage2(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """JLC stage 2 on ``(B, C, D, H, W)``: K5f forward, K5b backward. bf16
-    runs cast to fp32 at the edges of K5f and K5b, the output rounded to
-    bf16 (K5 has no bf16 form yet: ``ROADMAP.md`` §2 item 1)."""
-    if out1.dtype != torch.float32:
-        return jlc_stage2(*(t.float() for t in (out1, w1, b1, w2, b2))
-                          ).to(out1.dtype)
+    """JLC stage 2 on ``(B, C, D, H, W)``, fp32 or bf16 (the weights in
+    out1's dtype): K5f forward, K5b backward."""
     if not _needs_graph(out1, w1, b1, w2, b2):
         return _jlc_stage2_fwd(out1, w1, b1, w2, b2)[0]
     return _Stage2.apply(out1, w1, b1, w2, b2)
 
 
 jlc_stage2.launches = 0
+jlc_stage2.launches_bf16 = 0

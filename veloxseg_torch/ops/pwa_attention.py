@@ -30,8 +30,10 @@ outputs rounded once to the operands' dtype; the bias, the lse and dbias
 stay fp32 (``veloxseg_tpu/ops/pwa_attention.py:572-649``). Their bf16 forms
 are the same kernels built for bf16 elements (``_cuda.lib(...,
 torch.bfloat16)``); the plain versions compute in fp32 and round where the
-kernels round. K3f and K3b run bf16 operands cast to fp32 at their edges,
-and K1 takes fp32 only (``ROADMAP.md`` §2 item 1).
+kernels round. K1 takes bf16 q, k, v as well (the bf16 eval forward of
+``speed_main``): its bf16 form computes in fp32 and rounds the output once
+(``_attn_kernel``, 56-74). K3f and K3b run bf16 operands cast to fp32 at
+their edges (``ROADMAP.md`` §2 item 1).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.flops import add_kernel_flops
 from . import _cuda
 
 # (Cqk, Cv) pairs K1 and K2 are instantiated for (csrc/pwa_attention_train.cu,
@@ -53,11 +56,25 @@ _M32 = 0xFFFFFFFF
 
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: torch.Tensor, scale: float) -> torch.Tensor:
-    """einsum → +bias → softmax → einsum, as ``window_attention_xla``."""
+    """einsum → +bias → softmax → einsum, as ``window_attention_xla``, in
+    fp32 (float64 stays float64), the output in v's dtype: for bf16
+    operands the function of ``_attn_kernel`` (``pwa_attention.py:56-74``),
+    the weights not rounded before ·V and the output rounded once."""
+    dtype = v.dtype
+    dt = torch.promote_types(dtype, torch.float32)
+    q, k, v, bias = (t.to(dt) for t in (q, k, v, bias))
     scores = torch.einsum("bhncl,bhncm->bhnlm", q, k) * scale
     scores = scores + bias[None, :, None]
     weights = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhnlm,bhncm->bhncl", weights, v)
+    return torch.einsum("bhnlm,bhncm->bhncl", weights, v).to(dtype)
+
+
+def window_attention_flops(b: int, h: int, n: int, c_qk: int, c_v: int,
+                           l: int) -> int:
+    """K1's operations as ``FlopCounterMode`` counts its plain version: the
+    two batched products (QᵀK and the weights' ·V), 2·L·L·C each per
+    window; the softmax is not counted."""
+    return 2 * b * h * n * l * l * (c_qk + c_v)
 
 
 def _check(q, k, v, bias, *more, seed=None, widths=KERNEL_WIDTHS,
@@ -98,19 +115,21 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      launch: Optional["TrainFwdLaunch"] = None
                      ) -> torch.Tensor:
     """Eval window attention (K1): the train forward's kernel without
-    dropout and lse; (B, h, N, Cv, L) out. ``launch``: a
-    :class:`TrainFwdLaunch` in place of :func:`eval_fwd_launch`'s (the card
-    tests and the bench's sweep). Its decomposition in torch ops is
+    dropout and lse; q, k, v fp32 or bf16, bias fp32; (B, h, N, Cv, L) out
+    in v's dtype. ``launch``: a :class:`TrainFwdLaunch` in place of
+    :func:`eval_fwd_launch`'s (the card tests and the bench's sweep). Its
+    decomposition in torch ops is
     :func:`window_attention_train_fwd_tiled_plain` at p = 0."""
     if q.device.type == "cpu":
         return window_attention_plain(q, k, v, bias, scale)
-    b, h, n, c_qk, c_v, l = _check(q, k, v, bias)
+    b, h, n, c_qk, c_v, l = _check(q, k, v, bias,
+                                   dtypes=(torch.float32, torch.bfloat16))
     out = torch.empty_like(v)
     if out.numel() == 0:
         return out
     lw = launch or eval_fwd_launch(b, h, n, l, c_qk, c_v,
                                    _cuda.sm_count(q.device))
-    lib = _cuda.lib("pwa_attention_train")
+    lib = _cuda.lib("pwa_attention_train", q.dtype)
     with torch.cuda.device(q.device):
         err = lib.vs_pwa_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -118,11 +137,13 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lw.chunks, lw.per, int(lw.ldg), float(scale),
             _cuda.stream_ptr(q.device))
     _cuda.check(lib, err, "pwa_attention")
-    window_attention.launches += 1
+    _cuda.count_launch(window_attention, q.dtype)
+    add_kernel_flops(window_attention_flops(b, h, n, c_qk, c_v, l))
     return out
 
 
 window_attention.launches = 0
+window_attention.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------

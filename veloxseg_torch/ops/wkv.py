@@ -7,6 +7,10 @@ positive (``wkv.py:7-11``); ``w`` is passed as the caller computes it
 (U-RWKV passes ``decay / T``, not negated). The CUDA kernel is
 ``csrc/wkv.cu``.
 
+bf16 inputs run as ``wkv_pallas`` runs them (``wkv.py:108-144``): w, u, k
+and v cast to fp32, the kernel (or the plain version) in fp32, the output
+cast back to v's dtype. The Pallas kernel has no bf16 form to port.
+
 The JAX package has no backward kernel (its VJP differentiates the scan),
 and serving needs none: on a CUDA tensor :func:`wkv` runs the kernel and
 refuses inputs that require a gradient; on a CPU tensor it runs the plain
@@ -147,8 +151,12 @@ def wkv_launch(t: int) -> WkvLaunch:
 def wkv(w: torch.Tensor, u: torch.Tensor, k: torch.Tensor,
         v: torch.Tensor, launch: Optional[WkvLaunch] = None) -> torch.Tensor:
     """K6 on CUDA tensors, the plain version on CPU tensors; (B, T, C).
-    ``launch``: a :class:`WkvLaunch` in place of :func:`wkv_launch`'s (the
-    card tests and the bench's sweep)."""
+    bf16 operands are cast to fp32 and the output back to bf16, as
+    ``wkv_pallas`` casts them. ``launch``: a :class:`WkvLaunch` in place of
+    :func:`wkv_launch`'s (the card tests and the bench's sweep)."""
+    if v.dtype == torch.bfloat16:
+        return wkv(*(t.float() for t in (w, u, k, v)),
+                   launch=launch).to(v.dtype)
     if k.device.type == "cpu":
         return wkv_plain(w, u, k, v)
     if k.device.type != "cuda":
