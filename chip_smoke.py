@@ -56,7 +56,12 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    outputs repeat bit for bit). For the speed CLI (phase 16) at its batch,
    B = 16: K1 in bf16 at AutoPET-II's four levels (beside SDPA in bf16),
    at Hecktor's L = 512 and BraTS's L = 216, K4f and K5f in bf16 at the
-   four JLC levels, K6 on bf16 operands (cast at its edges).
+   four JLC levels, K6 on bf16 operands (cast at its edges). For the bf16
+   128³ flagship step (phase 9): K3f and K3b in bf16 at its level 1 (L =
+   1024) at B = 16 and B = 2, p = 0.1, against their bf16 plain versions
+   (the kept weights rounded before ·V and the dV product, dS before the
+   dq and dk products), K3b's outputs repeating bit for bit, each timed
+   beside its fp32 form on the same values and SDPA in bf16.
 4. build the AutoPET-II model (``config/models_config_autopetii.json``) at
    full width with seeded weights on the card; run the eval forward on a
    seeded (1, 96, 96, 96, 2) tile and hold it against the same model and
@@ -92,10 +97,12 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    bench.py's B = 16 with its loss weights and AdamW, in bf16 and then in
    fp32: a warm-up step, then 10 timed steps (ms per step, peak memory,
    the loss falling). Launches per step: K2f 3, K2b 3, K3f 1, K3b 1, K4f,
-   K4b (and its wgrad), K5f, K5b 13 each (in bf16 the bf16 forms of K2, K4
-   and K5; K3 cast to fp32 at its edges), and the fp32 ones must
-   equal phase 3's calls per step.
-10. one flagship step at B = 1, every dropout 0, card against CPU, as 8.
+   K4b (and its wgrad), K5f, K5b 13 each (in bf16 all of them the bf16
+   forms, no fp32 K3), and the fp32 ones must equal phase 3's calls per
+   step. The bf16 step's ms is printed beside the fp32 step's.
+10. one flagship step at B = 1, every dropout 0, card against CPU, as 8;
+    then the same step in bf16 on both, held to
+    ``chip_measure.STEP_BOUND`` as phase 8's bf16 step.
 11. path B, U-RWKV (``load_model("U-RWKV", models_config_autopetii)``)
     with seeded weights: the forward of a seeded (4, 96, 96, 96, 2) batch
     on the card and on the CPU (batch norms take the statistics of the 4
@@ -163,6 +170,27 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     form; per model images/s, batch size, Params and FLOPS. The operations
     per image at AutoPET-II's full shape, counted on the card (the kernels
     report theirs) and on the CPU (the plain versions), must be equal.
+17. (run before 15) the export CLI (``veloxseg_torch.cli.export_main.main``
+    → ``infer/export.py``): the AutoPET-II model at its published width
+    with seeded weights saved as ``val_best.pth``, exported on the card
+    with a symbolic batch (traced under the portable scope: no kernel
+    launches); the artifact loaded in a process that imports only
+    ``torch`` and run on seeded 96³ tiles at B = 1 and B = 3 (a batch never
+    named at export), held to the live eval forward (the kernels) within
+    phase 4's card-against-CPU tolerance; the export s, the artifact's MB
+    and the loaded program's B = 1 forward ms beside the live forward's.
+18. (run before 15) ``preprocess_main normalize-ctpet`` over two of
+    phase 13's synthetic AutoPET-II cases (its generator, written at a
+    spacing unlike the training spacing), then ``extern_main`` on the card
+    over their normalized PET volumes (3-D, one channel, resampled to
+    ``spacing.AutoPETII`` so that each spans two tiles on every axis) with
+    the AutoPET-II model, and with ``--normalize_intensity 1`` over two
+    4-channel MSD-style cases with the BraTS2021 model, both at published
+    widths; counts zeroed before and read after (K1, K4f and K5f
+    launched); each run again with ``--device cpu``, held by phase 13's
+    rule (logits within 1e-5 of the CPU's scale, masks equal but where the
+    CPU's top-2 margin is below 1e-4, metrics within 1e-4); s per case
+    split into read, resample (or z-score), window and metrics.
 15. print the seconds of each phase, one ``{"kernels": [...]}`` line (a
     row per kernel and per bf16 form, with ``excess_ms``, each path's
     launches × (ms − bound) per call at that path's own shapes, summed),
@@ -1189,6 +1217,321 @@ def trainer_cli_phase(card, zero_counts, counts, per_step, per_forward,
         steps_s=steps, phase_s=time.perf_counter() - t14)
 
 
+# -- phase 17: the export CLI ------------------------------------------------
+
+# the loaded artifact, in a process that imports torch alone: B = 1 and 3
+# on the card (TF32 off, as here), the B = 1 forward timed by CUDA events
+_LOAD_ARTIFACT = """
+import json, sys
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+program = torch.export.load(sys.argv[1]).module()
+out = {}
+with torch.inference_mode():
+    for b in (1, 3):
+        x = torch.from_numpy(np.load(f"{sys.argv[2]}/x{b}.npy")).cuda()
+        np.save(f"{sys.argv[2]}/y{b}.npy", program(x).cpu().numpy())
+    x = torch.from_numpy(np.load(f"{sys.argv[2]}/x1.npy")).cuda()
+    for _ in range(2):
+        program(x)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        program(x)
+    end.record()
+    torch.cuda.synchronize()
+    out["b1_ms"] = start.elapsed_time(end) / 5
+assert "veloxseg_torch" not in sys.modules, "the artifact needed the port"
+print(json.dumps(out))
+"""
+
+
+def export_phase(card, zero_counts, counts, config_path, patch):
+    """Phase 17: ``cli.export_main`` on the card for the AutoPET-II model at
+    its published width (seeded weights saved as ``val_best.pth``), the
+    artifact loaded and run in a ``torch``-only process at B = 1 and 3 and
+    held to the live eval forward (phase 4's tolerance)."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from veloxseg_torch.cli.export_main import main as export_main
+    from veloxseg_torch.core.config import load_json_config
+    from veloxseg_torch.models.registry import load_model
+
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        models = load_json_config(config_path)
+        weights = load_model("VeloxSeg", models, device="cpu",
+                             seed=8).state_dict()
+        os.makedirs(os.path.join(work, "ckpt"))
+        torch.save(weights, os.path.join(work, "ckpt", "val_best.pth"))
+        train_json = os.path.join(work, "train.json")
+        with open(train_json, "w") as f:
+            json.dump({"patch_size": {"AutoPETII": patch}}, f)
+        art = os.path.join(work, "autopet.pt2")
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        export_main(["--dataset_name", "AutoPETII", "--model_name",
+                     "VeloxSeg", "--model_config", config_path,
+                     "--train_config", train_json, "--checkpoint_dir",
+                     os.path.join(work, "ckpt"), "--output", art])
+        export_s = time.perf_counter() - t0
+        traced = {n: c for n, c in counts().items() if c}
+        if traced:
+            raise AssertionError(f"export launched kernels {traced}: it "
+                                 f"traces the plain versions")
+        mb = os.path.getsize(art) / 1e6
+        rng = np.random.default_rng(17)
+        xs = {b: rng.standard_normal((b, *patch, 2)).astype(np.float32)
+              for b in (1, 3)}
+        for b, x in xs.items():
+            np.save(os.path.join(work, f"x{b}.npy"), x)
+        t0 = time.perf_counter()
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        r = subprocess.run([sys.executable, "-c", _LOAD_ARTIFACT, art, work],
+                           cwd=work, env=env, capture_output=True, text=True,
+                           timeout=600)
+        load_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"the artifact did not load and run in a "
+                                 f"torch-only process:\n{r.stderr[-3000:]}")
+        loaded = json.loads(r.stdout.strip().splitlines()[-1])
+        live = load_model("VeloxSeg", models, device="cuda")
+        live.load_state_dict(weights)
+        live.eval()
+        errs = {}
+        with torch.inference_mode():
+            for b, x in xs.items():
+                zero_counts()
+                want = live(torch.from_numpy(x).cuda())
+                torch.cuda.synchronize()
+                ran = counts()
+                if not all(ran[n] > 0 for n in ("pwa_attention", "jlc_stage1",
+                                                "jlc_stage2")):
+                    raise AssertionError(f"live forward launches {ran}")
+                got = np.load(os.path.join(work, f"y{b}.npy"))
+                want = want.cpu().numpy()
+                scale = float(np.abs(want).max())
+                errs[b] = float(np.abs(got - want).max())
+                # phase 4's card-against-CPU tolerance: the plain versions
+                # against the kernels, fp32, TF32 off
+                if got.shape != want.shape or not errs[b] <= 1e-4 * scale:
+                    raise AssertionError(
+                        f"exported B={b}: shape {got.shape} vs {want.shape},"
+                        f" max abs err {errs[b]:.3e} on scale {scale:.3e}")
+            x1 = torch.from_numpy(xs[1]).cuda()
+            live_ms = cuda_ms(lambda: live(x1), 5)
+    out = dict(export_s=export_s, artifact_mb=mb, load_and_run_s=load_s,
+               loaded_b1_ms=loaded["b1_ms"], live_b1_ms=live_ms,
+               max_abs_err=errs, phase_s=time.perf_counter() - t17)
+    print(f"[17] {card} | export CLI, AutoPET-II VeloxSeg at its published "
+          f"width, symbolic batch: export {export_s:.1f} s, artifact "
+          f"{mb:.1f} MB | loaded in a torch-only process and run at B = 1 "
+          f"and 3: max abs err vs the live forward (kernels) "
+          f"{errs[1]:.3e}, {errs[3]:.3e} (tol 1e-4 x scale) | B = 1 forward "
+          f"{loaded['b1_ms']:.3f} ms loaded (plain versions) vs "
+          f"{live_ms:.3f} ms live (kernels)", flush=True)
+    return out
+
+
+# -- phase 18: the preprocess and extern CLIs --------------------------------
+
+EXTERN_COLUMNS = ["checkpoint", "name", "fp_rate", "fn_rate", "precision",
+                  "recall", "f1", "iou", "dice", "time"]
+EXTERN_SPLIT = re.compile(
+    r"(\S+): dice [\d.]+ \| s: read ([\d.]+) resample ([\d.]+) window "
+    r"([\d.]+) metrics ([\d.]+) \| shape \(([\d, ]+)\)")
+
+
+def extern_cli_phase(card, zero_counts, counts, serving, configs, patches,
+                     spacing, small=(96, 96, 80), brats=(90, 96, 80)):
+    """Phase 18: ``preprocess_main normalize-ctpet`` over two of phase 13's
+    synthetic AutoPET-II cases (``small``, written at a spacing unlike
+    ``spacing`` so that the resampled volume spans two tiles on every axis),
+    ``extern_main`` over their normalized PET volumes with the AutoPET-II
+    model, and with ``--normalize_intensity 1`` over two 4-channel
+    MSD-style cases with the BraTS2021 model; each on the card and with
+    ``--device cpu``, compared by phase 13's rule. Returns the report, with
+    the AutoPET-II run's launch counts (``launches``)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from veloxseg_torch.cli.extern_main import main as extern_main
+    from veloxseg_torch.cli.preprocess_main import main as preprocess_main
+    from veloxseg_torch.core.config import load_json_config
+    from veloxseg_torch.data.nifti import save_nifti
+    from veloxseg_torch.infer import sliding_window as sw
+    from veloxseg_torch.models.registry import load_model
+
+    t18 = time.perf_counter()
+    raw_spacing = (2.5, 2.5, 4.0)
+    recorded = []
+    window = sw.sliding_window_inference
+
+    def recording(*a, **kw):
+        out = window(*a, **kw)
+        recorded.append(out[0].float().cpu().numpy())
+        return out
+
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        raw = write_cases(os.path.join(work, "raw"), "AutoPETII", small, 2,
+                          seed=41, spacing=raw_spacing)
+        steps = {"write_cases": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        norm = os.path.join(work, "norm")
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            stats = preprocess_main([
+                "normalize-ctpet", "--ct_glob", raw["ct_path"], "--pet_glob",
+                raw["pet_path"], "--label_glob", raw["label_path"],
+                "--out_dir", norm])
+        steps["preprocess"] = time.perf_counter() - t0
+        if "CT foreground stats" not in said.getvalue() \
+                or not stats["std"] > 0:
+            raise AssertionError(f"preprocess: {said.getvalue()}")
+        # MSD-style BraTS cases: the four modalities on a fourth axis
+        rng = np.random.default_rng(44)
+        msd = os.path.join(work, "msd")
+        os.makedirs(msd)
+        for i in range(2):
+            vol, label = blob_volume(rng, brats)
+            img = np.stack([vol * (j + 1) + rng.standard_normal(brats)
+                            .astype(np.float32) * 0.1 for j in range(4)], -1)
+            save_nifti(os.path.join(msd, f"msd{i:03d}.nii.gz"), img)
+            save_nifti(os.path.join(msd, f"msd{i:03d}_seg.nii.gz"), label)
+        ckpts = {}
+        for key, dataset, seed in (("autopet", "AutoPETII", 9),
+                                   ("brats", "BraTS2021", 10)):
+            ckpts[key] = os.path.join(work, f"{key}.pth")
+            torch.save(load_model("VeloxSeg", load_json_config(
+                configs[dataset]), device="cpu", seed=seed).state_dict(),
+                ckpts[key])
+        with open(os.path.join(work, "train.json"), "w") as f:
+            json.dump({"patch_size": patches,
+                       "spacing": {"AutoPETII": list(spacing),
+                                   "BraTS2021": [1.0, 1.0, 1.0]},
+                       "dataset_path": {
+                           "AutoPETExtern": {
+                               "data_path": os.path.join(
+                                   norm, "case*_pet.nii.gz"),
+                               "label_path": os.path.join(
+                                   norm, "case???.nii.gz")},
+                           "MSD": {
+                               "data_path": os.path.join(
+                                   msd, "msd???.nii.gz"),
+                               "label_path": os.path.join(
+                                   msd, "msd*_seg.nii.gz")}}}, f)
+        runs, launches = {}, None
+        sw.sliding_window_inference = recording
+        try:
+            for key, dataset, train_ds, extra in (
+                    ("autopet", "AutoPETExtern", "AutoPETII", []),
+                    ("brats", "MSD", "BraTS2021",
+                     ["--normalize_intensity", "1"])):
+                out = {}
+                for dev in ("cuda", "cpu"):
+                    base = os.path.join(work, "out", key, dev)
+                    test_json = os.path.join(base, "test.json")
+                    os.makedirs(base)
+                    with open(test_json, "w") as f:
+                        json.dump({"result_metric_path": base,
+                                   "sliding_window": {"overlap": 0.25}}, f)
+                    recorded.clear()
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                        zero_counts()
+                    t0 = time.perf_counter()
+                    extern_main(["--dataset_name", dataset, "--train_dataset",
+                                 train_ds, "--model_name", "VeloxSeg",
+                                 "--checkpoints", ckpts[key],
+                                 "--train_config",
+                                 os.path.join(work, "train.json"),
+                                 "--model_config", configs[train_ds],
+                                 "--test_config", test_json,
+                                 "--device", dev, *extra])
+                    wall = time.perf_counter() - t0
+                    got = counts() if dev == "cuda" else None
+                    rows = check_csv(os.path.join(
+                        base, f"extern_{dataset}_VeloxSeg.csv"),
+                        EXTERN_COLUMNS, 2)
+                    with open(os.path.join(
+                            base, f"extern_{dataset}_VeloxSeg.log")) as f:
+                        splits = [m.groups()
+                                  for m in EXTERN_SPLIT.finditer(f.read())]
+                    out[dev] = dict(wall=wall, launches=got, rows=rows,
+                                    logits=list(recorded), splits=splits)
+                if [n for n in serving if out["cuda"]["launches"][n] <= 0]:
+                    raise AssertionError(f"extern {key} launches "
+                                         f"{out['cuda']['launches']}")
+                if key == "autopet":
+                    launches = out["cuda"]["launches"]
+                cmps = [compare_rows(f"extern {key} {r['name']}", cl, pl, r,
+                                     pr, EXTERN_COLUMNS[1:])
+                        for cl, pl, r, pr in zip(
+                            out["cuda"]["logits"], out["cpu"]["logits"],
+                            out["cuda"]["rows"], out["cpu"]["rows"])]
+                if len(cmps) != 2:
+                    raise AssertionError(f"extern {key}: {len(cmps)} cases")
+                per_case = []
+                for name, *parts, shape in out["cuda"]["splits"]:
+                    read_s, res_s, win_s, met_s = map(float, parts)
+                    shape = tuple(int(v) for v in shape.split(","))
+                    tiles = [-(-max(s - p, 0) // int(p * 0.75)) + 1
+                             for s, p in zip(shape, patches[train_ds])]
+                    if key == "autopet" and min(tiles) < 2:
+                        raise AssertionError(f"extern: {name} resampled to "
+                                             f"{shape}, tiles {tiles}")
+                    per_case.append(dict(name=name, read_s=read_s,
+                                         resample_s=res_s, window_s=win_s,
+                                         metrics_s=met_s, shape=shape,
+                                         tiles=tiles))
+                    print(f"[18] {card} | extern {key} {name}: read "
+                          f"{read_s:.4f} s, "
+                          + ("resample" if key == "autopet" else "z-score")
+                          + f" {res_s:.4f} s, window {win_s:.4f} s "
+                          f"(synchronized), metrics {met_s:.4f} s | volume "
+                          f"{shape}, tiles {tiles}", flush=True)
+                steps[key] = out["cuda"]["wall"]
+                steps[f"{key}_cpu"] = out["cpu"]["wall"]
+                runs[key] = dict(
+                    card_s=out["cuda"]["wall"], cpu_s=out["cpu"]["wall"],
+                    per_case=per_case, card_vs_cpu=cmps,
+                    launches={n: c for n, c in out["cuda"]["launches"].items()
+                              if c},
+                    rows=out["cuda"]["rows"])
+                print(f"[18] extern {key} ({dataset} with the {train_ds} "
+                      f"model at its published width, 2 cases"
+                      + (", --normalize_intensity 1" if extra else "")
+                      + f"): {out['cuda']['wall']:.3f} s card, "
+                      f"{out['cpu']['wall']:.3f} s CPU | launches "
+                      f"{runs[key]['launches']} | logits max abs err "
+                      f"{max(c['logit_err'] for c in cmps):.3e} (tol 1e-5 x "
+                      f"scale), {sum(c['flips'] for c in cmps)} voxels differ "
+                      f"(all with CPU top-2 margin < 1e-4), metrics max abs "
+                      f"err {max(c['metric_err'] for c in cmps):.3e} (tol "
+                      f"1e-4) | dice "
+                      + ", ".join(r["dice"] for r in out["cuda"]["rows"]),
+                      flush=True)
+        finally:
+            sw.sliding_window_inference = window
+    print(f"[18] preprocess normalize-ctpet over 2 cases of {small} at "
+          f"{raw_spacing} mm: {steps['preprocess']:.2f} s | CT stats "
+          f"{ {k: round(v, 4) for k, v in stats.items()} }", flush=True)
+    return dict(runs=runs, ct_stats=stats, steps_s=steps, launches=launches,
+                phase_s=time.perf_counter() - t18)
+
+
 def main() -> int:
     import argparse
     import torch
@@ -1684,24 +2027,46 @@ def main() -> int:
         return f"device {vs_fp32_dev[key][0]:.4f} ms (fp32 form " \
                f"{vs_fp32_dev[key][1]:.4f})"
 
-    def train_attention_bf16(name, b, h, n, cqk, cv, L, weight, unit):
-        """K2f and K2b on bf16 q, k, v, dO (bias fp32) at p = 0.1 against
-        their bf16 plain versions, timed beside SDPA in bf16 and beside
-        the fp32 forms on the same values."""
+    def train_attention_bf16(name, b, h, n, cqk, cv, L, weight, unit,
+                             long=False):
+        """K2f and K2b (``long``: K3f and K3b) on bf16 q, k, v, dO (bias
+        fp32) at p = 0.1 against their bf16 plain versions, timed beside
+        SDPA in bf16 and beside the fp32 forms on the same values."""
         pa = pwa_attention
+        tag = "K3" if long else "K2"
+        fwd = pa.window_attention_train_fwd_long if long \
+            else pa.window_attention_train_fwd
+        bwd = pa.window_attention_train_bwd_long if long \
+            else pa.window_attention_train_bwd
+        fname = fwd.__name__.replace("window_attention", "pwa_attention")
+        bname = bwd.__name__.replace("window_attention", "pwa_attention")
+
+        def fwd_plain():
+            if long:
+                return pa.window_attention_train_fwd_long_plain(
+                    *qkvb, scale, p_drop)[0]
+            return pa.window_attention_train_fwd_plain(*qkvb, scale, p_drop)
+
+        def bwd_plain():
+            return pa.window_attention_train_bwd_plain(
+                *qkvb, do, scale, p_drop, row_blocked=long)
         q, k = randn(b, h, n, cqk, L).to(bf), randn(b, h, n, cqk, L).to(bf)
         v, do = randn(b, h, n, cv, L).to(bf), randn(b, h, n, cv, L).to(bf)
         bias = randn(h, L, L, scale=0.5)
         scale = 1.0 / cqk ** 0.5
         qkvb = (q, k, v, bias, seed)
-        out, lse, out32 = pa.window_attention_train_fwd(*qkvb, scale, p_drop)
-        require_close(f"K2f bf16 {name} lse", lse,
+        out, lse, out32 = fwd(*qkvb, scale, p_drop)
+        require_close(f"{tag}f bf16 {name} lse", lse,
                       pa.train_lse_plain(q, k, bias, scale), atol=1e-5,
                       rtol=1e-5)
-        ref = pa.window_attention_train_fwd_plain(*qkvb, scale, p_drop)
+        ref = fwd_plain()
         torch.cuda.synchronize()
-        err_f, equal = require_bf16_match(f"K2f bf16 {name}", out, ref)
+        err_f, equal = require_bf16_match(f"{tag}f bf16 {name}", out, ref)
         del ref
+        if long:  # out32: the product of the unrounded weights, K3b's D
+            require_close(f"K3f bf16 {name} out32", out32,
+                          pa.window_attention_train_fwd_long_plain(
+                              *qkvb, scale, p_drop)[1], atol=1e-5, rtol=1e-4)
         q4, k4, v4, do4 = (t.permute(0, 2, 1, 4, 3).reshape(b * n, h, L, -1)
                            .contiguous() for t in (q, k, v, do))
         bias4 = bias.to(bf)
@@ -1721,52 +2086,44 @@ def main() -> int:
                                        retain_graph=True)
         lib_b = cuda_ms(sdpa_bwd, 5)
         del y4, q4, k4, v4, do4, bias4
-        backends[f"K2 bf16 {name}"] = backend
+        backends[f"{tag} bf16 {name}"] = backend
         work_f, work_b = train_attention_work_bf16(b, h, n, cqk, cv, L)
-        ms_f = cuda_ms(lambda: pa.window_attention_train_fwd(
-            *qkvb, scale, p_drop))
-        record("pwa_attention_train_fwd_bf16", name, weight, *work_f[:2],
-               err_f, ms_f,
-               cuda_ms(lambda: pa.window_attention_train_fwd_plain(
-                   *qkvb, scale, p_drop), 5), lib_f, unit, work_f[2])
+        ms_f = cuda_ms(lambda: fwd(*qkvb, scale, p_drop))
+        record(f"{fname}_bf16", name, weight, *work_f[:2], err_f, ms_f,
+               cuda_ms(fwd_plain, 5), lib_f, unit, work_f[2])
 
-        grads = pa.window_attention_train_bwd(*qkvb, do, scale, p_drop, out32,
-                                              lse)
-        again = pa.window_attention_train_bwd(*qkvb, do, scale, p_drop, out32,
-                                              lse)
-        refs = pa.window_attention_train_bwd_plain(*qkvb, do, scale, p_drop)
+        grads = bwd(*qkvb, do, scale, p_drop, out32, lse)
+        again = bwd(*qkvb, do, scale, p_drop, out32, lse)
+        refs = bwd_plain()
         torch.cuda.synchronize()
-        gerrs = [require_bf16_match(f"K2b bf16 {name} {gname}", g, r)[0]
+        gerrs = [require_bf16_match(f"{tag}b bf16 {name} {gname}", g, r)[0]
                  for gname, g, r in zip(("dq", "dk", "dv"), grads, refs)]
         top = float(refs[3].abs().max())
-        require_close(f"K2b bf16 {name} dbias", grads[3], refs[3],
+        require_close(f"{tag}b bf16 {name} dbias", grads[3], refs[3],
                       atol=1e-4 * top, rtol=1e-4)
         gerrs.append(max_err(grads[3], refs[3]))
         for gname, g, g2 in zip(("dq", "dk", "dv", "dbias"), grads, again):
             if not torch.equal(g, g2):
-                raise AssertionError(f"K2b bf16 {name}: {gname} differs "
+                raise AssertionError(f"{tag}b bf16 {name}: {gname} differs "
                                      f"between calls")
-        sums[f"K2b bf16 {name} dbias"] = checksum(grads[3])
+        sums[f"{tag}b bf16 {name} dbias"] = checksum(grads[3])
         del grads, again, refs
-        ms_b = cuda_ms(lambda: pa.window_attention_train_bwd(
-            *qkvb, do, scale, p_drop, out32, lse))
-        record("pwa_attention_train_bwd_bf16", name, weight, *work_b[:2],
+        ms_b = cuda_ms(lambda: bwd(*qkvb, do, scale, p_drop, out32, lse))
+        record(f"{bname}_bf16", name, weight, *work_b[:2],
                (max(e[0] for e in gerrs), max(e[1] for e in gerrs)), ms_b,
-               cuda_ms(lambda: pa.window_attention_train_bwd_plain(
-                   *qkvb, do, scale, p_drop), 5), lib_b, unit, work_b[2])
+               cuda_ms(bwd_plain, 5), lib_b, unit, work_b[2])
         # the fp32 forms on the same values
         qkvb32 = (q.float(), k.float(), v.float(), bias, seed)
         do32 = do.float()
-        o32, l32, _ = pa.window_attention_train_fwd(*qkvb32, scale, p_drop)
-        vs_fp32[f"K2f {name}"] = (ms_f, cuda_ms(
-            lambda: pa.window_attention_train_fwd(*qkvb32, scale, p_drop)))
-        vs_fp32[f"K2b {name}"] = (ms_b, cuda_ms(
-            lambda: pa.window_attention_train_bwd(*qkvb32, do32, scale,
-                                                  p_drop, o32, l32)))
-        print(f"[3] K2 bf16 {name}: out {equal:.4%} bit-equal to the plain "
-              f"version | fwd {ms_f:.4f} ms (fp32 form "
-              f"{vs_fp32[f'K2f {name}'][1]:.4f}), bwd {ms_b:.4f} ms (fp32 "
-              f"form {vs_fp32[f'K2b {name}'][1]:.4f}) | SDPA bf16 backend "
+        o32, l32, _ = fwd(*qkvb32, scale, p_drop)
+        vs_fp32[f"{tag}f {name}"] = (ms_f, cuda_ms(
+            lambda: fwd(*qkvb32, scale, p_drop)))
+        vs_fp32[f"{tag}b {name}"] = (ms_b, cuda_ms(
+            lambda: bwd(*qkvb32, do32, scale, p_drop, o32, l32)))
+        print(f"[3] {tag} bf16 {name}: out {equal:.4%} bit-equal to the "
+              f"plain version | fwd {ms_f:.4f} ms (fp32 form "
+              f"{vs_fp32[f'{tag}f {name}'][1]:.4f}), bwd {ms_b:.4f} ms (fp32 "
+              f"form {vs_fp32[f'{tag}b {name}'][1]:.4f}) | SDPA bf16 backend "
               f"{backend}", flush=True)
         del out, lse, out32, o32, l32
         torch.cuda.empty_cache()
@@ -1961,6 +2318,14 @@ def main() -> int:
                                  unit)
         jlc_bf16_cases(f"B{bb}_", cfg_dict, bb, unit, (4, 4, 4, 1),
                        stage2=bb == batch)
+    # the bf16 128³ flagship step (phase 9): K3 at level 1, at bench.py's
+    # B = 16 and at B = 2 (in no unit)
+    for name, b, h, n, cqk, cv, L in flag:
+        if pwa_attention.uses_long_kernel(L):
+            train_attention_bf16(f"flagship_{name}_B2", batch, h, n, cqk, cv,
+                                 L, 0, "train_flagship_bf16", long=True)
+            train_attention_bf16(f"flagship_{name}", b, h, n, cqk, cv, L, 1,
+                                 "train_flagship_bf16", long=True)
 
     # the speed CLI's bf16 eval forward (phase 16) at the batch it finds,
     # B = 16: K1 at AutoPET-II's four levels (Hecktor's L = 512 and
@@ -2081,6 +2446,7 @@ def main() -> int:
     counters = {n: (w, "launches") for n, w in wrappers.items()}
     counters.update({f"{n}_bf16": (wrappers[n], "launches_bf16") for n in (
         "pwa_attention", "pwa_attention_train_fwd", "pwa_attention_train_bwd",
+        "pwa_attention_train_fwd_long", "pwa_attention_train_bwd_long",
         "jlc_stage1", "jlc_stage2", "jlc_stage1_bwd", "jlc_branch_wgrad",
         "jlc_stage2_bwd")})
 
@@ -2384,12 +2750,9 @@ def main() -> int:
               "pwa_attention_train_bwd": 3,
               "pwa_attention_train_fwd_long": 1,
               "pwa_attention_train_bwd_long": 1}
-    # in bf16, K3f and K3b run cast to fp32 at their edges (no bf16 form
-    # yet), so they count as their fp32 forms
-    edge_cast = ("pwa_attention_train_fwd_long",
-                 "pwa_attention_train_bwd_long")
-    want_fs = {"bf16": {(n if n in edge_cast else f"{n}_bf16"): c
-                        for n, c in want_f.items()}, "fp32": want_f}
+    # in bf16 every kernel of the step runs its bf16 form (no fp32 K3)
+    want_fs = {"bf16": {f"{n}_bf16": c for n, c in want_f.items()},
+               "fp32": want_f}
     runs9 = {}
     for dt, cdt in (("bf16", torch.bfloat16), ("fp32", None)):
         flag_step = train_step_fn(flag_loss, compute_dtype=cdt)
@@ -2416,18 +2779,25 @@ def main() -> int:
               f"{big_batch * 1e3 / flag_ms:.3f} volumes/s over 10 steps, "
               f"peak {flag_peak:.2f} GB | loss step 1 {f_losses[0]:.5f} -> "
               f"step 11 {f_losses[-1]:.5f} | launches per step "
-              f"{flag_per_step}"
-              + (f" (K3f, K3b cast to fp32 at their edges)"
-                 if dt == "bf16" else ""), flush=True)
+              f"{flag_per_step}", flush=True)
         del state
     flag_launches = runs9["fp32"].pop("launches")
-    runs9["bf16"].pop("launches")
+    # the bf16 steps' K3 launches (its other kernels run at shapes phase 3
+    # times in fp32 only, so they count in no path)
+    flag16_launches = {n: (c if n.endswith("_long_bf16") else 0)
+                       for n, c in runs9["bf16"].pop("launches").items()}
     # phase 3's calls per (fp32) flagship step match the run
     weights = {n: a["calls"] for n, a in units["train_flagship"].items()}
     if weights != want_f:
         raise AssertionError(f"phase-3 calls per flagship step {weights} "
                              f"differ from the launches per step {want_f}")
-    print(f"[9] bf16 flagship step / fp32: "
+    weights = {n: a["calls"] for n, a in units["train_flagship_bf16"].items()}
+    if weights != {n: c for n, c in want_fs["bf16"].items()
+                   if n.endswith("_long_bf16")}:
+        raise AssertionError(f"phase-3 calls per bf16 flagship step "
+                             f"{weights} differ from its K3 launches")
+    print(f"[9] bf16 flagship step {runs9['bf16']['ms_per_step']:.3f} ms / "
+          f"fp32 {runs9['fp32']['ms_per_step']:.3f} ms: "
           f"{runs9['bf16']['ms_per_step'] / runs9['fp32']['ms_per_step']:.3f}"
           f" of the time, {runs9['bf16']['peak_gb']:.2f} / "
           f"{runs9['fp32']['peak_gb']:.2f} GB peak (phase 3's calls per "
@@ -2438,9 +2808,10 @@ def main() -> int:
 
     lap(9)
     # -- phase 10: one flagship step, card vs CPU, dropout off -------------
-    r10, _ = card_vs_cpu("flagship", fcfg.replace(
-        attn_drop=0.0, proj_drop=0.0, conv_drop=0.0, drop_path=0.0),
-        flag_loss, xf[:1], yf[:1], 7)
+    flag_nodrop = fcfg.replace(attn_drop=0.0, proj_drop=0.0, conv_drop=0.0,
+                               drop_path=0.0)
+    r10, cpu32f = card_vs_cpu("flagship", flag_nodrop, flag_loss, xf[:1],
+                              yf[:1], 7)
     print(f"[10] flagship train step card vs CPU (B=1, 128³, dropout 0): "
           f"loss {r10['losses'][0]:.6f} vs {r10['losses'][1]:.6f} (rel "
           f"{r10['loss_rel']:.2e}, tol 1e-5) | {r10['n_grads']} gradients "
@@ -2449,7 +2820,28 @@ def main() -> int:
           f"{r10['worst_param']} at {r10['worst_ratio']:.3f} of it | CPU "
           f"step {r10['cpu_step_s']:.1f} s", flush=True)
     report["flagship_vs_cpu"] = r10
-    del xf, yf
+    # the same step in bf16 (K3 in its bf16 forms on the card), card
+    # against CPU, held as phase 8's bf16 step
+    card16, cpu16 = (one_step(flag_nodrop, flag_loss, xf[:1], yf[:1], 7, d,
+                              torch.bfloat16) for d in ("cuda", "cpu"))
+    d10 = step_distances(card16[:2], cpu16[:2], cpu32f[:2])
+    bad = step_bound_violations(d10)
+    if bad:
+        raise AssertionError(f"bf16 flagship step card vs CPU outside the "
+                             f"bound {STEP_BOUND} in {bad}: {d10}")
+    print(f"[10] bf16 flagship train step card vs CPU (B=1, 128³, dropout "
+          f"0): loss {card16[0]:.6f} vs {cpu16[0]:.6f} (CPU fp32 "
+          f"{cpu32f[0]:.6f}) | relative to the CPU's bf16-to-fp32 distance: "
+          f"loss {d10['loss']:.4f} (<= {STEP_BOUND['loss']}), all gradients "
+          f"to the CPU's bf16 {d10['grads_to_bf16']:.4f} (<= "
+          f"{STEP_BOUND['grads_to_bf16']}) and to its fp32 "
+          f"{d10['grads_to_fp32']:.4f} (>= {STEP_BOUND['grads_to_fp32']}), "
+          f"worst tensor {d10['tensor_to_bf16']:.4f} (<= "
+          f"{STEP_BOUND['tensor_to_bf16']}, {d10['tensor']}) | CPU bf16 step "
+          f"{cpu16[2]:.1f} s", flush=True)
+    report["flagship_vs_cpu_bf16"] = dict(
+        d10, cpu_step_s=cpu16[2], losses=[card16[0], cpu16[0], cpu32f[0]])
+    del xf, yf, card16, cpu16, cpu32f
 
     lap(10)
     # -- phase 11: path B, the U-RWKV forward, card vs CPU -----------------
@@ -2681,6 +3073,27 @@ def main() -> int:
                                t_timed=SPEED_T_TIMED)
 
     lap(16)
+    # -- phase 17: the export CLI (cli/export_main -> infer/export) --------
+    report["export_cli"] = export_phase(
+        card, zero_counts, counts,
+        os.path.join(ROOT, "config", "models_config_autopetii.json"),
+        train_cfg["patch_size"]["AutoPETII"])
+
+    lap(17)
+    # -- phase 18: preprocess, then extern (cli/preprocess_main, extern_main)
+    ext = extern_cli_phase(
+        card, zero_counts, counts, list(serving),
+        {d: os.path.join(ROOT, "config", f"models_config_{n}.json")
+         for d, n in (("AutoPETII", "autopetii"),
+                      ("BraTS2021", "brats2021"))},
+        train_cfg["patch_size"], tuple(train_cfg["spacing"]["AutoPETII"]))
+    extern_launches = ext.pop("launches")
+    report["extern_cli"] = ext
+    print(f"[18] preprocess and extern phase {ext['phase_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ext["steps_s"].items()),
+          flush=True)
+
+    lap(18)
     # -- phase 15 -----------------------------------------------------------
     meta = {
         "pwa_attention": ("veloxseg_torch/csrc/pwa_attention_train.cu",
@@ -2711,13 +3124,16 @@ def main() -> int:
     }
     # the bf16 forms: the same sources built with -DVS_BF16
     bf16_forms = ("pwa_attention", "pwa_attention_train_fwd",
-                  "pwa_attention_train_bwd", "jlc_stage1", "jlc_stage2",
+                  "pwa_attention_train_bwd", "pwa_attention_train_fwd_long",
+                  "pwa_attention_train_bwd_long", "jlc_stage1", "jlc_stage2",
                   "jlc_stage1_bwd", "jlc_branch_wgrad", "jlc_stage2_bwd")
     meta.update({f"{n}_bf16": meta[n] for n in bf16_forms})
     per = {"serving": "forward, 4 tiles, AutoPET-II 96³",
            "train_96": f"train step, B={batch}, AutoPET-II 96³",
            "train_96_bf16": f"bf16 train step, B={batch}, AutoPET-II 96³",
            "train_flagship": f"train step, B={big_batch}, flagship 128³",
+           "train_flagship_bf16": f"bf16 train step, B={big_batch}, "
+                                  f"flagship 128³",
            "urwkv_serving": "U-RWKV forward, 4 tiles, 96³",
            "speed_autopet": f"bf16 forward, B={speed_b}, AutoPET-II 96³ "
                             f"(speed CLI)"}
@@ -2731,15 +3147,21 @@ def main() -> int:
                 "wkv": "urwkv_serving"}
     headline.update({f"{n}_bf16": "train_96_bf16" for n in bf16_forms})
     headline.update({"pwa_attention_bf16": "speed_autopet",
-                     "jlc_stage2_bf16": "speed_autopet"})
+                     "jlc_stage2_bf16": "speed_autopet",
+                     "pwa_attention_train_fwd_long_bf16":
+                         "train_flagship_bf16",
+                     "pwa_attention_train_bwd_long_bf16":
+                         "train_flagship_bf16"})
     # launches: the main-path runs, each counted from 0: the VeloxSeg
     # sliding window (5), the AutoPET-II train steps (6: bf16 and fp32; 7:
-    # bf16, its K5 the fp32 kernels), the fp32 flagship train steps (9;
-    # its bf16 steps are at shapes phase 3 times in fp32 only), the U-RWKV
-    # sliding window (12), the serving CLI's AutoPET-II and U-RWKV runs
-    # (13; its Hecktor and BraTS runs are at shapes phase 3 does not time
-    # as a unit), the training CLI's main run (14: its bf16 steps at B = 4,
-    # its validation forwards of 4 patches). ms, plain_ms, bound_ms:
+    # bf16, its K5 the fp32 kernels), the fp32 flagship train steps (9)
+    # and the bf16 ones' K3 (their other kernels run at shapes phase 3
+    # times in fp32 only), the U-RWKV sliding window (12), the serving
+    # CLI's AutoPET-II and U-RWKV runs (13; its Hecktor and BraTS runs are
+    # at shapes phase 3 does not time as a unit), the training CLI's main
+    # run (14: its bf16 steps at B = 4, its validation forwards of 4
+    # patches), the extern CLI's AutoPET-II run (18; its BraTS run as
+    # phase 13's). ms, plain_ms, bound_ms:
     # summed over the kernel's calls in its headline unit (``per``).
     # excess_ms, the order of work on the kernels: per path, its launches
     # × (ms − bound_ms) per call at that path's own shapes (the first of
@@ -2751,12 +3173,15 @@ def main() -> int:
              "train_96_conv_drop0": (("train_96_bf16", "train_96"),
                                      nodrop_launches),
              "train_flagship": (("train_flagship",), flag_launches),
+             "train_flagship_bf16": (("train_flagship_bf16",),
+                                     flag16_launches),
              "urwkv_serving": (("urwkv_serving",), u_launches),
              "urwkv_cli": (("urwkv_serving",), u_cli_launches),
              "trainer_steps": (("train_96_b4_bf16", "train_96_b4"),
                                trainer_train),
              "trainer_validation": (("serving",), trainer_val),
-             "speed_cli": (("speed_autopet", "speed_urwkv"), speed_launches)}
+             "speed_cli": (("speed_autopet", "speed_urwkv"), speed_launches),
+             "extern_cli": (("serving",), extern_launches)}
     line = {"kernels": []}
     for n, (src, replaces) in meta.items():
         k = units[headline[n]][n]

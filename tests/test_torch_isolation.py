@@ -2,8 +2,9 @@
 nothing of JAX, Flax, msgpack, pandas or ``veloxseg_tpu`` (the eval
 forward, a train step, the 128³ flagship's long-window attention, a U-RWKV
 forward and the serving CLI, from a JAX-written ``.ckpt`` and a ``.pth``,
-run with those imports blocked), and the entry points refuse to run
-quietly on the CPU when CUDA is absent."""
+then the export, preprocess and extern CLIs, run with those imports
+blocked), and the entry points refuse to run quietly on the CPU when CUDA
+is absent."""
 
 import argparse
 import json
@@ -116,6 +117,38 @@ _ISOLATED = textwrap.dedent("""
                                  "AutoPETII_VeloxSeg.csv")).read()
     assert csv_text.startswith("name,fp_rate,fn_rate,precision,recall,"
                                "f1,iou,dice,time,hd95")
+    # the export, extern and preprocess entry points on the same files
+    from veloxseg_torch.cli.export_main import main as export
+    from veloxseg_torch.cli.extern_main import main as extern
+    from veloxseg_torch.cli.preprocess_main import main as preprocess
+    from veloxseg_torch.infer.export import load_artifact
+    art = glob_of("tiny.pt2")
+    export(["--dataset_name", "AutoPETII", "--model_name", "VeloxSeg",
+            "--device", "cpu", "--checkpoint_dir", glob_of("ckpt"),
+            "--output", art, "--model_config", glob_of("model.json"),
+            "--train_config", glob_of("train.json")])
+    program, _, meta = load_artifact(art)
+    with torch.no_grad():
+        y = program.module()(torch.randn(3, 32, 32, 32, 2))
+    assert y.shape == (3, 32, 32, 32, 2) and meta["device"] == "cpu"
+    stats = preprocess(["normalize-ctpet", "--ct_glob",
+                        glob_of("c*_0001.nii.gz"), "--pet_glob",
+                        glob_of("c*_0000.nii.gz"), "--label_glob",
+                        glob_of("c?.nii.gz"), "--out_dir", glob_of("norm")])
+    assert stats["std"] > 0
+    train = json.load(open(glob_of("train.json")))
+    train["spacing"] = {{"AutoPETII": [1.5, 1.0, 1.0]}}
+    train["dataset_path"]["Extern"] = {{
+        "data_path": glob_of("norm/c*_0000.nii.gz"),
+        "label_path": glob_of("norm/c?.nii.gz")}}
+    json.dump(train, open(glob_of("train_ext.json"), "w"))
+    rows = extern(["--dataset_name", "Extern", "--train_dataset",
+                   "AutoPETII", "--model_name", "VeloxSeg", "--checkpoints",
+                   glob_of("pth/val_best.pth"), "--device", "cpu",
+                   "--train_config", glob_of("train_ext.json"),
+                   "--model_config", glob_of("model.json"),
+                   "--test_config", glob_of("test.json")])
+    assert len(rows) == 2 and all(0 <= r["dice"] <= 1 for r in rows)
     bad = sorted(n for n, m in sys.modules.items() if m is not None and
                  n.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
                                      "pandas", "veloxseg_tpu"))
@@ -181,6 +214,18 @@ def test_entry_points_default_to_cuda(tmp_path):
         main(["--dataset_name", "AutoPETII", "--model_name", "VeloxSeg"]
              + [f"--{n}_config={tmp_path / (n + '.json')}"
                 for n in ("train", "model", "test")])
+    from veloxseg_torch.cli.export_main import main as export
+    with pytest.raises(RuntimeError, match="CUDA"):
+        export(["--dataset_name", "AutoPETII", "--model_name", "VeloxSeg",
+                "--output", str(tmp_path / "x.pt2")]
+               + [f"--{n}_config={tmp_path / (n + '.json')}"
+                  for n in ("train", "model")])
+    from veloxseg_torch.cli.extern_main import main as extern
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extern(["--dataset_name", "X", "--train_dataset", "AutoPETII",
+                "--model_name", "VeloxSeg", "--checkpoints", "x.pth"]
+               + [f"--{n}_config={tmp_path / (n + '.json')}"
+                  for n in ("train", "model", "test")])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -634,6 +634,48 @@ def test_train_attention_bf16_forms_match_plain(b, h, n, c_qk, c_v, l, p):
         assert torch.equal(a, a2)
 
 
+# K3f and K3b in bf16 at the long windows (the flagship's level 1 at L =
+# 1024, and ragged L), each against its bf16 plain version: the kept
+# weights rounded before ·V and the dV product, dS before the dq and dk
+# products; out32 the output of the unrounded weights
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,n,c_qk,c_v,l", LONG_ATTN)
+def test_long_train_attention_bf16_forms_match_plain(b, h, n, c_qk, c_v, l,
+                                                     p):
+    dev = cuda_or_skip()
+    pa = pwa_attention
+    q, k, v, bias, do = _train_inputs(dev, b, h, n, c_qk, c_v, l, seed=22)
+    q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+    seed = torch.tensor([1234, 3], dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(c_qk)
+    f0 = pa.window_attention_train_fwd_long.launches_bf16
+    b0 = pa.window_attention_train_bwd_long.launches_bf16
+    out, lse, out32 = pa.window_attention_train_fwd_long(q, k, v, bias, seed,
+                                                         scale, p)
+    grads = pa.window_attention_train_bwd_long(q, k, v, bias, seed, do, scale,
+                                               p, out32, lse)
+    again = pa.window_attention_train_bwd_long(q, k, v, bias, seed, do, scale,
+                                               p, out32, lse)
+    torch.cuda.synchronize()
+    assert pa.window_attention_train_fwd_long.launches_bf16 == f0 + 1
+    assert pa.window_attention_train_bwd_long.launches_bf16 == b0 + 2
+    ref, ref32 = pa.window_attention_train_fwd_long_plain(q, k, v, bias,
+                                                          seed, scale, p)
+    assert_bf16_match(out, ref, "K3f out")
+    torch.testing.assert_close(out32, ref32, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(lse, pa.train_lse_plain(q, k, bias, scale),
+                               rtol=1e-5, atol=1e-5)
+    refs = pa.window_attention_train_bwd_plain(q, k, v, bias, seed, do,
+                                               scale, p, row_blocked=True)
+    for name, got, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert_bf16_match(got, r, f"K3b {name}")
+    assert grads[3].dtype == torch.float32
+    torch.testing.assert_close(grads[3], refs[3], rtol=1e-4,
+                               atol=1e-4 * float(refs[3].abs().max()))
+    for a, a2 in zip(grads, again):
+        assert torch.equal(a, a2)
+
+
 @pytest.mark.parametrize("c,groups,expansion,s", JLC_LEVELS)
 def test_jlc_stage1_bf16_forms_match_plain(c, groups, expansion, s):
     dev = cuda_or_skip()

@@ -3,7 +3,9 @@ between K2 and K3, and the port's long-window path (forward, dq, dk, dv
 and dbias) against the JAX package's row-blocked Pallas kernels in
 interpret mode and against ``_train_xla`` and its VJP, at L = 1024 (the
 128³ flagship's level 1). The CUDA kernels against the plain versions are
-in ``test_torch_kernels.py``."""
+in ``test_torch_kernels.py``. The bf16 plain versions (K3's bf16
+forms' twins) are held against the same Pallas kernels on bf16 operands by
+``torch_port_helpers.assert_bf16_match``."""
 
 import jax
 import jax.numpy as jnp
@@ -11,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import normal
+from torch_port_helpers import assert_bf16_match, normal
 from veloxseg_torch.ops import pwa_attention as port
 from veloxseg_tpu.ops.pwa_attention import (_full_train_fits,
-                                            _rowblock_size, _train_xla,
+                                            _rowblock_size,
+                                            _train_bwd_pallas,
+                                            _train_fwd_pallas, _train_xla,
                                             window_attention_train)
 
 
@@ -143,3 +147,47 @@ def test_long_bwd_decomposition_matches_jax_vjp():
         r = np.asarray(r)
         np.testing.assert_allclose(g.numpy(), r, rtol=0,
                                    atol=1e-4 * float(np.abs(r).max()))
+
+
+def _bf16(a) -> torch.Tensor:
+    """A JAX array (bf16 or fp32) as a torch tensor of the same dtype."""
+    t = torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.float32)))
+    return t.to(torch.bfloat16) if a.dtype == jnp.bfloat16 else t
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_long_bf16_twins_match_pallas(p):
+    # K3's bf16 forms' plain versions against the interpret-mode row-blocked
+    # Pallas kernels on bf16 q, k, v, dO at L = 1024: one head, one window
+    q, k, v, bias, do = _inputs(1, 1, 1, 8, 8, 1024, seed=21)
+    seed, scale = [[4321, 1]], 1.0 / np.sqrt(8)
+    q16, k16, v16, do16 = (jnp.asarray(a).astype(jnp.bfloat16)
+                           for a in (q, k, v, do))
+    sj = jnp.asarray(seed, jnp.int32)
+    out_j = _train_fwd_pallas(q16, k16, v16, jnp.asarray(bias), sj, scale, p,
+                              interpret=True)
+    grads_j = _train_bwd_pallas(q16, k16, v16, jnp.asarray(bias), sj, do16,
+                                scale, p, interpret=True)
+    qt, kt, vt, dot = (_bf16(a) for a in (q16, k16, v16, do16))
+    bt = torch.from_numpy(bias)
+    st = torch.tensor(seed[0], dtype=torch.int32)
+    out, lse, out32 = port.window_attention_train_fwd_long(qt, kt, vt, bt, st,
+                                                           scale, p)
+    assert out.dtype == torch.bfloat16
+    assert lse.dtype == out32.dtype == torch.float32
+    ref = _bf16(out_j)
+    assert_bf16_match(out, ref, "K3f out")
+    # the Pallas kernel rounds the weights before ·V: without that rounding
+    # (K2's function, out32 rounded once) far fewer elements agree
+    with pytest.raises(AssertionError):
+        assert_bf16_match(out32.to(torch.bfloat16), ref, "unrounded weights")
+    grads = port.window_attention_train_bwd_long(qt, kt, vt, bt, st, dot,
+                                                 scale, p, out32, lse)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, grads_j):
+        assert_bf16_match(g, _bf16(r), f"K3b {name}")
+    # dbias, fp32 on both sides, sums the unrounded dS: within 1e-4 of its
+    # scale, as K2b's bf16 dbias is held (test_torch_bf16.py)
+    db = _bf16(grads_j[3])
+    assert grads[3].dtype == db.dtype == torch.float32
+    torch.testing.assert_close(grads[3], db, rtol=1e-4,
+                               atol=1e-4 * float(db.abs().max()))

@@ -49,11 +49,12 @@ PORT_KERNELS = ("pwa_train_fwd", "pwa_bwd_",
 # own kernels come before the library families, whose substrings ("conv",
 # "wgrad", "reduce") their names also hold
 FAMILIES = (
-    # K1 is the train forward's instance <Cqk, Cv, DROP, LSE, LDG> with
-    # neither dropout nor lse (a key of several substrings needs them all)
+    # K1 is the train forward's instance <T, Cqk, Cv, DROP, LSE, LDG,
+    # ROUND> with neither dropout nor lse (a key of several substrings
+    # needs them all)
     ("K1 eval attention (pwa_train_fwd, no dropout, no lse)",
-     (("pwa_train_fwd", "false, false, true>"),
-      ("pwa_train_fwd", "false, false, false>"))),
+     (("pwa_train_fwd", "false, false, true, false>"),
+      ("pwa_train_fwd", "false, false, false, false>"))),
     ("K2f/K3f train attention forward", ("pwa_train_fwd",)),
     ("K2b attention backward", ("pwa_bwd_",)),
     ("K3b long-window attention backward", ("pwa_long_bwd",)),

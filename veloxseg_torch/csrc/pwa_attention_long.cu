@@ -1,5 +1,6 @@
 // K3b: the backward of the train paired-window attention (K2b's function)
-// for long windows, with on-chip memory bounded whatever L is; fp32.
+// for long windows, with on-chip memory bounded whatever L is; fp32, and
+// bf16 q, k, v, dO (built with -DVS_BF16).
 //
 // Replaces: veloxseg_tpu/ops/pwa_attention.py:_train_bwd_rb_kernel
 // (451-530), called through _train_bwd_pallas (635-649) when a window's
@@ -37,6 +38,19 @@
 // At the flagship (L = 1024, 288 windows) the grid is 2 × 8 × 8 = 128
 // blocks and the partials are 3 × 8 × 9.4 MB, written and read once.
 // Tensor cores are not used (ROADMAP: 3×TF32).
+//
+// The bf16 form (E = bf16, the JAX trainer's operands at the 128³
+// flagship's level 1) is _train_bwd_rb_kernel on bf16 operands: q, k, v
+// and dO are converted to fp32 as they are staged (loaded at once, not by
+// cp.async, which cannot widen); the scores, P, dP and dS stay fp32. It
+// rounds where the Pallas kernel rounds: W to bf16 before the dV product
+// (499-503), dS to bf16 before the dq and dk products (518-525), while
+// dbias sums the unrounded dS (526); dq, dk, dv are rounded once from
+// their fp32 sums, dbias stays fp32. D comes from K3f's out32, the output
+// of the unrounded weights, so that D = Σ_c dO·out32 is the Pallas
+// kernel's Σ_m P·dP (516-517: fp32 P and dP); D from the bf16-weighted
+// output differs from it by the weights' rounding (about 20% of dq's
+// elements then round otherwise at L = 1024).
 #include "common.cuh"
 
 // Global window id of window w (over B·H·N), shifted by the batch offset.
@@ -60,8 +74,8 @@ constexpr int kWinFloats = 4 * 8 * kTS + 2 * kBT;  // one window's stage
 
 // K3b launch 1: per window and row, the forward's log-sum-exp in base 2
 // and D = Σ_c dO·out (= Σ_j P·dP); stats: [window][2][L].
-template <int CV>
-__global__ void pwa_long_bwd_prep(const float* __restrict__ dout,
+template <typename E, int CV>
+__global__ void pwa_long_bwd_prep(const E* __restrict__ dout,
                                   const float* __restrict__ out,
                                   const float* __restrict__ lse,
                                   float* __restrict__ stats, int64_t W,
@@ -74,26 +88,29 @@ __global__ void pwa_long_bwd_prep(const float* __restrict__ dout,
   float d = 0.f;
 #pragma unroll
   for (int c = 0; c < CV; ++c)
-    d = fmaf(dout[(w * CV + c) * L + l], out[(w * CV + c) * L + l], d);
+    d = fmaf(to_f32(dout[(w * CV + c) * L + l]), out[(w * CV + c) * L + l],
+             d);
   stats[(w * 2) * L + l] = lse[i] * kLog2e;
   stats[(w * 2 + 1) * L + l] = d;
 }
 
 // Stage window w's tokens for row tile l0 (q, dO, statistics) and column
 // tile m0 (k, v) into one stage buffer: [q | dO | k | v] as [c][kTS], then
-// lse2 and D; past L everything reads 0.
+// lse2 and D; past L everything reads 0. fp32 tokens by cp.async, bf16
+// ones loaded and converted (common.cuh:stage1).
+template <typename E>
 __device__ __forceinline__ void stage_window(
-    float* buf, const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const float* __restrict__ dout,
+    float* buf, const E* __restrict__ q, const E* __restrict__ k,
+    const E* __restrict__ v, const E* __restrict__ dout,
     const float* __restrict__ stats, int64_t w, int L, int l0, int m0) {
   for (int i = threadIdx.x; i < 4 * 8 * kBT + 2 * kBT; i += kBThreads) {
     if (i < 4 * 8 * kBT) {
       const int arr = i >> 10, c = (i >> 7) & 7, j = i & (kBT - 1);
-      const float* src = arr == 0 ? q : arr == 1 ? dout : arr == 2 ? k : v;
+      const E* src = arr == 0 ? q : arr == 1 ? dout : arr == 2 ? k : v;
       const int t = (arr < 2 ? l0 : m0) + j;
       const bool ok = t < L;
-      cp_async_f32(buf + (arr * 8 + c) * kTS + j,
-                   src + (w * 8 + c) * L + (ok ? t : 0), ok);
+      stage1<E>(buf + (arr * 8 + c) * kTS + j,
+                src + (w * 8 + c) * L + (ok ? t : 0), ok);
     } else {
       const int k2 = i - 4 * 8 * kBT, which = k2 >> 7, j = k2 & (kBT - 1);
       const bool ok = l0 + j < L;
@@ -109,18 +126,19 @@ __device__ __forceinline__ void stage_window(
 // s = q·k and dO·v from the staged tokens, P = 2^(s·scale·log2e +
 // bias·log2e − lse2), the keep mask, dS = P·(dP − D) and W = M·P/(1 − p);
 // it adds dS to its dbias elements (registers, across all windows) and
-// writes dS and W to shared memory. Then dq (per row, this column tile's
+// writes dS and W to shared memory (each rounded to E first: the products
+// read them so). Then dq (per row, this column tile's
 // part), dk and dv (per column, this row tile's part) are products over the
 // shared tiles; the partials go to part = [dq | dk | dv], each
 // [tile][window][8][L]. The next window's tokens arrive by cp.async while
 // this one is computed.
-template <int CQK, int CV, bool DROP>
+template <typename E, int CQK, int CV, bool DROP>
 __global__ void __launch_bounds__(kBThreads, 1)
-pwa_long_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
+pwa_long_bwd_tiles(const E* __restrict__ q, const E* __restrict__ k,
+                   const E* __restrict__ v,
                    const float* __restrict__ bias,
                    const int* __restrict__ seed,
-                   const float* __restrict__ dout,
+                   const E* __restrict__ dout,
                    const float* __restrict__ stats,
                    float* __restrict__ part, float* __restrict__ dbias,
                    int B, int H, int N, int L, float scale, uint32_t thresh,
@@ -232,8 +250,9 @@ pwa_long_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
             wgt = keep ? p * inv_keep : 0.f;
           }
           dsv[j] = p * (dpk - dd);
-          wv[j] = wgt;
           acc[hf][i][j] += dsv[j];
+          dsv[j] = round_to<E>(dsv[j]);
+          wv[j] = round_to<E>(wgt);
         }
         *reinterpret_cast<float4*>(dss + r * kDS + tx * 4) =
             make_float4(dsv[0], dsv[1], dsv[2], dsv[3]);
@@ -306,12 +325,12 @@ pwa_long_bwd_tiles(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // K3b launch 3: dq = scale·Σ_J, dk = scale·Σ_I, dv = Σ_I of the partials,
-// over the tiles in order.
+// over the tiles in order, each rounded once to E.
+template <typename E>
 __global__ void pwa_long_bwd_reduce(const float* __restrict__ part,
-                                    float* __restrict__ dq,
-                                    float* __restrict__ dk,
-                                    float* __restrict__ dv, int64_t n,
-                                    int nT, float scale) {
+                                    E* __restrict__ dq, E* __restrict__ dk,
+                                    E* __restrict__ dv, int64_t n, int nT,
+                                    float scale) {
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < 3 * n; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
@@ -320,9 +339,9 @@ __global__ void pwa_long_bwd_reduce(const float* __restrict__ part,
     const float* p = part + which * nT * n + e;
     float s = 0.f;
     for (int t = 0; t < nT; ++t) s += p[t * n];
-    if (which == 0) dq[e] = s * scale;
-    else if (which == 1) dk[e] = s * scale;
-    else dv[e] = s;
+    if (which == 0) dq[e] = from_f32<E>(s * scale);
+    else if (which == 1) dk[e] = from_f32<E>(s * scale);
+    else dv[e] = from_f32<E>(s);
   }
 }
 
@@ -330,34 +349,34 @@ __global__ void pwa_long_bwd_reduce(const float* __restrict__ part,
 // Launchers
 // ---------------------------------------------------------------------------
 
-template <int CQK, int CV, bool DROP>
-static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
+template <typename E, int CQK, int CV, bool DROP>
+static cudaError_t launch_bwd(const E* q, const E* k, const E* v,
                               const float* bias, const int* seed,
-                              const float* dout, const float* out,
-                              const float* lse, float* dq, float* dk,
-                              float* dv, float* stats, float* part,
+                              const E* dout, const float* out,
+                              const float* lse, E* dq, E* dk,
+                              E* dv, float* stats, float* part,
                               float* dbias, int B, int H, int N, int L,
                               float scale, uint32_t thresh, float inv_keep,
                               cudaStream_t stream) {
   const int64_t W = static_cast<int64_t>(B) * H * N;
-  pwa_long_bwd_prep<CV><<<static_cast<unsigned>((W * L + 255) / 256), 256, 0,
+  pwa_long_bwd_prep<E, CV><<<static_cast<unsigned>((W * L + 255) / 256), 256, 0,
                           stream>>>(dout, out, lse, stats, W, L);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t smem =
       (size_t)(kBT * kBS + 2 * kWinFloats + 2 * kBT * kDS) * sizeof(float);
-  err = allow_smem(pwa_long_bwd_tiles<CQK, CV, DROP>, smem);
+  err = allow_smem(pwa_long_bwd_tiles<E, CQK, CV, DROP>, smem);
   if (err != cudaSuccess) return err;
   const unsigned nT = (L + kBT - 1) / kBT;
-  pwa_long_bwd_tiles<CQK, CV, DROP>
+  pwa_long_bwd_tiles<E, CQK, CV, DROP>
       <<<dim3(nT, nT, static_cast<unsigned>(H)), kBThreads, smem, stream>>>(
           q, k, v, bias, seed, dout, stats, part, dbias, B, H, N, L, scale,
           thresh, inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t n = W * CQK * L;
-  pwa_long_bwd_reduce<<<1024, 256, 0, stream>>>(part, dq, dk, dv, n, nT,
-                                                scale);
+  pwa_long_bwd_reduce<E><<<1024, 256, 0, stream>>>(part, dq, dk, dv, n, nT,
+                                                   scale);
   return cudaGetLastError();
 }
 
@@ -368,20 +387,21 @@ static cudaError_t launch_bwd(const float* q, const float* k, const float* v,
 
 #define VS_BWD_CASE(CQ, CVV, DROP)                                         \
   if (Cqk == CQ && Cv == CVV)                                              \
-    return launch_bwd<CQ, CVV, DROP>(q, k, v, bias, seed, dout, out, lse, \
-                                     dq, dk, dv, stats, part, dbias, B, H, \
-                                     N, L, scale, thresh, inv_keep, stream);
+    return launch_bwd<Elem, CQ, CVV, DROP>(q, k, v, bias, seed, dout, out, \
+                                           lse, dq, dk, dv, stats, part,  \
+                                           dbias, B, H, N, L, scale,      \
+                                           thresh, inv_keep, stream);
 
-// K3b. q, k: (B, H, N, Cqk, L); v, dout: (B, H, N, Cv, L); bias: (H, L,
-// L); seed: int32 [seed, batch_offset] on the device; thresh = 0: no
-// dropout; out and lse: K3f's of the same call; dq, dk, dv like q, k,
-// v; stats: B·H·N·2·L floats of scratch (lse in base 2 and D per row);
+// K3b. q, k: (B, H, N, Cqk, L); v, dout: (B, H, N, Cv, L), Elem; bias:
+// (H, L, L), float; seed: int32 [seed, batch_offset] on the device;
+// thresh = 0: no dropout; out and lse: K3f's out32 and lse of the same
+// call, float; dq, dk, dv like q, k, v; stats: B·H·N·2·L floats of scratch (lse in base 2 and D per row);
 // part: 3·⌈L/128⌉·B·H·N·Cqk·L floats of scratch (the dq, dk, dv tile
 // partials); dbias: (H, L, L), written whole. B·H·N must be > 0.
 extern "C" int vs_pwa_attention_long_train_bwd(
-    const float* q, const float* k, const float* v, const float* bias,
-    const int* seed, const float* dout, const float* out, const float* lse,
-    float* dq, float* dk, float* dv, float* stats, float* part,
+    const Elem* q, const Elem* k, const Elem* v, const float* bias,
+    const int* seed, const Elem* dout, const float* out, const float* lse,
+    Elem* dq, Elem* dk, Elem* dv, float* stats, float* part,
     float* dbias, int B, int H, int N, int Cqk, int Cv, int L, float scale,
     unsigned int thresh, float inv_keep, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);

@@ -34,8 +34,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("pwa_attention_train", "pwa_attention_bwd", "pwa_attention_long",
            "jlc_stage1", "jlc_stage2", "wkv")
-BF16_SOURCES = ("pwa_attention_train", "pwa_attention_bwd", "jlc_stage1",
-                "jlc_stage2")
+BF16_SOURCES = ("pwa_attention_train", "pwa_attention_bwd",
+                "pwa_attention_long", "jlc_stage1", "jlc_stage2")
 # library name -> (source, extra nvcc flags)
 LIBRARIES = {**{n: (n, ()) for n in SOURCES},
              **{f"{n}_bf16": (n, ("-DVS_BF16",)) for n in BF16_SOURCES}}
@@ -66,13 +66,8 @@ SIGNATURES = {
                    "vs_jlc_stage2_bwd": [_P] * 15 + [_I] * 10 + [_P]},
     "wkv": {"vs_wkv": [_P] * 5 + [_I] * 5 + [_P]},
 }
-# the bf16 builds export K1 and K2f (no K3f), K2b, K4's and K5's entry
-# points
-SIGNATURES["pwa_attention_train_bf16"] = {
-    n: SIGNATURES["pwa_attention_train"][n]
-    for n in ("vs_pwa_attention", "vs_pwa_attention_train")}
-SIGNATURES.update({f"{n}_bf16": SIGNATURES[n]
-                   for n in ("pwa_attention_bwd", "jlc_stage1", "jlc_stage2")})
+# the bf16 builds export the same entry points
+SIGNATURES.update({f"{n}_bf16": SIGNATURES[n] for n in BF16_SOURCES})
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -57,6 +57,7 @@ import torch.nn.functional as F
 from ..nn.norms import instance_norm
 from ..utils.flops import add_kernel_flops
 from . import _cuda
+from .portable import runs_plain
 
 # the branch kernel sizes K4's kernels are built for (core/config.py)
 KERNEL_SIZES = (1, 3, 5)
@@ -355,8 +356,9 @@ def _stage1_scratch(x: torch.Tensor, lw: Stage1Launch):
 def _jlc_stage1_fwd(x: torch.Tensor, weights: Sequence[torch.Tensor],
                     biases: Sequence[torch.Tensor], groups: int
                     ) -> torch.Tensor:
-    """K4f, fp32 or bf16 (or the plain version for a CPU tensor)."""
-    if x.device.type == "cpu":
+    """K4f, fp32 or bf16 (or the plain version for a CPU tensor, or inside
+    a portable scope)."""
+    if runs_plain(x):
         return jlc_stage1_plain(x, weights, biases, groups)
     weights, lw = _stage1_args(x, weights, groups)
     scratch, pstat, mean, rstd = _stage1_scratch(x, lw)
@@ -581,9 +583,10 @@ def _jlc_stage2_fwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                     w2: torch.Tensor, b2: torch.Tensor):
     """K5f (or the plain version for a CPU tensor), fp32 or bf16: ``(out,
     mean, rstd)``, the plane statistics K5f took (B·C fp32 values each;
-    None on the CPU). Widths the kernel does not take run padded
+    None for the plain version, which runs on the CPU and inside a portable
+    scope). Widths the kernel does not take run padded
     (:func:`pad_stage2_fwd`)."""
-    if out1.device.type == "cpu":
+    if runs_plain(out1):
         return jlc_stage2_plain(out1, w1, b1, w2, b2), None, None
     b, c, d, h, w = out1.shape
     s = d * h * w

@@ -22,7 +22,8 @@ a ragged N its mask differs from its own oracle; the port follows the
 oracle). The seed is an int32 tensor ``[seed, batch_offset]``.
 
 Every wrapper runs the plain version for a CPU tensor and the kernel for
-a CUDA tensor; there is no fallback between the two.
+a CUDA tensor; there is no fallback between the two. K1 also runs its
+plain version inside :func:`.portable.portable_scope` (the export).
 
 K2f and K2b also take bf16 q, k, v (and dO), as the JAX trainer passes them
 to the Pallas kernels: scores, softmax and every product in fp32, the
@@ -32,8 +33,13 @@ are the same kernels built for bf16 elements (``_cuda.lib(...,
 torch.bfloat16)``); the plain versions compute in fp32 and round where the
 kernels round. K1 takes bf16 q, k, v as well (the bf16 eval forward of
 ``speed_main``): its bf16 form computes in fp32 and rounds the output once
-(``_attn_kernel``, 56-74). K3f and K3b run bf16 operands cast to fp32 at
-their edges (``ROADMAP.md`` §2 item 1).
+(``_attn_kernel``, 56-74). K3f and K3b take bf16 q, k, v (and dO) too, as
+the JAX trainer passes them to the row-blocked Pallas kernels at the 128³
+flagship's level 1, and round where those kernels round
+(``_train_fwd_rb_kernel``, 434-447; ``_train_bwd_rb_kernel``, 499-527): the
+kept weights before ·V and before the dV product, dS before the dq and dk
+products; their plain versions are K2's with those roundings
+(``row_blocked=True``).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import torch
 
 from ..utils.flops import add_kernel_flops
 from . import _cuda
+from .portable import runs_plain
 
 # (Cqk, Cv) pairs K1 and K2 are instantiated for (csrc/pwa_attention_train.cu,
 # csrc/pwa_attention_bwd.cu).
@@ -119,8 +126,9 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in v's dtype. ``launch``: a :class:`TrainFwdLaunch` in place of
     :func:`eval_fwd_launch`'s (the card tests and the bench's sweep). Its
     decomposition in torch ops is
-    :func:`window_attention_train_fwd_tiled_plain` at p = 0."""
-    if q.device.type == "cpu":
+    :func:`window_attention_train_fwd_tiled_plain` at p = 0. The plain
+    version runs for a CPU tensor or inside a portable scope."""
+    if runs_plain(q):
         return window_attention_plain(q, k, v, bias, scale)
     b, h, n, c_qk, c_v, l = _check(q, k, v, bias,
                                    dtypes=(torch.float32, torch.bfloat16))
@@ -209,16 +217,23 @@ def _fp32(*ts):
     return tuple(t.float() for t in ts)
 
 
-def _train_fwd_plain32(q, k, v, bias, seed, scale: float, p: float):
-    """The train forward in fp32 on fp32 copies of the operands."""
-    q, k, v, bias = _fp32(q, k, v, bias)
+def _train_weights(q, k, bias, seed, scale: float, p: float):
+    """The kept weights M·softmax/(1 − p) in fp32 on fp32 copies of the
+    operands."""
+    q, k, bias = _fp32(q, k, bias)
     weights = _train_probs(q, k, bias, scale)
     if p > 0.0:
         s, off = _seed_pair(seed)
         b, h, n, _, l = q.shape
         keep = keep_mask(window_ids(b, h, n, l, off, q.device), p, s)
         weights = torch.where(keep, weights / (1.0 - p), 0.0)
-    return torch.einsum("bhnlm,bhncm->bhncl", weights, v)
+    return weights
+
+
+def _train_fwd_plain32(q, k, v, bias, seed, scale: float, p: float):
+    """The train forward in fp32 on fp32 copies of the operands."""
+    return torch.einsum("bhnlm,bhncm->bhncl",
+                        _train_weights(q, k, bias, seed, scale, p), v.float())
 
 
 def window_attention_train_fwd_plain(q, k, v, bias, seed, scale: float,
@@ -230,12 +245,17 @@ def window_attention_train_fwd_plain(q, k, v, bias, seed, scale: float,
 
 
 def window_attention_train_bwd_plain(q, k, v, bias, seed, do, scale: float,
-                                     p: float):
+                                     p: float, row_blocked: bool = False):
     """dq, dk, dv and dbias (summed over batch and windows) of the train
     attention, recomputing the softmax from q, k and bias (``_wat_bwd``),
     in fp32; dq, dk, dv rounded once to the operands' dtype, dbias fp32
-    (``_train_bwd_kernel``, ``pwa_attention.py:344-404``)."""
+    (``_train_bwd_kernel``, ``pwa_attention.py:344-404``). ``row_blocked``:
+    K3b's function, ``_train_bwd_rb_kernel`` (499-527): the kept weights
+    rounded to k's dtype before the dV product and dS before the dq and dk
+    products, dbias from the unrounded dS (the identity in fp32)."""
     dtypes = (q.dtype, k.dtype, v.dtype)
+    rnd = (lambda t: t.to(dtypes[1]).float()) if row_blocked \
+        else (lambda t: t)
     q, k, v, bias, do = _fp32(q, k, v, bias, do)
     prob = _train_probs(q, k, bias, scale)
     if p > 0.0:
@@ -246,13 +266,13 @@ def window_attention_train_bwd_plain(q, k, v, bias, seed, do, scale: float,
         weights = torch.where(keep, prob * inv, 0.0)
     else:
         weights = prob
-    dv = torch.einsum("bhnlm,bhncl->bhncm", weights, do)
+    dv = torch.einsum("bhnlm,bhncl->bhncm", rnd(weights), do)
     dw = torch.einsum("bhncl,bhncm->bhnlm", do, v)
     dprob = torch.where(keep, dw * inv, 0.0) if p > 0.0 else dw
     t = prob * dprob
     ds = t - prob * t.sum(dim=-1, keepdim=True)
-    dq = torch.einsum("bhncm,bhnlm->bhncl", k, ds) * scale
-    dk = torch.einsum("bhncl,bhnlm->bhncm", q, ds) * scale
+    dq = torch.einsum("bhncm,bhnlm->bhncl", k, rnd(ds)) * scale
+    dk = torch.einsum("bhncl,bhnlm->bhncm", q, rnd(ds)) * scale
     return (*(g.to(dt) for g, dt in zip((dq, dk, dv), dtypes)),
             ds.sum(dim=(0, 2)))
 
@@ -723,28 +743,45 @@ def uses_long_kernel(l: int) -> bool:
     return l > _K2_MAX_L
 
 
+def window_attention_train_fwd_long_plain(q, k, v, bias, seed, scale: float,
+                                          p: float):
+    """K3f's function, ``_train_fwd_rb_kernel`` (434-447): the kept weights
+    of :func:`window_attention_train_fwd_plain` rounded to v's dtype before
+    ·V, the product in fp32, the output rounded once. Returns (out, out32)
+    with out32 the product of the unrounded weights, from which K3b forms
+    D as the Pallas backward forms Σ P·dP (the rounded output would miss
+    it by the weights' rounding). In fp32 both are K2's output."""
+    weights = _train_weights(q, k, bias, seed, scale, p)
+    v32 = v.float()
+    out32 = torch.einsum("bhnlm,bhncm->bhncl", weights, v32)
+    if v.dtype == torch.float32:
+        return out32, out32
+    out = torch.einsum("bhnlm,bhncm->bhncl", weights.to(v.dtype).float(), v32)
+    return out.to(v.dtype), out32
+
+
 def window_attention_train_fwd_long(q, k, v, bias, seed, scale: float,
                                     p: float):
     """K3f: train attention forward for windows longer than 512 tokens, at
     the widths K3b is built for; the same kernel as K2f, whose on-chip
     memory grows with L only by its bias rows (32 rows of L at L = 1024).
-    (out, lse, out32) as K2f returns them, which K3b takes. Its plain
-    version is K2's (the same function) with :func:`train_lse_plain`.
-    bf16 operands run cast to fp32 at its edges, the output rounded to
-    their dtype (K3 has no bf16 form yet: ``ROADMAP.md`` §2 item 1)."""
-    if v.dtype != torch.float32:
-        out, lse, out32 = window_attention_train_fwd_long(
-            *_fp32(q, k, v), bias, seed, scale, p)
-        return out.to(v.dtype), lse, out32
+    q, k, v fp32 or bf16 (bias fp32); (out, lse, out32) as K2f returns them,
+    which K3b takes. Its bf16 form rounds the kept weights before ·V (two
+    passes over each window) and its out32 is the product of the unrounded
+    weights. Its plain version is :func:`window_attention_train_fwd_long_plain`
+    with :func:`train_lse_plain`."""
     if q.device.type == "cpu":
-        out = window_attention_train_fwd_plain(q, k, v, bias, seed, scale, p)
-        return out, train_lse_plain(q, k, bias, scale), out
+        out, out32 = window_attention_train_fwd_long_plain(q, k, v, bias, seed,
+                                                           scale, p)
+        return out, train_lse_plain(q, k, bias, scale), out32
     return _train_fwd_kernel(window_attention_train_fwd_long,
                              "vs_pwa_attention_long_train",
-                             LONG_KERNEL_WIDTHS, q, k, v, bias, seed, scale, p)
+                             LONG_KERNEL_WIDTHS, q, k, v, bias, seed, scale, p,
+                             dtypes=(torch.float32, torch.bfloat16))
 
 
 window_attention_train_fwd_long.launches = 0
+window_attention_train_fwd_long.launches_bf16 = 0
 
 _LONG_TILE = 128  # dbias tile edge of K3b (csrc/pwa_attention_long.cu:kBT)
 
@@ -760,21 +797,20 @@ def long_bwd_tiles(l: int) -> int:
 def window_attention_train_bwd_long(q, k, v, bias, seed, do, scale: float,
                                     p: float, out, lse):
     """K3b: (dq, dk, dv, dbias) of the train attention, dbias summed over
-    the windows in a fixed order, from K3f's fp32 ``out`` and ``lse`` of
-    the same inputs. Its plain version is K2's, which recomputes the
-    softmax and takes neither. bf16 operands run cast to fp32 at its
-    edges, dq, dk, dv rounded to their dtype (``ROADMAP.md`` §2 item 1)."""
-    if q.dtype != torch.float32:
-        grads = window_attention_train_bwd_long(
-            *_fp32(q, k, v), bias, seed, do.float(), scale, p, out, lse)
-        return (*(g.to(t.dtype) for g, t in zip(grads, (q, k, v))),
-                grads[3])
+    the windows in a fixed order, from K3f's fp32 ``out`` (its ``out32``)
+    and ``lse`` of the same inputs; q, k, v and do fp32 or bf16, dq, dk, dv
+    in their dtype, dbias fp32. Its bf16 form rounds the kept weights
+    before the dV product and dS before the dq and dk products. Its plain
+    version is K2's with those roundings
+    (:func:`window_attention_train_bwd_plain` with ``row_blocked``), which
+    recomputes the softmax and takes neither out nor lse."""
     if q.device.type == "cpu":
         return window_attention_train_bwd_plain(q, k, v, bias, seed, do,
-                                                scale, p)
+                                                scale, p, row_blocked=True)
     seed = seed.reshape(-1).contiguous()
-    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, do, out, lse, seed=seed,
-                                   widths=LONG_KERNEL_WIDTHS)
+    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, out, lse, seed=seed,
+                                   tokens=(do,), widths=LONG_KERNEL_WIDTHS,
+                                   dtypes=(torch.float32, torch.bfloat16))
     if do.shape != v.shape or out.shape != v.shape \
             or lse.shape != (b, h, n, l):
         raise ValueError(f"do {tuple(do.shape)}, out {tuple(out.shape)} or "
@@ -787,7 +823,7 @@ def window_attention_train_bwd_long(q, k, v, bias, seed, do, scale: float,
     stats = torch.empty((b, h, n, 2, l), device=q.device)
     part = torch.empty((3, long_bwd_tiles(l)) + tuple(q.shape),
                        device=q.device)
-    lib = _cuda.lib("pwa_attention_long")
+    lib = _cuda.lib("pwa_attention_long", q.dtype)
     with torch.cuda.device(q.device):
         err = lib.vs_pwa_attention_long_train_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
@@ -797,11 +833,12 @@ def window_attention_train_bwd_long(q, k, v, bias, seed, do, scale: float,
             float(scale), drop_threshold(p) if p > 0.0 else 0,
             1.0 / (1.0 - p), _cuda.stream_ptr(q.device))
     _cuda.check(lib, err, "pwa_attention_long_train_bwd")
-    window_attention_train_bwd_long.launches += 1
+    _cuda.count_launch(window_attention_train_bwd_long, q.dtype)
     return dq, dk, dv, dbias
 
 
 window_attention_train_bwd_long.launches = 0
+window_attention_train_bwd_long.launches_bf16 = 0
 
 
 class _TrainAttention(torch.autograd.Function):

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _cuda
+from .portable import runs_plain
 
 _NEG = -1e38
 _SMEM_BYTES = 232448  # the most a block may hold
@@ -157,7 +158,7 @@ def wkv(w: torch.Tensor, u: torch.Tensor, k: torch.Tensor,
     if v.dtype == torch.bfloat16:
         return wkv(*(t.float() for t in (w, u, k, v)),
                    launch=launch).to(v.dtype)
-    if k.device.type == "cpu":
+    if runs_plain(k):  # a CPU tensor, or inside a portable scope
         return wkv_plain(w, u, k, v)
     if k.device.type != "cuda":
         raise ValueError(f"unsupported device {k.device}")
