@@ -191,6 +191,20 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     rule (logits within 1e-5 of the CPU's scale, masks equal but where the
     CPU's top-2 margin is below 1e-4, metrics within 1e-4); s per case
     split into read, resample (or z-score), window and metrics.
+19. (run before 15) the zoo: the eight baselines of the registry (UNet,
+    VNet, MedNeXt, UNETR, SwinUNETR, SegFormer, SlimUNETR, UNETRpp) at
+    their published AutoPET-II configs with seeded weights: each one's
+    eval forward of a seeded (2, 96, 96, 96, 2) batch on the card against
+    the CPU in fp32 (phase 4's tolerance, 1e-4 of the scale, or 4× the
+    card forward's own movement under a 1e-7 relative input change where
+    that is larger: SegFormer's softmax is steep) and in bf16 (the card's
+    against the CPU's fp32 forward, 0.5-1.5 of the CPU's own bf16-to-fp32
+    distance: ``ZOO_BF16_MAX``), with no kernel of the port launched;
+    ``speed_main`` over the eight at the three dataset shapes (images/s,
+    batch, Params, GFLOPs per image; ``SPEED_T_TIMED``, probes of
+    ``ZOO_PROBE_ITERS``), and the serving CLI on SwinUNETR from a ``.pth``
+    the port wrote over one 96 × 96 × 80 synthetic case, card against
+    ``run_inference(..., device="cpu")`` by phase 13's rule.
 15. print the seconds of each phase, one ``{"kernels": [...]}`` line (a
     row per kernel and per bf16 form, with ``excess_ms``, each path's
     launches × (ms − bound) per call at that path's own shapes, summed),
@@ -227,6 +241,10 @@ from chip_measure import (FORWARD_BOUND, HBM_BYTES_PER_S,  # noqa: E402
 # the speed CLI's timing in phase 16: three windows of 1 s (the CLI's own
 # default is 12 s, three of 4)
 SPEED_T_TIMED = 3.0
+# and in phase 19, where a zoo model's B = 16 forward takes up to 0.8 s:
+# each window's probe of 3 + 3 dispatches (the CLI's 20 + 20 took 680 s
+# for the 24 runs)
+ZOO_PROBE_ITERS = 3
 
 
 def taps_in_bounds(s, k):
@@ -1530,6 +1548,218 @@ def extern_cli_phase(card, zero_counts, counts, serving, configs, patches,
           f"{ {k: round(v, 4) for k, v in stats.items()} }", flush=True)
     return dict(runs=runs, ct_stats=stats, steps_s=steps, launches=launches,
                 phase_s=time.perf_counter() - t18)
+
+
+# -- phase 19: the zoo's eight baselines ----------------------------------
+
+ZOO = ("UNet", "VNet", "MedNeXt", "UNETR", "SwinUNETR", "SegFormer",
+       "SlimUNETR", "UNETRpp")
+ZOO_BATCH = 2        # the forwards card vs CPU, at 96³
+# the bf16 forward on the card against the CPU's fp32 one: at least
+# FORWARD_BOUND's 0.5 (it rounds as bf16) and at most this much of the
+# CPU's own bf16-to-fp32 distance (it is the same function). Its distance
+# from the CPU's bf16 forward is printed, not held to FORWARD_BOUND's 0.9:
+# where the attention scores are rounded to bf16 (UNETR, as flax's
+# attention rounds them), the two devices' sums round some scores apart,
+# and the two bf16 forwards drift 0.93 of that distance apart (PERF.md
+# §6); the CPU tests hold each bf16 forward to the JAX one.
+ZOO_BF16_MAX = 1.5
+
+
+def zoo_phase(card, zero_counts, counts, configs, patches, spacing,
+              small=(96, 96, 80)):
+    """Phase 19: the eight zoo baselines of the registry at their published
+    AutoPET-II configs (``configs``: each dataset's models config), seeded
+    weights. Per model, the fp32 eval forward of a seeded (2, 96, 96, 96, 2)
+    batch on the card against the same on the CPU, within 1e-4 of the CPU
+    logits' scale, or within 4× the card forward's own movement under a
+    1e-7 relative change of its input where that is larger (the
+    ill-conditioned models: printed); then both in bf16 (``.to(bf16)``, as
+    the speed CLI runs them), the card's against the CPU's fp32 forward
+    relative to the CPU's own bf16-to-fp32 distance (``ZOO_BF16_MAX``). No
+    kernel of the port may launch. Then ``speed_main`` over the eight at
+    the three dataset shapes (``SPEED_T_TIMED``, ``ZOO_PROBE_ITERS``), and
+    the serving CLI on SwinUNETR from a ``.pth`` the port wrote, over one
+    ``small`` AutoPET-II case, card against ``run_inference(...,
+    device="cpu")`` by phase 13's rule. Returns the report."""
+    import tempfile
+
+    import torch
+
+    from veloxseg_torch.cli import speed_main
+    from veloxseg_torch.cli.test_main import build_parser
+    from veloxseg_torch.cli.test_main import main as serve_main
+    from veloxseg_torch.core.config import load_json_config
+    from veloxseg_torch.infer import driver
+    from veloxseg_torch.models.registry import load_model
+    from veloxseg_torch.train.checkpoint import save_checkpoint
+
+    t19 = time.perf_counter()
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    models = load_json_config(configs["AutoPETII"])
+    shape = tuple(patches["AutoPETII"])
+    x = torch.randn(ZOO_BATCH, *shape, 2,
+                    generator=torch.Generator().manual_seed(19))
+    xp = x * (1 + 1e-7 * torch.randn(x.shape, generator=torch.Generator()
+                                     .manual_seed(20)))
+    report = {"forwards": {}, "speed": {}}
+    for name in ZOO:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model = load_model(name, models, device="cuda", seed=0,
+                               input_size=shape)
+            x_dev = x.to(dev)
+            zero_counts()
+            y = model(x_dev)
+            torch.cuda.synchronize()
+            launched = {n: c for n, c in counts().items() if c}
+            moved = float((model(xp.to(dev)) - y).abs().max())
+            ms = cuda_ms(lambda: model(x_dev), 3)
+            cpu_model = load_model(name, models, device="cpu", seed=0,
+                                   input_size=shape)
+            t1 = time.perf_counter()
+            y_cpu = cpu_model(x)
+            cpu_s = time.perf_counter() - t1
+            y = y.cpu()
+            model16 = model.to(bf)
+            y16 = model16(x_dev.to(bf)).float().cpu()
+            ms16 = cuda_ms(lambda: model16(x_dev.to(bf)), 3)
+            y16_cpu = cpu_model.to(bf)(x.to(bf)).float()
+        del model, model16, cpu_model, x_dev
+        torch.cuda.empty_cache()
+        if tuple(y.shape) != (ZOO_BATCH, *shape, 2) \
+                or not bool(torch.isfinite(y).all()) \
+                or not bool(torch.isfinite(y16).all()) or launched:
+            raise AssertionError(f"zoo {name}: output {tuple(y.shape)}, "
+                                 f"kernel launches {launched}")
+        scale = float(y_cpu.abs().max())
+        err = float((y - y_cpu).abs().max())
+        tol = max(1e-4 * scale, 4 * moved)
+        if not err <= tol:
+            raise AssertionError(f"zoo {name} card vs CPU: max abs err "
+                                 f"{err:.3e}, tol {tol:.3e} (scale "
+                                 f"{scale:.3e}, moved {moved:.3e})")
+        d = forward_distances(y16, y16_cpu, y_cpu)
+        if not (FORWARD_BOUND["to_fp32"] <= d["to_fp32"] <= ZOO_BF16_MAX):
+            raise AssertionError(
+                f"zoo {name} bf16 card vs CPU fp32: {d['to_fp32']:.4f} of "
+                f"the CPU's bf16 distance, outside "
+                f"[{FORWARD_BOUND['to_fp32']}, {ZOO_BF16_MAX}]")
+        report["forwards"][name] = dict(
+            max_abs_err=err, scale=scale, tol=tol, moved=moved, gpu_ms=ms,
+            gpu_ms_bf16=ms16, cpu_s=cpu_s, bf16=d,
+            seconds=time.perf_counter() - t0)
+        print(f"[19] {card} | {name} eval forward ({ZOO_BATCH},{shape[0]},"
+              f"{shape[1]},{shape[2]},2) card vs CPU: max abs err "
+              f"{err:.3e} on scale {scale:.3e} (tol {tol:.3e}: 1e-4 x scale "
+              f"or 4 x the card's movement {moved:.3e} under a 1e-7 "
+              f"input change) | bf16 card vs CPU, relative to the CPU's "
+              f"bf16-to-fp32 distance: to its fp32 {d['to_fp32']:.4f} (in "
+              f"[{FORWARD_BOUND['to_fp32']}, {ZOO_BF16_MAX}]), to its bf16 "
+              f"{d['to_bf16']:.4f} | GPU {ms:.3f} ms fp32, "
+              f"{ms16:.3f} ms bf16 (CPU {cpu_s:.2f} s) | no kernel launched",
+              flush=True)
+
+    speed_main.T_TIMED = SPEED_T_TIMED
+    speed_main.PROBE_ITERS = ZOO_PROBE_ITERS
+    for dataset in speed_main.INPUT_SIZE:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = speed_main.main(["--dataset", dataset, "--model_list",
+                               ",".join(ZOO), "--model_config",
+                               configs[dataset]])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launched = {n: c for n, c in counts().items() if c}
+        if [r["model"] for r in res] != list(ZOO) or launched or not all(
+                r["throughput"] > 0 and r["flops"] > 0 for r in res):
+            raise AssertionError(f"zoo speed CLI {dataset}: "
+                                 f"{[r['model'] for r in res]}, launches "
+                                 f"{launched}")
+        report["speed"][dataset] = dict(results=res, seconds=run_s)
+        for r in res:
+            print(f"[19] {card} | speed CLI {dataset} {r['model']}: "
+                  f"{r['throughput']:.2f} images/s @ batch size "
+                  f"{r['batch_size']}, Params {r['params'] / 1e6} M, "
+                  f"GFLOPs per image {r['flops'] / 1e9} (bf16, T_TIMED "
+                  f"{SPEED_T_TIMED} s)", flush=True)
+        print(f"[19] speed CLI {dataset}, the eight: {run_s:.1f} s",
+              flush=True)
+    speed_main.PROBE_ITERS = 20
+
+    # the serving CLI on SwinUNETR, from a .pth the port wrote
+    recorded = []
+    window = driver.sliding_window_inference
+
+    def recording(*a, **kw):
+        out = window(*a, **kw)
+        recorded.append(out)
+        return out
+
+    with tempfile.TemporaryDirectory() as work:
+        globs = write_cases(os.path.join(work, "cases"), "AutoPETII", small,
+                            1, seed=44, spacing=spacing)
+        ckpt = os.path.join(work, "ckpt")
+        save_checkpoint(os.path.join(ckpt, "val_best.pth"), load_model(
+            "SwinUNETR", models, device="cpu", seed=7, input_size=shape))
+        for fname, cfg in (
+                ("train.json", {"patch_size": {"AutoPETII": list(shape)},
+                                "train_rate": 0, "val_rate": 0,
+                                "dataset_path": {"AutoPETII": globs}}),
+                ("test.json", {"result_metric_path":
+                               os.path.join(work, "metric"),
+                               "sliding_window": {"overlap": 0.25}})):
+            with open(os.path.join(work, fname), "w") as f:
+                json.dump(cfg, f)
+        run_argv = ["--dataset_name", "AutoPETII", "--model_name",
+                    "SwinUNETR", "--model_config", configs["AutoPETII"],
+                    "--train_config", os.path.join(work, "train.json"),
+                    "--test_config", os.path.join(work, "test.json"),
+                    "--checkpoint_dir", ckpt, "--use_hd95", "1",
+                    "--sw_batch_size", "1"]
+        driver.sliding_window_inference = recording
+        try:
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            serve_main(run_argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = {n: c for n, c in counts().items() if c}
+            card_row, = check_csv(os.path.join(
+                work, "metric", "AutoPETII_SwinUNETR.csv"),
+                BINARY_COLUMNS, 1)
+            args = build_parser().parse_args(run_argv)
+            with open(args.train_config) as f:
+                train_json = json.load(f)
+            with open(args.test_config) as f:
+                test_json = json.load(f)
+            t0 = time.perf_counter()
+            cpu_row, = driver.run_inference(args, train_json, models,
+                                            test_json, device="cpu")
+            cpu_s = time.perf_counter() - t0
+        finally:
+            driver.sliding_window_inference = window
+    card_lg, cpu_lg = recorded
+    if launched:
+        raise AssertionError(f"zoo serving CLI: kernel launches {launched}")
+    cmp = compare_rows("SwinUNETR", card_lg[0].cpu().numpy(),
+                       cpu_lg[0].numpy(), card_row, cpu_row, BINARY_COLUMNS)
+    report["serving_cli"] = dict(wall_s=wall, cpu_s=cpu_s, row=card_row,
+                                 card_vs_cpu=cmp)
+    print(f"[19] {card} | serving CLI SwinUNETR from the port's .pth "
+          f"(AutoPETII, one {small} case, logits "
+          f"{tuple(card_lg.shape)}): {wall:.3f} s card, {cpu_s:.3f} s CPU "
+          f"| logits max abs err {cmp['logit_err']:.3e} on scale "
+          f"{cmp['scale']:.3e} (tol 1e-5 x scale), {cmp['flips']} voxels "
+          f"differ (all with CPU top-2 margin < 1e-4), metrics max abs err "
+          f"{cmp['metric_err']:.3e} | "
+          + ", ".join(f"{c} {card_row[c]}" for c in BINARY_COLUMNS[1:]
+                      if c != "time"), flush=True)
+    report["phase_s"] = time.perf_counter() - t19
+    return report
 
 
 def main() -> int:
@@ -3094,6 +3324,18 @@ def main() -> int:
           flush=True)
 
     lap(18)
+    # -- phase 19: the zoo (registry baselines: forwards, speed CLI, serving)
+    torch.cuda.empty_cache()
+    report["zoo"] = zoo_phase(
+        card, zero_counts, counts,
+        {d: os.path.join(ROOT, "config", f"models_config_{n}.json")
+         for d, n in (("AutoPETII", "autopetii"),
+                      ("Hecktor2022", "hecktor2022"),
+                      ("BraTS2021", "brats2021"))},
+        train_cfg["patch_size"], tuple(train_cfg["spacing"]["AutoPETII"]))
+    print(f"[19] zoo phase {report['zoo']['phase_s']:.1f} s", flush=True)
+
+    lap(19)
     # -- phase 15 -----------------------------------------------------------
     meta = {
         "pwa_attention": ("veloxseg_torch/csrc/pwa_attention_train.cu",

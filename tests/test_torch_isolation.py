@@ -2,8 +2,8 @@
 nothing of JAX, Flax, msgpack, pandas or ``veloxseg_tpu`` (the eval
 forward, a train step, the 128³ flagship's long-window attention, a U-RWKV
 forward and the serving CLI, from a JAX-written ``.ckpt`` and a ``.pth``,
-then the export, preprocess and extern CLIs, run with those imports
-blocked), and the entry points refuse to run quietly on the CPU when CUDA
+then the export, preprocess and extern CLIs, and the eight zoo baselines'
+builds and a SegFormer forward, run with those imports blocked), and the entry points refuse to run quietly on the CPU when CUDA
 is absent."""
 
 import argparse
@@ -149,6 +149,17 @@ _ISOLATED = textwrap.dedent("""
                    "--model_config", glob_of("model.json"),
                    "--test_config", glob_of("test.json")])
     assert len(rows) == 2 and all(0 <= r["dice"] <= 1 for r in rows)
+    # the eight zoo baselines build from the published config, and one
+    # runs a forward
+    zoo = json.load(open(os.path.join({root!r}, "config",
+                                      "models_config_autopetii.json")))
+    for name in ("UNet", "VNet", "MedNeXt", "UNETR", "SwinUNETR",
+                 "SegFormer", "SlimUNETR", "UNETRpp"):
+        load_model(name, zoo, device="cpu")
+    with torch.no_grad():
+        y = load_model("SegFormer", zoo, device="cpu")(
+            torch.randn(1, 32, 32, 32, 2))
+    assert y.shape == (1, 32, 32, 32, 2) and bool(torch.isfinite(y).all())
     bad = sorted(n for n, m in sys.modules.items() if m is not None and
                  n.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
                                      "pandas", "veloxseg_tpu"))

@@ -508,3 +508,70 @@ def run_both_trainers(root, dataset: str, model_config: dict,
             out[side] = res
     out["jax_grad_max"] = grad_max
     return out
+
+
+# ---------------------------------------------------------------------------
+# The zoo's baselines against the JAX ones (``tools/zoo_reference.py``).
+
+def zoo_port_model(name: str, ref: dict) -> torch.nn.Module:
+    """The port's ``name`` at ``zoo_reference.config(name)`` holding the
+    JAX parameters of ``ref`` (``zoo_reference.load_reference``), through
+    ``load_params``'s own map for a ``.ckpt``."""
+    from veloxseg_torch.models.registry import load_model
+    from veloxseg_torch.train.checkpoint import _FORMATS
+    import zoo_reference as zr
+    model = load_model(name, {name: zr.config(name)}, device="cpu")
+    from_jax, _ = _FORMATS[type(model)]
+    model.load_state_dict(from_jax(model, zr.nest(ref[name]["params"])),
+                          strict=True)
+    return model
+
+
+def zoo_forward(model, x: np.ndarray, dtype=torch.float32) -> np.ndarray:
+    """The eval forward of ``model`` cast to ``dtype`` on ``x`` in
+    ``dtype``, as a float64 array."""
+    with torch.inference_mode():
+        return model.to(dtype)(torch.from_numpy(x).to(dtype)).double() \
+            .numpy()
+
+
+def assert_zoo_round_trip(name: str, ref: dict, model: torch.nn.Module,
+                          jax_name: str) -> None:
+    """The port's state dict → the JAX package's ``convert_zoo_state_dict``
+    → the JAX parameters of ``ref`` bit for bit, the same leaves."""
+    import jax
+    import zoo_reference as zr
+    from veloxseg_tpu.interop.zoo_import import convert_zoo_state_dict
+    flat = ref[name]["params"]
+    back = convert_zoo_state_dict(jax_name, model.state_dict(),
+                                  zr.nest(flat))
+    got = {"/".join(str(getattr(k, "key", k)) for k in p): np.asarray(a)
+           for p, a in jax.tree_util.tree_flatten_with_path(back)[0]}
+    assert sorted(got) == sorted(flat)
+    for k, a in flat.items():
+        assert got[k].dtype == np.float32 and np.array_equal(got[k], a), k
+
+
+def assert_zoo_load_params(name: str, ref: dict, tmp_path) -> None:
+    """``load_params`` reads the JAX parameters of ``ref`` as a JAX
+    ``.ckpt`` payload into a model seeded otherwise, and the port's
+    ``.pth`` of that model into a third: both hold the converted state,
+    key for key."""
+    from flax import serialization
+    import zoo_reference as zr
+    from veloxseg_torch.models.registry import load_model
+    from veloxseg_torch.train import checkpoint
+    want = zoo_port_model(name, ref).state_dict()
+    ckpt = tmp_path / "val_best.ckpt"
+    ckpt.write_bytes(serialization.msgpack_serialize(
+        {"params": zr.nest(ref[name]["params"]), "epoch": 3}))
+    fresh = load_model(name, {name: zr.config(name)}, device="cpu", seed=1)
+    checkpoint.load_params(str(ckpt), fresh)
+    pth = str(tmp_path / "val_best.pth")
+    checkpoint.save_checkpoint(pth, fresh, epoch=3)
+    again = checkpoint.load_params(pth, load_model(
+        name, {name: zr.config(name)}, device="cpu", seed=2))
+    for state in (fresh.state_dict(), again.state_dict()):
+        assert list(state) == list(want)
+        for k, v in want.items():
+            assert torch.equal(state[k], v), k

@@ -2,13 +2,15 @@
 """Where a forward, or a train step, of the PyTorch port spends its time
 on one GPU.
 
-    python3 tools/profile_torch_eval.py [--model autopet|flagship|urwkv]
+    python3 tools/profile_torch_eval.py [--model autopet|flagship|urwkv|NAME]
         [--batch N] [--train] [--bf16] [--out DIR]
 
 Builds the model at full width with seeded weights on the card: the
 AutoPET-II VeloxSeg (``config/models_config_autopetii.json``, 96³), the
-128³ flagship of bench.py (``core/config.flagship_config``) or AutoPET-II's
-U-RWKV (96³, eval only). It runs, on a seeded (batch, size³, 2) input, the
+128³ flagship of bench.py (``core/config.flagship_config``), AutoPET-II's
+U-RWKV (96³, eval only), or any other model of the port's registry by its
+name (``SwinUNETR``, ``UNETR``, ...: AutoPET-II's entry at 96³, eval
+only). It runs, on a seeded (batch, size³, 2) input, the
 eval forward (batch 4 by default: one sliding-window batch) or, with
 ``--train``, the train step (dropout at the config's rates;
 ``config/train_config_bs4.json``'s loss weights and AdamW, which bench.py
@@ -69,10 +71,12 @@ FAMILIES = (
     ("K5f MLP", ("jlc_stage2_mlp", "jlc_stage2_sum")),
     ("K5b", ("jlc_mlp_bwd_tiles", "jlc_stage2_bwd_planes")),
     ("optimizer (foreach AdamW)", ("multi_tensor", "foreach")),
-    ("cuDNN/cuBLAS convs and GEMMs", ("conv", "cudnn", "xmma", "gemm",
-                                      "cutlass", "sm90_", "implicit",
-                                      "dgrad", "wgrad", "nchw", "nhwc")),
-    ("PyTorch reductions", ("reduce", "softmax", "norm")),
+    ("cuDNN convolutions", ("conv", "cudnn", "implicit", "fprop", "dgrad",
+                            "wgrad", "nchw", "nhwc")),
+    ("cuBLAS GEMMs (linear layers, attention products)",
+     ("gemm", "cutlass", "xmma", "sm90_", "nvjet")),
+    ("softmax (attention)", ("softmax",)),
+    ("PyTorch reductions (norms)", ("reduce", "norm")),
     ("PyTorch elementwise", ("elementwise", "index", "cat", "where")),
     ("copies and fills", ("memcpy", "memset", "copy", "fill")),
 )
@@ -100,8 +104,8 @@ def main() -> int:
     from veloxseg_torch.nn.veloxseg import build_veloxseg
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("autopet", "flagship", "urwkv"),
-                    default="autopet")
+    ap.add_argument("--model", default="autopet",
+                    help="autopet, flagship, urwkv or a registry name")
     ap.add_argument("--batch", type=int, default=None,
                     help="default 4 (eval) or the train config's 2")
     ap.add_argument("--train", action="store_true",
@@ -120,14 +124,17 @@ def main() -> int:
         ROOT, "config", "models_config_autopetii.json"))
     train_cfg = load_json_config(os.path.join(
         ROOT, "config", "train_config_bs4.json"))
-    if args.train and args.model == "urwkv":
-        ap.error("U-RWKV is profiled in eval only")
+    veloxseg = args.model in ("autopet", "flagship")
+    if args.train and not veloxseg:
+        ap.error(f"{args.model} is profiled in eval only")
     size = 128 if args.model == "flagship" else 96
     batch = args.batch or (4 if not args.train else
                            16 if args.model == "flagship"
                            else train_cfg["batch_size"])
-    if args.model == "urwkv":
-        model = load_model("U-RWKV", models, device="cuda", seed=0)
+    if not veloxseg:
+        name = "U-RWKV" if args.model == "urwkv" else args.model
+        model = load_model(name, models, device="cuda", seed=0,
+                           input_size=(size,) * 3)
     else:
         model, _ = build_veloxseg(
             flagship_config() if args.model == "flagship"

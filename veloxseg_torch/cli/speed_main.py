@@ -12,8 +12,12 @@ in place of XLA's ``cost_analysis``, which also counts elementwise work).
 
 ``--devices`` is a comma list of ``default`` (the card) and ``cpu`` (every
 kernel's plain version); the default is the card alone, and asking for it
-without one raises. Models that the port's registry lacks print the JAX
-CLI's "not implemented yet, skipping" line.
+without one raises. The port's registry holds VeloxSeg, U-RWKV and eight
+baselines of the zoo (UNet, VNet, MedNeXt, UNETR, SwinUNETR, SegFormer,
+SlimUNETR, UNETRpp, built for the dataset's shape); models that it lacks
+print the JAX CLI's "not implemented yet, skipping" line. The zoo's
+operations are all library calls (convolutions, transposed convolutions,
+the attention's matrix products), which ``FlopCounterMode`` counts.
 
 One difference from the JAX CLI, on purpose: :func:`find_max_batch_size`
 stops only at ``torch.cuda.OutOfMemoryError``. Any other error (a kernel
@@ -41,6 +45,7 @@ INPUT_SIZE = {
     "BraTS2021": (96, 96, 96, 4),
 }
 T_TIMED = 12.0
+PROBE_ITERS = 20   # each window's probe dispatches (twice, before it)
 MAX_BS = 16
 SKIP = ()  # every model of the port's registry runs
 
@@ -77,7 +82,8 @@ def bench_model(name: str, model_config: dict, input_shape: Sequence[int],
     """Time ``name``'s bf16 eval forward on ``device``; the result dict, or
     None where batch 1 does not fit."""
     from ..models.registry import load_model
-    model = load_model(name, model_config, device=device, seed=0)
+    model = load_model(name, model_config, device=device, seed=0,
+                       input_size=input_shape[:3])
     n_params = eval_param_count(model)
     dtype = torch.bfloat16
     model = model.to(dtype)
@@ -93,7 +99,7 @@ def bench_model(name: str, model_config: dict, input_shape: Sequence[int],
     x = torch.randn((bs, *input_shape), generator=torch.Generator()
                     .manual_seed(2)).to(device=device, dtype=dtype)
     throughput = median_rate(lambda: fwd(x), bs, windows=3,
-                             seconds=T_TIMED / 3)
+                             seconds=T_TIMED / 3, probe_iters=PROBE_ITERS)
     flops = count_flops(fwd, x[:1])        # per image, at batch 1
     print(f"{name} {device.type} {throughput:.2f} images/s @ batch size "
           f"{bs}")

@@ -20,6 +20,11 @@ BraTS2021):
 
 The model, the argmax and the metrics run on ``device``; HD95 and the file
 I/O on the host. One process: ``--mesh`` and ``--distributed`` raise.
+Any model of the port's registry serves: VeloxSeg, U-RWKV and eight
+baselines of the zoo. The sliding window groups ``--sw_batch_size`` tiles
+per call as the JAX driver does, so the models with batch-statistics norms
+(VNet, SegFormer, SlimUNETR, UNETRpp, U-RWKV) normalize the same tiles
+together.
 """
 
 from __future__ import annotations
@@ -146,8 +151,12 @@ def run_inference(args, train_config: dict, model_config: dict,
     if specific is not None:
         test_idx = [lo + int(specific)]
 
-    model = load_model(args.model_name, model_config, device=dev)
+    # every model builds from its config entry (its own input-channel key,
+    # where the JAX driver reads ``in_ch``, 73, for its init example);
+    # SwinUNETR's bias tables are sized by the patch (``load_model``)
     patch_size = train_config["patch_size"][args.dataset_name]
+    model = load_model(args.model_name, model_config, device=dev,
+                       input_size=patch_size)
     ckpt_path = _resolve_checkpoint(args, train_config)
     logger.info(f"Loading checkpoint {ckpt_path}")
     load_params(ckpt_path, model)

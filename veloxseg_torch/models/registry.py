@@ -7,20 +7,30 @@ A builder takes ``(model_config, device, seed)`` and returns an eval-mode
 ``"cuda"``; raises without CUDA unless ``device="cpu"``). Every model
 takes and returns channels-last tensors: ``(B, D, H, W, C)`` in, logits
 ``(B, D, H, W, classes)`` out in eval mode.
+
+Besides VeloxSeg and U-RWKV, eight baselines of the zoo
+(``veloxseg_tpu/models/zoo/``): UNet, VNet, MedNeXt, UNETR, SwinUNETR,
+SegFormer, SlimUNETR and UNETRpp, each reading the config keys (and
+defaults) its JAX builder reads.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
 _REGISTRY: Dict[str, Callable] = {}
+_SIZED: set = set()   # models whose parameters depend on the input size
 
 
-def register_model(name: str):
+def register_model(name: str, sized: bool = False):
+    """Register ``name``'s builder; ``sized``: its config's ``img_size``
+    may come from :func:`load_model`'s ``input_size``."""
     def deco(builder: Callable):
         _REGISTRY[name] = builder
+        if sized:
+            _SIZED.add(name)
         return builder
     return deco
 
@@ -32,19 +42,28 @@ def available_models() -> List[str]:
 
 def load_model(model_name: str, model_config: Dict,
                device: Optional[Union[str, torch.device]] = None,
-               seed: int = 0) -> torch.nn.Module:
+               seed: int = 0, input_size: Optional[Sequence[int]] = None
+               ) -> torch.nn.Module:
     """Build ``model_name`` from its entry in ``model_config`` (a whole
-    ``models_config_*.json`` dict)."""
+    ``models_config_*.json`` dict). ``input_size``, the spatial size the
+    model will run at (the serving patch, the speed CLI's shape), is the
+    ``img_size`` of a ``sized`` model whose entry names none: SwinUNETR's
+    bias tables are sized by it, where the JAX module sizes them at
+    ``init``."""
     _ensure_builtin_imports()
     if model_name not in _REGISTRY:
         raise ValueError(f"No model named {model_name!r}; available: "
                          f"{available_models()}")
-    return _REGISTRY[model_name](model_config[model_name], device, seed)
+    cfg = dict(model_config[model_name])
+    if input_size is not None and model_name in _SIZED:
+        cfg.setdefault("img_size", [int(s) for s in input_size])
+    return _REGISTRY[model_name](cfg, device, seed)
 
 
 def _ensure_builtin_imports():
     # imported for their registration
-    from .zoo import urwkv  # noqa: F401
+    from .zoo import (basic_unet, mednext, segformer3d,  # noqa: F401
+                      slim_unetr, swin_unetr, unetr, unetrpp, urwkv, vnet)
 
 
 @register_model("VeloxSeg")

@@ -1,29 +1,60 @@
-"""Building blocks of the baseline zoo that U-RWKV needs
-(``veloxseg_tpu/models/zoo/common.py``, and the JAX package's
-``nn/norms.LayerNorm``). Its torch-style ``Conv3d`` (``k // 2`` padding,
-groups) is :func:`..nn.basic.GroupedConv3d` and its ``max_pool3d`` is
-``F.max_pool3d``; what is left is the batch norm and the last-axis layer
-norm.
+"""Building blocks of the baseline zoo (``veloxseg_tpu/models/zoo/
+common.py``, and the JAX package's ``nn/norms.LayerNorm``). Channels-first
+``(B, C, D, H, W)`` except :class:`LayerNorm` and :class:`Linear`, which
+act on the last axis.
 
-Both norms round as the JAX ones do in bf16: the statistics and the
+- the torch-style ``Conv3d`` (``k // 2`` padding, stride, groups) is
+  :func:`..nn.basic.GroupedConv3d`;
+- :func:`ConvTranspose3d` keeps ``nn.ConvTranspose3d``'s weight
+  ``(I, O/g, k, k, k)``; the JAX module keeps a DHWIO kernel and runs it
+  flipped over the input dilated by the stride, which is the same
+  function, so the weights carry across by a transpose alone
+  (:mod:`..interop.zoo_params`);
+- ``max_pool3d`` and ``avg_pool3d`` are ``F.max_pool3d`` and
+  ``F.avg_pool3d`` (no padding, floor sizes, as flax's VALID pools);
+- :class:`ChannelDropout` is the identity in eval mode, and zoo training
+  is not ported.
+
+The norms round as the JAX ones do in bf16: the statistics and the
 normalized value in fp32, that value rounded to the input's dtype, then
 the weight and the bias applied in that dtype (a product and a sum, each
-rounded). ``torch.nn.LayerNorm`` in bf16 rounds once, after its affine.
+rounded). ``torch.nn.LayerNorm`` and ``torch.nn.GroupNorm`` in bf16 round
+once, after their affine. :class:`Linear` adds its bias to the product
+already rounded, as flax's ``Dense`` (a dot, then ``+ bias``) does, and
+:func:`gelu` rounds where ``jax.nn.gelu`` does.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ...nn.basic import ConvTranspose3d as _ConvTranspose3d
+from ...nn.basic import he_init_
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in fp32, or as it is in float64: the attention scores' and
+    the norms' compute type (``preferred_element_type=jnp.float32``)."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def _normalize(x: torch.Tensor, axes, eps: float) -> torch.Tensor:
     """(x − mean) / sqrt(var + eps) over ``axes`` (biased variance), in
-    fp32, rounded to x's dtype."""
-    xf = x.float()
+    fp32 (float64 stays float64), rounded to x's dtype."""
+    xf = wide(x)
     mean = xf.mean(dim=axes, keepdim=True)
     var = (xf - mean).square().mean(dim=axes, keepdim=True)
     return ((xf - mean) / torch.sqrt(var + eps)).to(x.dtype)
+
+
+def _affine(y: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor
+            ) -> torch.Tensor:
+    """``y * weight + bias`` per channel (axis 1), in y's dtype."""
+    shape = (1, -1) + (1,) * (y.dim() - 2)
+    return (y * weight.view(shape).to(y.dtype)
+            + bias.view(shape).to(y.dtype))
 
 
 class BatchNormNoTrack(nn.Module):
@@ -42,14 +73,33 @@ class BatchNormNoTrack(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _normalize(x, (0,) + tuple(range(2, x.dim())), self.eps)
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        return (y * self.weight.view(shape).to(x.dtype)
-                + self.bias.view(shape).to(x.dtype))
+        return _affine(y, self.weight, self.bias)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm with an affine over ``(B, C, ...)``: per sample, over each
+    group's channels and the spatial axes, eps 1e-5 (``common.py:87-107``).
+    ``GroupNorm(C, C)`` is an instance norm with an affine,
+    ``GroupNorm(1, C)`` a layer norm over everything but the batch."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-5):
+        super().__init__()
+        if channels % num_groups:
+            raise ValueError(f"{channels} channels in {num_groups} groups")
+        self.num_groups = num_groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g = x.reshape(x.shape[0], self.num_groups, -1)
+        y = _normalize(g, (2,), self.eps).reshape(x.shape)
+        return _affine(y, self.weight, self.bias)
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis with a weight and a bias, eps 1e-6
-    (``veloxseg_tpu/nn/norms.py:LayerNorm``, which U-RWKV uses)."""
+    """LayerNorm over the last axis with a weight and a bias, eps 1e-6 by
+    default (``veloxseg_tpu/nn/norms.py:LayerNorm``)."""
 
     def __init__(self, channels: int, eps: float = 1e-6):
         super().__init__()
@@ -60,3 +110,65 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = _normalize(x, (-1,), self.eps)
         return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact GELU. In fp32 (or float64) ``F.gelu``; in bf16 op by op as
+    ``jax.nn.gelu(approximate=False)`` computes it,
+    ``(0.5·x)·erfc(−x·√½)``, with √½ in that dtype and each product and
+    the erfc rounded (``F.gelu`` rounds once)."""
+    if x.dtype not in (torch.bfloat16, torch.float16):
+        return F.gelu(x)
+    t = -x * x.new_tensor(0.5 ** 0.5)
+    return (0.5 * x) * torch.erfc(t.float()).to(x.dtype)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` over the last axis that, on a tensor narrower than
+    fp32 (bf16), adds its bias to the product already rounded to that
+    dtype, as flax's ``Dense`` does; in fp32 it is ``nn.Linear``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float32 or self.bias is None:
+            return super().forward(x)
+        return F.linear(x, self.weight) + self.bias
+
+
+def ConvTranspose3d(in_ch: int, out_ch: int, kernel_size: int = 2,
+                    stride: int = 2, padding: int = 0, groups: int = 1,
+                    bias: bool = True) -> _ConvTranspose3d:
+    """Torch-style transposed convolution (``common.py:48-85``): output
+    size ``(i − 1)·s − 2p + k``; its bias is added to the rounded product
+    in bf16 (:class:`..nn.basic.ConvTranspose3d`)."""
+    return _ConvTranspose3d(in_ch, out_ch, kernel_size, stride=stride,
+                            padding=padding, groups=groups, bias=bias)
+
+
+class ChannelDropout(nn.Module):
+    """``Dropout3d`` (``common.py:144-157``): the identity in eval mode or
+    at rate 0. Zoo training is not ported, so a training forward at a
+    non-zero rate raises instead of dropping nothing."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.rate:
+            raise NotImplementedError(
+                "zoo training is not ported (ROADMAP.md §1 item 6)")
+        return x
+
+
+def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init of a zoo model: He-normal weights (fan-in, leaky-relu
+    slope 1e-2, as the JAX package's ``he_normal``) and zero biases for
+    every convolution, transposed convolution and :class:`Linear`; the
+    norms stay at (1, 0). Other parameters are each model's own."""
+    he_init_(module, generator)
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            nn.init.kaiming_normal_(m.weight, a=1e-2, mode="fan_in",
+                                    generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)

@@ -7,7 +7,8 @@
   axes with no affine parameters, eps 1e-5 inside the rsqrt and
   ``max(var, 0)``, as ``veloxseg_tpu/nn/norms.py:49-62`` computes it.
 
-Both compute in fp32 and cast the result back to the input's dtype, as the
+Both compute in fp32 (the instance norm keeps a float64 input in float64)
+and cast the result back to the input's dtype, as the
 JAX package does for bf16 activations (``veloxseg_tpu/nn/norms.py:33-38``,
 ``57-63``): the LayerNorm rounds the normalized value, then applies its
 weight and bias in the input's dtype.
@@ -43,7 +44,7 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     count = 1
     for a in axes:
         count *= x.shape[a]
-    xf = x.float()
+    xf = x if x.dtype == torch.float64 else x.float()
     mean = xf.sum(dim=axes, keepdim=True) / count
     var = xf.square().sum(dim=axes, keepdim=True) / count - mean.square()
     scale = torch.rsqrt(var.clamp_min(0.0) + eps)

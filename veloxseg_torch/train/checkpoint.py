@@ -45,17 +45,50 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from ..interop import zoo_params
 from ..interop.jax_params import optimizer_state_from_jax, state_dict_from_jax
-from ..interop.zoo_params import urwkv_state_dict_from_jax
-from ..models.zoo.urwkv import URWKV
+from ..models.zoo import (basic_unet, mednext, segformer3d, slim_unetr,
+                          swin_unetr, unetr, unetrpp, urwkv, vnet)
+from ..nn.veloxseg import VeloxSeg
 from .flax_msgpack import msgpack_restore
 
-_VELOXSEG_DROPPED = re.compile(
-    r".*\.position_embedding\.relative_position_index")
-_URWKV_DROPPED = re.compile(
-    r"(e[1-4]\.pwconv\.|outconv\.|"
-    r"bx4rwkv\.allinone_spa\.(gamma2$|ln2\.))"
-    r"|.*\.running_|.*num_batches_tracked$")
+_BN_STATS = r".*\.running_|.*num_batches_tracked$"
+
+
+def _slim_state_dict(model, params):
+    heads = tuple(b[0].heads for b in (model.Encoder.block1,
+                                       model.Encoder.block2,
+                                       model.Encoder.block3,
+                                       model.Encoder.block4))
+    return zoo_params.slim_unetr_state_dict_from_jax(params, heads)
+
+
+def _plain(fn):
+    return lambda model, params: fn(params)
+
+
+# model class → (JAX params → state dict (model, params), the .pth keys
+# that the JAX import drops and the model does not hold, or None)
+_FORMATS = {
+    VeloxSeg: (_plain(state_dict_from_jax),
+               r".*\.position_embedding\.relative_position_index"),
+    urwkv.URWKV: (_plain(zoo_params.urwkv_state_dict_from_jax),
+                  r"(e[1-4]\.pwconv\.|outconv\.|"
+                  r"bx4rwkv\.allinone_spa\.(gamma2$|ln2\.))|" + _BN_STATS),
+    basic_unet.BasicUNet: (_plain(zoo_params.unet_state_dict_from_jax),
+                           None),
+    vnet.VNet: (_plain(zoo_params.vnet_state_dict_from_jax), _BN_STATS),
+    mednext.MedNeXt: (_plain(zoo_params.mednext_state_dict_from_jax),
+                      r"out_[1-4]\.|dummy"),
+    unetr.UNETR: (_plain(zoo_params.unetr_state_dict_from_jax), None),
+    swin_unetr.SwinUNETR: (_plain(
+        zoo_params.swin_unetr_state_dict_from_jax), None),
+    segformer3d.SegFormer3D: (_plain(
+        zoo_params.segformer_state_dict_from_jax), _BN_STATS),
+    slim_unetr.SlimUNETR: (_slim_state_dict, _BN_STATS),
+    unetrpp.UNETRPP: (_plain(zoo_params.unetrpp_state_dict_from_jax),
+                      _BN_STATS),
+}
 
 
 def _to_cpu(obj: Any) -> Any:
@@ -128,15 +161,16 @@ def _reference_state_dict(payload: Any) -> Dict[str, torch.Tensor]:
 
 def _model_state(path: str, payload: Any, model: torch.nn.Module
                  ) -> Dict[str, torch.Tensor]:
-    urwkv = isinstance(model, URWKV)
+    if type(model) not in _FORMATS:
+        raise TypeError(f"no checkpoint format for {type(model).__name__}; "
+                        f"known: {sorted(c.__name__ for c in _FORMATS)}")
+    from_jax, dropped = _FORMATS[type(model)]
     if path.endswith(".pth"):
-        dropped = _URWKV_DROPPED if urwkv else _VELOXSEG_DROPPED
         return {k: v for k, v in _reference_state_dict(payload).items()
-                if not dropped.match(k)}
+                if not (dropped and re.match(dropped, k))}
     params = payload.get("params", payload) \
         if isinstance(payload, dict) else payload
-    return (urwkv_state_dict_from_jax if urwkv
-            else state_dict_from_jax)(params)
+    return from_jax(model, params)
 
 
 def _read(path: str) -> Any:
@@ -144,7 +178,7 @@ def _read(path: str) -> Any:
         raise NotImplementedError(
             f"{path} is an Orbax checkpoint directory; the port reads .pth "
             "and .ckpt files (Orbax needs orbax and tensorstore, which the "
-            "port does not use: ROADMAP.md §1 item 2)")
+            "port does not use: ROADMAP.md §1 item 8)")
     if path.endswith(".pth"):
         # a full pickle, as the reference's loader reads it: its training
         # checkpoints hold more than tensors (epochs, numpy scalars)
@@ -155,7 +189,8 @@ def _read(path: str) -> Any:
 
 def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load the weights at ``path`` (``.pth`` or a JAX ``.ckpt``) into
-    ``model`` (VeloxSeg or U-RWKV) in place, strictly; returns ``model``."""
+    ``model`` (VeloxSeg, U-RWKV or one of the zoo's baselines) in place,
+    strictly; returns ``model``."""
     model.load_state_dict(_model_state(path, _read(path), model),
                           strict=True)
     return model

@@ -125,11 +125,13 @@ def timed_window(dispatch: Callable[[], object], *, seconds: float = 10.0,
 
 def median_rate(dispatch: Callable[[], object], units_per_iter: float, *,
                 windows: int = 3, seconds: float = 10.0,
-                max_iters: Optional[int] = None) -> float:
+                max_iters: Optional[int] = None,
+                probe_iters: int = 20) -> float:
     """Median units per second over ``windows`` timed windows."""
     rates: List[float] = []
     for _ in range(windows):
-        n, dt = timed_window(dispatch, seconds=seconds, max_iters=max_iters)
+        n, dt = timed_window(dispatch, seconds=seconds, max_iters=max_iters,
+                             probe_iters=probe_iters)
         rates.append(units_per_iter * n / dt)
     rates.sort()
     return rates[len(rates) // 2]
