@@ -38,8 +38,8 @@ import pytest
 import torch
 
 from torch_port_helpers import (assert_zoo_load_params,
-                                assert_zoo_round_trip, normal, zoo_forward,
-                                zoo_port_model)
+                                assert_zoo_round_trip, jax_eval_params,
+                                normal, zoo_forward, zoo_port_model)
 from veloxseg_torch.models.registry import load_model
 from veloxseg_torch.models.zoo import common as port_common
 from veloxseg_torch.train import checkpoint as port_ckpt
@@ -161,20 +161,6 @@ def test_group_norm_matches_jax(groups, dtype):
 # ---------------------------------------------------------------------------
 # The entry points, for all eight
 
-def _jax_eval_params(name: str, cfg: dict, shape) -> int:
-    """The JAX speed CLI's parameter count: ``model.init(train=False)``'s
-    leaves, by shape, at the dataset's input."""
-    from veloxseg_tpu.models.registry import load_model as jax_load
-    model = jax_load(name, {name: cfg})
-    shapes = jax.eval_shape(
-        lambda k1, k2, x: model.init({"params": k1, "dropout": k2}, x,
-                                     train=False),
-        jax.random.PRNGKey(0), jax.random.PRNGKey(1),
-        jnp.zeros((1, *shape), jnp.float32))["params"]
-    return sum(int(np.prod(a.shape))
-               for a in jax.tree_util.tree_leaves(shapes))
-
-
 @pytest.mark.parametrize("dataset", sorted(DATASETS))
 @pytest.mark.parametrize("name", ZOO)
 def test_load_model_builds_from_each_published_config(name, dataset):
@@ -187,7 +173,7 @@ def test_load_model_builds_from_each_published_config(name, dataset):
                        input_size=shape[:3])
     assert not model.training
     assert all(p.device.type == "cpu" for p in model.parameters())
-    assert eval_param_count(model) == _jax_eval_params(
+    assert eval_param_count(model) == jax_eval_params(
         name, config[name], shape)
 
 
@@ -219,7 +205,7 @@ def test_speed_cli_runs_the_zoo_on_the_cpu(tmp_path, monkeypatch, capsys):
     for r in results:
         assert r["throughput"] > 0 and r["batch_size"] == 1
         assert r["flops"] > 0
-        assert r["params"] == _jax_eval_params(r["model"], config[r["model"]],
+        assert r["params"] == jax_eval_params(r["model"], config[r["model"]],
                                                (32, 32, 32, 2))
         assert f"{r['model']} cpu {r['throughput']:.2f} images/s @ batch " \
                f"size 1" in out

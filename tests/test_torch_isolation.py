@@ -149,12 +149,14 @@ _ISOLATED = textwrap.dedent("""
                    "--model_config", glob_of("model.json"),
                    "--test_config", glob_of("test.json")])
     assert len(rows) == 2 and all(0 <= r["dice"] <= 1 for r in rows)
-    # the eight zoo baselines build from the published config, and one
+    # the fifteen zoo baselines build from the published config, and one
     # runs a forward
     zoo = json.load(open(os.path.join({root!r}, "config",
                                       "models_config_autopetii.json")))
     for name in ("UNet", "VNet", "MedNeXt", "UNETR", "SwinUNETR",
-                 "SegFormer", "SlimUNETR", "UNETRpp"):
+                 "SegFormer", "SlimUNETR", "UNETRpp", "VSmTrans",
+                 "NestedFormer", "A2FSeg", "HDense", "SuperLightNet",
+                 "U-KAN", "HCMA-UNet"):
         load_model(name, zoo, device="cpu")
     with torch.no_grad():
         y = load_model("SegFormer", zoo, device="cpu")(

@@ -45,7 +45,7 @@ MICRO = {"VeloxSeg": {
     "min_dim_head": [4, 4], "scale_factors": [2, 2],
     "num_heads": [1, 1], "ffn_expansion_ratio": [2, 2],
     "spatial_dim": 3,
-}, "U-RWKV": {"input_channel": 2, "num_classes": 2}, "VSmTrans": {}}
+}, "U-RWKV": {"input_channel": 2, "num_classes": 2}, "NoSuchModel": {}}
 SHAPE = (16, 16, 16, 2)
 
 
@@ -89,7 +89,7 @@ def test_cli_on_the_cpu(micro, capsys):
                f"size 2" in out
         assert f"Params {r['params'] / 1e6} M" in out
         assert f"FLOPS: {r['flops'] / 1e9} G" in out
-    assert "VSmTrans: not implemented yet, skipping" in out
+    assert "NoSuchModel: not implemented yet, skipping" in out
     assert out.count("Achieved: ") == 2
 
 

@@ -575,3 +575,55 @@ def assert_zoo_load_params(name: str, ref: dict, tmp_path) -> None:
         assert list(state) == list(want)
         for k, v in want.items():
             assert torch.equal(state[k], v), k
+
+
+def assert_zoo_dropped_keys(name: str, ref: dict, jax_name: str, dropped,
+                            tmp_path) -> None:
+    """A reference-keyed ``.pth`` (the model's keys plus ``dropped``, as
+    a training checkpoint) loads into a model seeded otherwise with the
+    converted state, key for key: every key the model holds is one the
+    JAX package's map places, each of ``dropped`` one it returns None for;
+    a key it would place that the model lacks still raises."""
+    import pytest
+    import zoo_reference as zr
+    from veloxseg_torch.models.registry import load_model
+    from veloxseg_torch.train import checkpoint
+    from veloxseg_tpu.interop.zoo_import import _CONVERTERS
+    map_key = _CONVERTERS[jax_name]
+    want = zoo_port_model(name, ref).state_dict()
+    assert all(map_key(k) is not None for k in want)
+    assert all(map_key(k) is None for k in dropped)
+    payload = dict(want)
+    payload.update({k: torch.zeros((), dtype=torch.int64)
+                    if k.endswith("num_batches_tracked") else torch.zeros(3)
+                    for k in dropped})
+    pth = str(tmp_path / "reference.pth")
+    torch.save({"model": payload, "epoch": 2}, pth)
+    fresh = checkpoint.load_params(pth, load_model(
+        name, {name: zr.config(name)}, device="cpu", seed=1))
+    state = fresh.state_dict()
+    assert list(state) == list(want)
+    for k, v in want.items():
+        assert torch.equal(state[k], v), k
+    extra = next(iter(want))
+    payload[extra.replace(".", "_extra.", 1)] = want[extra]
+    torch.save(payload, pth)
+    with pytest.raises(RuntimeError, match="Unexpected key"):
+        checkpoint.load_params(pth, load_model(
+            name, {name: zr.config(name)}, device="cpu", seed=1))
+
+
+def jax_eval_params(name: str, cfg: dict, shape) -> int:
+    """The JAX speed CLI's parameter count: ``model.init(train=False)``'s
+    leaves, by shape, at the dataset's input."""
+    import jax
+    import jax.numpy as jnp
+    from veloxseg_tpu.models.registry import load_model as jax_load
+    model = jax_load(name, {name: cfg})
+    shapes = jax.eval_shape(
+        lambda k1, k2, x: model.init({"params": k1, "dropout": k2}, x,
+                                     train=False),
+        jax.random.PRNGKey(0), jax.random.PRNGKey(1),
+        jnp.zeros((1, *shape), jnp.float32))["params"]
+    return sum(int(np.prod(a.shape))
+               for a in jax.tree_util.tree_leaves(shapes))

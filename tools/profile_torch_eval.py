@@ -21,7 +21,10 @@ eval forward as the speed CLI does: the model cast to bf16, a bf16 input. It pri
 step: the wall time (host clock around iterations ended by a
 synchronize), the device time summed by ``torch.profiler``, the device's
 idle share (1 − device time / wall time), the device operations, the
-device time by kernel family, the kernels by device time and the
+device time by kernel family, the device span of each of the port's
+profiler ranges (:data:`RANGES`: HCMA-UNet's selective scan), the peak
+memory allocated (``torch.cuda.max_memory_allocated`` over the warm-up
+runs), the kernels by device time and the
 library's convolutions (forward and backward) by input shapes. The JSON
 goes to ``<out>/profile_torch_<model>_{eval,eval_bf16,train,train_bf16}_b<batch>.json``
 (default ``runs``). Needs CUDA; TF32 off.
@@ -46,6 +49,9 @@ PORT_KERNELS = ("pwa_train_fwd", "pwa_bwd_",
                 "jlc_stage1_apply", "jlc_stage1_bwd_planes",
                 "jlc_stage2_mlp", "jlc_stage2_sum", "jlc_mlp_bwd_tiles",
                 "jlc_stage2_bwd_planes")
+
+# the port's profiler ranges (record_function), reported by device span
+RANGES = ("selective_scan",)
 
 # (family, substrings of the kernel names), first match wins: the port's
 # own kernels come before the library families, whose substrings ("conv",
@@ -172,6 +178,7 @@ def main() -> int:
         for _ in range(3):
             run()
         torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         t0 = time.perf_counter()
         for _ in range(iters):
             run()
@@ -196,6 +203,11 @@ def main() -> int:
             and not getattr(e, "is_user_annotation", False)
             and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
     rows.sort(key=lambda r: -r[2])
+    # the device spans of the port's own profiler ranges (``selective_scan``)
+    ranges = {e.key: e.device_time_total / iters / 1e3
+              for e in prof.key_averages() if e.device_type == cuda
+              and getattr(e, "is_user_annotation", False)
+              and e.key in RANGES}
     device_ms = sum(r[2] for r in rows) / 1e3
     port_ms = sum(r[2] for r in rows
                   if any(k in r[0] for k in PORT_KERNELS)) / 1e3
@@ -227,6 +239,10 @@ def main() -> int:
           f"{port_ms:.3f} ms, other {device_ms - port_ms:.3f} ms")
     for fam, (count, ms) in sorted(fams.items(), key=lambda kv: -kv[1][1]):
         print(f"  {ms:9.3f} ms  x{count:6.1f}  {fam}")
+    for key, ms in ranges.items():
+        print(f"  range {key}: {ms:.3f} ms/{unit} on the device, "
+              f"{ms / device_ms:.3f} of the device time")
+    print(f"  peak memory allocated {peak_gb:.3f} GB (the warm-up runs)")
     for name, count, us in rows[:25]:
         print(f"  {us:10.1f} us  x{count:5.1f}  {name[:90]}")
     print("library convolutions by shapes (grad_output or input, input or "
@@ -239,7 +255,8 @@ def main() -> int:
         json.dump(dict(card=card, model=args.model, kind=kind, batch=batch,
                        wall_ms=wall_ms,
                        device_ms=device_ms, port_kernels_ms=port_ms,
-                       operations=launches,
+                       operations=launches, ranges=ranges,
+                       peak_allocated_gb=peak_gb,
                        idle_share=1 - device_ms / wall_ms,
                        families={k: dict(per_unit=c, device_ms=m)
                                  for k, (c, m) in fams.items()},

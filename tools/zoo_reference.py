@@ -9,26 +9,37 @@ forwards that ``tests/test_torch_baselines_conv.py`` and
 
 Each model is built by ``veloxseg_tpu.models.registry.load_model`` from
 its published AutoPET-II entry (``config/models_config_autopetii.json``)
-with the size keys set to 32³ (:data:`SIZE_KEYS`; SlimUNETR's
-``embedding_dim`` to the one bottleneck token of a 32³ input), initialized
+with the size keys set to the test's input size (:data:`SIZE_KEYS`: 32³,
+NestedFormer's (48, 48, 32), whose published window (3, 3, 2) must divide
+its 1/16 bottleneck; SlimUNETR's ``embedding_dim`` to the one bottleneck
+token of a 32³ input), initialized
 jitted from ``PRNGKey(0)`` with ``train=True`` as the JAX serving driver
 initializes it (so UNETRpp's deep-supervision heads are in the tree), and
 then every leaf is moved by seeded noise (:func:`noisy`: half the leaf's
 own spread, or 0.05 where the init is a constant), so that no bias, norm,
 position table or transposed-conv kernel sits at a value a wrong layout
-would also reproduce. The eval forward (``train=False``) runs on a seeded
-(2, 32, 32, 32, 2) input (:data:`BATCH` for the few that need more) in
+would also reproduce; HCMA-UNet's up-projection biases are then tied
+within each group of s³ (:func:`tie_hcma_up_bias`), so that they are a
+reference bias repeated, as its import makes them. The eval forward
+(``train=False``) runs on a seeded (2, 32, 32, 32, 2) input
+(:func:`input_shape`: :data:`BATCH` for the few that need more) in
 fp32 and, for the models named by ``--bf16``, with the parameters and the
 input in bf16, as the speed CLI runs it; for those named by ``--f64``,
 also in float64 (JAX's x64 mode; the JAX norms still take their
 statistics in fp32).
 
-Two of the models are ill-conditioned at 32³ (``--report`` prints, per
+Some of the models are ill-conditioned at 32³ (``--report`` prints, per
 model, how far a 1e-7 relative change of the input moves the fp32
-output): UNETRpp's deepest level is one voxel, whose batch norms at B = 2
-normalize two values, so it runs at B = 4; SegFormer's unscaled
-attention scores (divided by √heads, 1 at its first stage) make its
-softmax steep at any batch, so it is also compared in float64.
+output, and, for those run in float64, the fp32 output's distance from
+it): UNETRpp's, A2FSeg's and U-KAN's deepest levels are one voxel, whose
+batch norms at B = 2 normalize two values, so they run at B = 4;
+SegFormer's unscaled attention scores (divided by √heads, 1 at its first
+stage) make its softmax steep at any batch, so it is also compared in
+float64. SuperLightNet's LayerNorms over 12 channels and HCMA-UNet's over
+the 2 channels of its narrowest scan branches amplify the rounding of
+their inputs, which the JAX norms' fp32 statistics (one-pass sums over
+32³ voxels) set: the JAX fp32 forward's distance from its float64 one is
+the figure they are held by.
 
 It runs in a process of its own with XLA's excess precision off
 (``--xla_allow_excess_precision=false``, set before JAX starts), so that
@@ -47,14 +58,26 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SHAPE = (2, 32, 32, 32, 2)
-BATCH = {"UNETRpp": 4}
+BATCH = {"UNETRpp": 4, "A2FSeg": 4, "U-KAN": 4}
+# the models whose input is not SHAPE's 32³: NestedFormer's published
+# window (3, 3, 2) must divide its 1/16 bottleneck
+SPATIAL = {"NestedFormer": (48, 48, 32)}
 INPUT_SEED = 5
 NOISE_SEED = 6
-# the entries' size keys, set to the test's 32³
+# the entries' size keys, set to the test's input size
 SIZE_KEYS = {"UNETR": {"img_size": [32, 32, 32]},
              "UNETRpp": {"patch_size": [32, 32, 32]},
              "SlimUNETR": {"embedding_dim": 1},
-             "SwinUNETR": {"img_size": [32, 32, 32]}}
+             "SwinUNETR": {"img_size": [32, 32, 32]},
+             "VSmTrans": {"img_size": [32, 32, 32]},
+             "NestedFormer": {"image_size": [48, 48, 32]},
+             "HDense": {"image_size": [32, 32, 32]},
+             "U-KAN": {"img_size": [32, 32, 32]},
+             "HCMA-UNet": {"patch_ini": [32, 32, 32]}}
+# HCMA-UNet's up-projections (``up_{u}/up``, stride (1, 2, 2, 2)[u]): a
+# Dense of width O·s³ whose bias is the reference's O values each
+# repeated s³ times
+HCMA_UP_STRIDES = (1, 2, 2, 2)
 
 
 def config(name: str) -> dict:
@@ -68,12 +91,18 @@ def config(name: str) -> dict:
     return entry
 
 
+def input_shape(name: str = "") -> tuple:
+    """(B, D, H, W, 2) of ``name``: B = 2 but where :data:`BATCH` says
+    more, 32³ but where :data:`SPATIAL` says otherwise."""
+    return (BATCH.get(name, SHAPE[0]),) + SPATIAL.get(name, SHAPE[1:4]) \
+        + SHAPE[4:]
+
+
 def model_input(name: str = "") -> np.ndarray:
-    """The seeded input of ``name``: (B, 32, 32, 32, 2), B = 2 but where
-    :data:`BATCH` says more (the first two samples are the B = 2 input's)."""
+    """The seeded input of ``name`` (:func:`input_shape`; the first two
+    samples of a larger batch are the B = 2 input's)."""
     rng = np.random.default_rng(INPUT_SEED)
-    shape = (BATCH.get(name, SHAPE[0]),) + SHAPE[1:]
-    return rng.standard_normal(shape).astype(np.float32)
+    return rng.standard_normal(input_shape(name)).astype(np.float32)
 
 
 def perturbed(x: np.ndarray, rel: float = 1e-7) -> np.ndarray:
@@ -90,6 +119,19 @@ def noisy(flat: dict, seed: int = NOISE_SEED) -> dict:
     for k, a in sorted(flat.items()):
         s = 0.5 * float(a.std()) if a.size > 1 and a.std() > 0 else 0.05
         out[k] = (a + s * rng.standard_normal(a.shape)).astype(np.float32)
+    return out
+
+
+def tie_hcma_up_bias(flat: dict) -> dict:
+    """HCMA-UNet's noisy params with each up-projection bias's groups of
+    s³ set to their first value, so that they lie in the reference's
+    space, which ``veloxseg_torch.interop.zoo_params`` inverts (it raises
+    on any other)."""
+    out = dict(flat)
+    for u, s in enumerate(HCMA_UP_STRIDES):
+        key = f"up_{u}/up/bias"
+        groups = out[key].reshape(-1, s ** 3)
+        out[key] = np.repeat(groups[:, 0], s ** 3).astype(np.float32)
     return out
 
 
@@ -122,11 +164,13 @@ def jax_reference(names, bf16, f64, path: str) -> dict:
         variables = jax.jit(model.init, static_argnames="train")(
             {"params": jax.random.PRNGKey(0),
              "dropout": jax.random.PRNGKey(1)},
-            jnp.zeros((1, *SHAPE[1:]), jnp.float32), train=True)
+            jnp.zeros((1, *input_shape(name)[1:]), jnp.float32), train=True)
         flat = {"/".join(str(getattr(k, "key", k)) for k in p): np.asarray(a)
                 for p, a in jax.tree_util.tree_flatten_with_path(
                     variables["params"])[0]}
         flat = noisy(flat)
+        if name == "HCMA-UNet":
+            flat = tie_hcma_up_bias(flat)
         out.update({f"{name}/params/{k}": a for k, a in flat.items()})
         apply = jax.jit(lambda p, v, m=model: m.apply({"params": p}, v,
                                                       train=False))
@@ -193,9 +237,14 @@ def main() -> int:
     if args.report:
         for name in names:
             y, yp = out[f"{name}/fp32"], out[f"{name}/fp32_perturbed"]
-            print(f"{name}: a 1e-7 relative input change moves the fp32 "
-                  f"output by {np.abs(yp - y).max() / np.abs(y).max():.3e} "
-                  f"of its largest magnitude", flush=True)
+            scale = np.abs(y).max()
+            line = (f"{name}: a 1e-7 relative input change moves the fp32 "
+                    f"output by {np.abs(yp - y).max() / scale:.3e} of its "
+                    f"largest magnitude")
+            if name in f64:
+                own = np.abs(out[f"{name}/fp64"] - y).max() / scale
+                line += f"; it lies {own:.3e} from the float64 output"
+            print(line, flush=True)
     return 0
 
 

@@ -12,18 +12,26 @@ in place of XLA's ``cost_analysis``, which also counts elementwise work).
 
 ``--devices`` is a comma list of ``default`` (the card) and ``cpu`` (every
 kernel's plain version); the default is the card alone, and asking for it
-without one raises. The port's registry holds VeloxSeg, U-RWKV and eight
-baselines of the zoo (UNet, VNet, MedNeXt, UNETR, SwinUNETR, SegFormer,
-SlimUNETR, UNETRpp, built for the dataset's shape); models that it lacks
-print the JAX CLI's "not implemented yet, skipping" line. The zoo's
-operations are all library calls (convolutions, transposed convolutions,
-the attention's matrix products), which ``FlopCounterMode`` counts.
+without one raises. The port's registry holds VeloxSeg, U-RWKV and the
+fifteen baselines of the zoo, so every model of a published config runs
+(built for the dataset's shape); a model it lacked would print the JAX
+CLI's "not implemented yet, skipping" line. The zoo's operations are all
+library calls (convolutions, transposed convolutions, the attention's
+matrix products, HCMA-UNet's scan), which ``FlopCounterMode`` counts:
+the scan's elementwise products are not counted, as XLA's
+``cost_analysis`` would count them. HCMA-UNet's Params are the
+reference's: its up-projections hold O biases where the JAX module holds
+them repeated O·s³ times (1,568 fewer at the published widths).
 
-One difference from the JAX CLI, on purpose: :func:`find_max_batch_size`
+Two differences from the JAX CLI, on purpose: :func:`find_max_batch_size`
 stops only at ``torch.cuda.OutOfMemoryError``. Any other error (a kernel
 that does not build or launch) propagates, where JAX's bare ``except``
 would report it as "does not fit at batch 1"; so does an error of the
-operation count.
+operation count. And a model whose builder refuses the shape with
+:class:`..models.registry.CannotRunAtShape` (NestedFormer at Hecktor2022:
+its window does not divide its bottleneck) is reported as skipped, with
+the reason, in the results and on a line of its own, where the JAX CLI
+stops in the model's ``init``; any other error of a builder propagates.
 """
 
 from __future__ import annotations
@@ -79,11 +87,16 @@ def find_max_batch_size(fwd: Callable, input_shape: Sequence[int],
 
 def bench_model(name: str, model_config: dict, input_shape: Sequence[int],
                 device: torch.device) -> Optional[dict]:
-    """Time ``name``'s bf16 eval forward on ``device``; the result dict, or
-    None where batch 1 does not fit."""
-    from ..models.registry import load_model
-    model = load_model(name, model_config, device=device, seed=0,
-                       input_size=input_shape[:3])
+    """Time ``name``'s bf16 eval forward on ``device``; the result dict,
+    ``{"model", "skipped": reason}`` where the model cannot be built for
+    the shape, or None where batch 1 does not fit."""
+    from ..models.registry import CannotRunAtShape, load_model
+    try:
+        model = load_model(name, model_config, device=device, seed=0,
+                           input_size=input_shape[:3])
+    except CannotRunAtShape as e:
+        print(f"{name}: cannot run at {tuple(input_shape)}: {e}, skipping")
+        return {"model": name, "skipped": str(e)}
     n_params = eval_param_count(model)
     dtype = torch.bfloat16
     model = model.to(dtype)

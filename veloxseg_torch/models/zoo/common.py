@@ -134,6 +134,18 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight) + self.bias
 
 
+def pointwise(conv: nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
+    """A 1×1 conv's weights (the reference's ``(O, I, 1, 1, 1)``) applied
+    over the last axis of a channels-last ``x``, its bias added to the
+    rounded product below fp32, as flax's ``Dense`` adds it."""
+    w = conv.weight.flatten(1)
+    if conv.bias is None:
+        return F.linear(x, w)
+    if x.dtype == torch.float32:
+        return F.linear(x, w, conv.bias)
+    return F.linear(x, w) + conv.bias
+
+
 def ConvTranspose3d(in_ch: int, out_ch: int, kernel_size: int = 2,
                     stride: int = 2, padding: int = 0, groups: int = 1,
                     bias: bool = True) -> _ConvTranspose3d:

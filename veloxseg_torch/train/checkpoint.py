@@ -24,11 +24,15 @@ read without flax by :mod:`.flax_msgpack`; its optax state mapped by
   ``veloxseg_tpu/interop/torch_import.py:308-322`` does, with the DDP
   ``module.`` prefix stripped (``:283-284``). The keys the JAX import drops
   are dropped here too: VeloxSeg's ``relative_position_index`` buffers
-  (``torch_import.py:158-160``), and U-RWKV's dead parameters and batch
-  norm statistics (``interop/zoo_import.py:1117-1131``).
+  (``torch_import.py:158-160``), U-RWKV's dead parameters and batch
+  norm statistics (``interop/zoo_import.py:1117-1131``), and for each zoo
+  model exactly the keys its ``_map_*_key`` returns None for (batch-norm
+  statistics, VSmTrans's position indices and unused ``out_4``, U-KAN's
+  KAN grids, NestedFormer's unused cross-attention norm, A2FSeg's unused
+  fusion-decoder modules, HCMA-UNet's heads ``out.0``-``out.2``).
 - ``.ckpt``: the JAX trainer's msgpack file, a full payload or a bare
   params tree, mapped by :mod:`..interop.jax_params` (VeloxSeg) or
-  :mod:`..interop.zoo_params` (U-RWKV).
+  :mod:`..interop.zoo_params` (U-RWKV and the zoo).
 - an Orbax checkpoint directory raises: reading one needs ``orbax`` and
   ``tensorstore``, which the port does not use.
 
@@ -47,8 +51,10 @@ import torch
 
 from ..interop import zoo_params
 from ..interop.jax_params import optimizer_state_from_jax, state_dict_from_jax
-from ..models.zoo import (basic_unet, mednext, segformer3d, slim_unetr,
-                          swin_unetr, unetr, unetrpp, urwkv, vnet)
+from ..models.zoo import (a2fseg, basic_unet, hcma, hdense, mednext,
+                          nestedformer, segformer3d, slim_unetr,
+                          superlightnet, swin_unetr, ukan, unetr, unetrpp,
+                          urwkv, vnet, vsmtrans)
 from ..nn.veloxseg import VeloxSeg
 from .flax_msgpack import msgpack_restore
 
@@ -88,6 +94,23 @@ _FORMATS = {
     slim_unetr.SlimUNETR: (_slim_state_dict, _BN_STATS),
     unetrpp.UNETRPP: (_plain(zoo_params.unetrpp_state_dict_from_jax),
                       _BN_STATS),
+    vsmtrans.VSmixTUnet: (_plain(zoo_params.vsmtrans_state_dict_from_jax),
+                          r".*\.relative_position_index$|out_4\.|"
+                          + _BN_STATS),
+    nestedformer.NestedFormer: (_plain(
+        zoo_params.nestedformer_state_dict_from_jax),
+        r"fusion\.modality_att\.cross_attention\.attention_norm\."),
+    a2fseg.A2FSeg: (_plain(zoo_params.a2fseg_state_dict_from_jax),
+                    r"fusion_decoder\.(conv_blocks_context|td)\.|"
+                    + _BN_STATS),
+    hdense.HDenseFormer: (_plain(zoo_params.hdense_state_dict_from_jax),
+                          None),
+    superlightnet.SuperLightNet: (_plain(
+        zoo_params.superlightnet_state_dict_from_jax), None),
+    ukan.UKAN: (_plain(zoo_params.ukan_state_dict_from_jax),
+                r".*\.grid$|" + _BN_STATS),
+    hcma.HCMA: (_plain(zoo_params.hcma_state_dict_from_jax),
+                r"out\.[0-2]\.conv1\."),
 }
 
 
