@@ -200,7 +200,8 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     that is larger: SegFormer's softmax is steep) and in bf16 (the card's
     against the CPU's fp32 forward, 0.5-1.5 of the CPU's own bf16-to-fp32
     distance: ``ZOO_BF16_MAX``), with no kernel of the port launched;
-    ``speed_main`` over the eight at the three dataset shapes (images/s,
+    ``speed_main`` over the eight at AutoPET-II's shape
+    (``ZOO_SPEED_DATASETS``; the three until phase 21 came) (images/s,
     batch, Params, GFLOPs per image; ``SPEED_T_TIMED``, probes of
     ``ZOO_PROBE_ITERS``), and the serving CLI on SwinUNETR from a ``.pth``
     the port wrote over one 96 × 96 × 80 synthetic case, card against
@@ -211,14 +212,39 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     NestedFormer, A2FSeg, HDense, SuperLightNet, U-KAN, HCMA-UNet with
     its selective scan): the forwards card vs CPU in fp32 and bf16 (HCMA-
     UNet's 2-channel LayerNorms make it ill-conditioned: held within 4×
-    the card's movement), ``speed_main`` over the seven at the three
-    dataset shapes (NestedFormer is reported as skipped at Hecktor's,
-    where its window does not divide its bottleneck: ``ZOO_CANNOT``), and
+    the card's movement), ``speed_main`` over the seven at AutoPET-II's
+    shape (at the three until phase 21 came, NestedFormer reported as
+    skipped at Hecktor's, where its window does not divide its bottleneck:
+    ``ZOO_CANNOT``), and
     the serving CLI on HCMA-UNet, held as phase [19] holds SwinUNETR:
     its float64 tiles card vs CPU within 1e-10 of the scale; its fp32
     logits, where 4× the CPU's own fp32 distance from float64 exceeds
     phase 13's 1e-5 of the scale (HCMA-UNet's case: 2.0e-2 on 42.4),
     against the CPU's float64 logits within that 4× (``compare_rows``).
+21. zoo training (its train steps card vs CPU run right after phase 2,
+    the rest before 15). K6b (``ops/wkv.wkv_bwd``, the WKV
+    backward) against ``wkv_bwd_plain`` on the card at U-RWKV's train
+    shapes, (4, 216, 128) (AutoPET-II, BraTS) and (4, 256, 128) (Hecktor),
+    fp32, with ``w = decay / T`` (both signs) and a seeded ±1 ``w``: each
+    output within 1e-4 of its scale and bit for bit on repeat; event and
+    device ms, the bound, and the torch-op route (autograd through
+    ``wkv_chunked_plain``, its backward) beside it. Then each of U-RWKV,
+    UNet, MedNeXt, SwinUNETR and U-KAN: one train step at 64³, B = 2
+    (U-KAN 4), card against CPU in fp32 (the loss within 1e-5; every
+    gradient within phase [8]'s rule plus 4x the CPU's own fp32 distance
+    from its float64 step: ``zoo_grads_close``) and in bf16
+    (``STEP_BOUND`` against the CPU's bf16 step, which must repeat bit for
+    bit, its convolutions' backward in fp32 on the bf16 operands; the loss
+    term dropped where the CPU's bf16 loss lies within 1e-5 of its fp32
+    loss); U-RWKV's card steps launch K6 and K6b 6 times each.
+    Then ``cli.train_main`` at the
+    published AutoPET-II configs (96³, 4 patches a step, bf16) over 30
+    synthetic cases (links to 10): U-RWKV 2 epochs with validation and
+    checkpoints, K6b 6 and K6 6 launches a step (K6 6 a validation batch),
+    resumed from ``0.pth``, its ``val_best.pth`` served by
+    ``cli.test_main``; the four others one epoch each. Per run the median
+    step's stream span, the trace's device ms per step and idle share, and
+    peak memory.
 15. print the seconds of each phase, one ``{"kernels": [...]}`` line (a
     row per kernel and per bf16 form, with ``excess_ms``, each path's
     launches × (ms − bound) per call at that path's own shapes, summed),
@@ -249,7 +275,7 @@ from chip_measure import (FORWARD_BOUND, HBM_BYTES_PER_S,  # noqa: E402
                           stage2_fwd_work, stage2_fwd_work_bf16,
                           step_bound_violations, step_distances,
                           train_attention_work, train_attention_work_bf16,
-                          wkv_work)
+                          wkv_bwd_work, wkv_work)
 
 
 # the speed CLI's timing in phase 16: three windows of 1 s (the CLI's own
@@ -259,6 +285,10 @@ SPEED_T_TIMED = 3.0
 # each window's probe of 3 + 3 dispatches (the CLI's 20 + 20 took 680 s
 # for the 24 runs)
 ZOO_PROBE_ITERS = 3
+# the dataset shapes of phases 19 and 20's speed runs: AutoPET-II's alone
+# since phase 21 came (the three took ~180 s of each phase; the Hecktor and
+# BraTS figures measured before stand in PERF.md)
+ZOO_SPEED_DATASETS = ("AutoPETII",)
 
 
 def taps_in_bounds(s, k):
@@ -900,17 +930,8 @@ def trainer_steady_run(card, zero_counts, counts, per_step, work, published,
     from veloxseg_torch.utils.runtime import rotation_range_from_degrees
     from chip_measure import trace_split
 
-    cases = os.path.dirname(src_globs["label_path"])
-    root = os.path.join(work, "steady_cases")
-    os.makedirs(root)
-    names = sorted(os.listdir(cases))
-    for i in range(n_cases):
-        for name in names:
-            if name.startswith(f"case{i % n_src:03d}"):
-                os.symlink(os.path.join(cases, name), os.path.join(
-                    root, f"case{i:03d}" + name[len("case000"):]))
-    globs = {k: os.path.join(root, os.path.basename(v))
-             for k, v in src_globs.items()}
+    globs = linked_cases(src_globs, os.path.join(work, "steady_cases"),
+                         n_src, n_cases)
     trace_dir = os.path.join(work, "steady", "trace")
     cfg = dict(published, dataset_path={"AutoPETII": globs}, epochs=2,
                save_path=os.path.join(work, "steady", "save"),
@@ -996,7 +1017,7 @@ def trainer_steady_run(card, zero_counts, counts, per_step, work, published,
         for xy in loader:           # the first pass fills the cache
             if len(batches) < 2:
                 batches.append(device_put(xy, dev))
-        step = train_step_fn(CompositeLoss(cfg, state.model.cfg), dev,
+        step = train_step_fn(CompositeLoss("VeloxSeg", cfg, num_modal=state.model.cfg.num_modalities), dev,
                              deep_metric_heads=True,
                              compute_dtype=torch.bfloat16)
         gen = torch.Generator(device=dev).manual_seed(0)
@@ -1624,7 +1645,8 @@ def zoo_phase(card, zero_counts, counts, configs, patches, spacing,
     (``.to(bf16)``, as the speed CLI runs them), the card's against the
     CPU's fp32 forward relative to the CPU's own bf16-to-fp32 distance
     (``ZOO_BF16_MAX``). No kernel of the port may launch. Then ``speed_main`` over ``names`` at
-    the three dataset shapes (``SPEED_T_TIMED``, ``ZOO_PROBE_ITERS``), and
+    the shapes of ``ZOO_SPEED_DATASETS`` (``SPEED_T_TIMED``,
+    ``ZOO_PROBE_ITERS``), and
     the serving CLI on ``serve`` from a ``.pth`` the port wrote, over one
     ``small`` AutoPET-II case, card against ``run_inference(...,
     device="cpu")`` by phase 13's rule, with each device's float64 forward
@@ -1712,7 +1734,7 @@ def zoo_phase(card, zero_counts, counts, configs, patches, spacing,
 
     speed_main.T_TIMED = SPEED_T_TIMED
     speed_main.PROBE_ITERS = ZOO_PROBE_ITERS
-    for dataset in speed_main.INPUT_SIZE:
+    for dataset in ZOO_SPEED_DATASETS:
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
@@ -1849,6 +1871,390 @@ def zoo_phase(card, zero_counts, counts, configs, patches, spacing,
     return report
 
 
+# -- phase 21: zoo training -------------------------------------------------
+
+# the zoo models the port trains (train/trainer.TRAINABLE but VeloxSeg)
+ZOO_TRAIN = ("U-RWKV", "UNet", "MedNeXt", "SwinUNETR", "U-KAN")
+# the step card against CPU: 64³ (a depth cut: the CPU's steps set the
+# phase's time), B = 2 but U-KAN's 4 (its deepest level's batch norms over
+# few values, as tests/test_torch_zoo_train.py runs it)
+ZOO_TRAIN_SIZE = 64
+ZOO_TRAIN_BATCH = {"U-KAN": 4}
+
+
+def zoo_grads_close(what, card, cpu, cpu64):
+    """Card fp32 gradients against the CPU's, each tensor within 1e-4 of
+    its own largest magnitude plus 1e-5 of the model's largest gradient
+    (phase [8]'s rule) plus 4x the CPU's own fp32 distance from ``cpu64``,
+    the CPU's float64 step's gradients: sums over 64³ voxels that cancel
+    (the first convs' weights) which fp32 cannot give to 1e-4;
+    ``tests/test_torch_zoo_train.py`` holds the port against JAX the same
+    way. Returns (the worst tensor's share of its tolerance, its key, the
+    card's distance from the float64 gradients over all tensors relative
+    to the CPU's), or raises."""
+    g_all = max(float(g.abs().max()) for g in cpu.values())
+    worst, worst_key = 0.0, None
+    d_card = d_cpu = 0.0
+    for k, r in cpu.items():
+        err = float((card[k] - r).abs().max())
+        tol = (1e-4 * float(r.abs().max()) + 1e-5 * g_all
+               + 4.0 * float((r - cpu64[k]).abs().max()))
+        d_card += float(((card[k] - cpu64[k]) ** 2).sum())
+        d_cpu += float(((r - cpu64[k]) ** 2).sum())
+        if err / tol > worst:
+            worst, worst_key = err / tol, k
+    if not worst <= 1.0:
+        raise AssertionError(f"{what}: card vs CPU gradient of {worst_key}: "
+                             f"{worst:.3f} of its tolerance")
+    return worst, worst_key, math.sqrt(d_card / d_cpu)
+
+
+def cpu_bf16_conv_backward_in_fp32():
+    """A dispatch mode under which a bf16 convolution's backward on the CPU
+    runs in fp32 on the same bf16 operands and rounds its gradients to
+    bf16, as a bf16 convolution accumulates in fp32 and rounds its output:
+    the same function up to the order of the sums. PyTorch 2.11's CPU bf16
+    conv3d weight gradient at a 2³ level (SwinUNETR's ``encoder10``,
+    U-KAN's ``decoder1`` at 64³) returns uninitialized values (1e30, inf,
+    NaN) in most runs, whatever the oneDNN ISA or the thread count
+    (ROADMAP.md §3); the forward repeats."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    conv_bwd = torch.ops.aten.convolution_backward.default
+
+    class Fp32ConvBackward(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is conv_bwd and args[0].dtype == torch.bfloat16 \
+                    and args[0].device.type == "cpu":
+                outs = func(*(a.float() for a in args[:3]), *args[3:],
+                            **(kwargs or {}))
+                return tuple(None if o is None else o.to(torch.bfloat16)
+                             for o in outs)
+            return func(*args, **(kwargs or {}))
+
+    return Fp32ConvBackward()
+
+
+def zoo_train_steps(card, zero_counts, counts, all_models,
+                    size=ZOO_TRAIN_SIZE, names=ZOO_TRAIN):
+    """Phase 21: each model's train step (``train_state.train_step_fn``,
+    AdamW as published) from one seed's weights on one seeded batch of
+    ``size``³ (B = 2, U-KAN 4), on the card and on the CPU. In fp32 by
+    ``zoo_grads_close`` with the CPU's float64 step (the model and input
+    in float64) as the yardstick of fp32's own error, the loss within
+    1e-5. In bf16, as the trainer steps, by ``chip_measure.STEP_BOUND``
+    against the CPU's bf16 step, whose loss term is dropped where the
+    CPU's bf16 loss lies within 1e-5 of its fp32 loss (a loss averaged
+    over 64³ voxels that does not see bf16). The CPU's bf16 step runs its
+    convolutions' backward under :func:`cpu_bf16_conv_backward_in_fp32`
+    and must repeat bit for bit in two runs. U-RWKV's steps on the card
+    launch K6 and K6b 6 times each, the others no kernel of the port."""
+    import numpy as np
+    import torch
+    from veloxseg_torch.models.registry import load_model
+    from veloxseg_torch.train.loss import CompositeLoss
+    from veloxseg_torch.train.optim import build_optimizer
+    from veloxseg_torch.train.train_state import (create_train_state,
+                                                  train_step_fn)
+    opt = {"lr": 2.5e-4, "weight_decay": 0.01}
+    loss_cfg = {"deep_Loss_weight": [1, 1, 1, 1]}
+    out = {}
+    for name in names:
+        t0 = time.perf_counter()
+        b = ZOO_TRAIN_BATCH.get(name, 2)
+        rng = np.random.default_rng(21)
+        x = torch.from_numpy(rng.standard_normal(
+            (b, size, size, size, 2)).astype(np.float32))
+        y = torch.from_numpy((rng.random((b, size, size, size)) < 0.3)
+                             .astype(np.int64))
+        cfg = {name: dict(all_models[name])}
+        if "img_size" in cfg[name]:          # U-KAN's, as its entry holds
+            cfg[name]["img_size"] = [size] * 3
+        loss_obj = CompositeLoss(name, loss_cfg)
+        runs, launches, secs = {}, {}, {}
+
+        def one_step(key, dev, dt):
+            model = load_model(name, cfg, device=dev, seed=0,
+                               input_size=(size,) * 3)
+            state = create_train_state(model, build_optimizer(
+                "adamw", opt, model.parameters()))
+            step = train_step_fn(loss_obj, dev, with_metrics=False,
+                                 compute_dtype=dt)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                zero_counts()
+            t1 = time.perf_counter()
+            if dev == "cpu" and dt is not None:
+                with cpu_bf16_conv_backward_in_fp32():
+                    state, aux = step(state, x, y, None)
+            else:
+                state, aux = step(state, x, y, None)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches[key] = {n: c for n, c in counts().items() if c}
+            secs[key] = time.perf_counter() - t1
+            return (float(aux["loss"]), {
+                k: p.grad.detach().double().cpu()
+                for k, p in model.named_parameters()})
+
+        for key, dev, dt in (("card32", "cuda", None), ("cpu32", "cpu", None),
+                             ("card16", "cuda", torch.bfloat16),
+                             ("cpu16", "cpu", torch.bfloat16)):
+            runs[key] = one_step(key, dev, dt)
+        again = one_step("cpu16_again", "cpu", torch.bfloat16)
+        if not (again[0] == runs["cpu16"][0] and all(
+                torch.equal(again[1][k], g)
+                for k, g in runs["cpu16"][1].items())):
+            raise AssertionError(f"{name}: the CPU's bf16 step does not "
+                                 f"repeat bit for bit")
+        del again
+        # the CPU's step in float64, the yardstick of fp32's own error (the
+        # loss's reductions stay fp32, as the loss casts)
+        model = load_model(name, cfg, device="cpu", seed=0,
+                           input_size=(size,) * 3).double().train()
+        t1 = time.perf_counter()
+        loss64 = loss_obj(model(x.double()), y, sr_labels=x.double())
+        loss64.backward()
+        secs["cpu64"] = time.perf_counter() - t1
+        g64 = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+        del model, loss64
+        want = {"wkv": 6, "wkv_bwd": 6} if name == "U-RWKV" else {}
+        if launches["card32"] != want or launches["card16"] != want:
+            raise AssertionError(f"{name} train step launches {launches}, "
+                                 f"want {want} in each")
+        (l32, g32), (lc, gc) = runs["cpu32"], runs["card32"]
+        l16 = runs["cpu16"][0]
+        if not all(math.isfinite(v) for v, _ in runs.values()) \
+                or not abs(lc - l32) <= 1e-5 * abs(l32):
+            raise AssertionError(f"{name} step losses "
+                                 f"{ {k: v for k, (v, _) in runs.items()} }")
+        worst, worst_key, ratio = zoo_grads_close(
+            f"{name} fp32 step", gc, g32, g64)
+        d = step_distances(runs["card16"], runs["cpu16"], runs["cpu32"])
+        bad = step_bound_violations(d)
+        loss_sees_bf16 = abs(l16 - l32) >= 1e-5 * abs(l32)
+        if not loss_sees_bf16:
+            bad = [k for k in bad if k != "loss"]
+        if bad:
+            raise AssertionError(
+                f"{name} bf16 step card vs CPU outside {STEP_BOUND} in "
+                f"{bad}: {d}; losses card {runs['card16'][0]}, CPU "
+                f"{l16}, CPU fp32 {l32}")
+        print(f"[21] {card} | {name} train step ({b}, {size}³, 2) card vs "
+              f"CPU: fp32 loss {lc:.6f} vs {l32:.6f} (rel "
+              f"{abs(lc - l32) / abs(l32):.2e}, tol 1e-5); {len(g32)} "
+              f"gradients, worst {worst:.3f} of the tolerance ({worst_key}; "
+              f"with 4x the CPU's own fp32 distance from its float64 step, "
+              f"the card's all together {ratio:.3f}x the CPU's) | bf16 "
+              f"relative to the CPU's bf16-to-fp32 distance (the CPU's "
+              f"repeating bit for bit): loss {d['loss']:.4f} (card "
+              f"{runs['card16'][0]:.6f}, CPU {l16:.6f}"
+              + ("" if loss_sees_bf16 else
+                 ", not held: the CPU's bf16 loss within 1e-5 of its fp32")
+              + f"), gradients to its bf16 {d['grads_to_bf16']:.4f}, to "
+              f"its fp32 {d['grads_to_fp32']:.4f}, worst tensor "
+              f"{d['tensor_to_bf16']:.4f} ({d['tensor']}) | launches per "
+              f"step {launches['card32'] or 'none'} | s: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+              + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+        out[name] = dict(loss=[lc, l32], worst_ratio=worst,
+                         worst_param=worst_key, global_ratio=ratio,
+                         bf16=d, bf16_loss_held=loss_sees_bf16,
+                         launches=launches, step_s=secs)
+        del runs
+    return out
+
+
+def linked_cases(src_globs, root, n_src, n_cases):
+    """``n_cases`` cases under ``root``, links to the ``n_src`` that
+    ``write_cases`` wrote at ``src_globs``; returns their globs."""
+    cases = os.path.dirname(src_globs["label_path"])
+    os.makedirs(root)
+    names = sorted(os.listdir(cases))
+    for i in range(n_cases):
+        for name in names:
+            if name.startswith(f"case{i % n_src:03d}"):
+                os.symlink(os.path.join(cases, name), os.path.join(
+                    root, f"case{i:03d}" + name[len("case000"):]))
+    return {k: os.path.join(root, os.path.basename(v))
+            for k, v in src_globs.items()}
+
+
+def zoo_trainer_cli_phase(card, zero_counts, counts, model_config_path,
+                          train_config_path, shape=(112, 112, 104),
+                          n_src=10, n_cases=30, names=ZOO_TRAIN):
+    """Phase 21: ``cli.train_main`` on the card for the zoo models the port
+    trains, at the published AutoPET-II model and train configs (96³
+    patches, 4 a step, bf16, AdamW 2.5e-4) but for the dataset paths, the
+    epochs, the save and log paths and ``profile_dir``: ``n_cases``
+    synthetic cases (links to ``n_src`` written as phase [14] writes
+    them; 18 train, 9 steps an epoch). U-RWKV: 2 epochs with validation
+    and checkpoints each, launches K6b 6 per step and K6 6 per step and per
+    validation batch; then resume from ``0.pth`` and serve ``val_best.pth``
+    through ``cli.test_main`` on the test split. The others: one epoch at
+    the published intervals (no validation). Per run: the median step's
+    stream span, the trace's device ms per step and idle share (steps 3-9
+    of epoch 1, ``profile_dir``), peak memory."""
+    import tempfile
+
+    import torch
+
+    from veloxseg_torch.cli.test_main import main as serve_main
+    from veloxseg_torch.cli.train_main import main as train_main
+    from veloxseg_torch.core.config import load_json_config
+    from veloxseg_torch.train.optim import EpochScheduler
+    from chip_measure import trace_split
+
+    published = load_json_config(train_config_path)
+    out = {}
+    with tempfile.TemporaryDirectory() as work:
+        t0 = time.perf_counter()
+        src = write_cases(os.path.join(work, "src"), "AutoPETII", shape,
+                          n_src, seed=61,
+                          spacing=tuple(published["spacing"]["AutoPETII"]))
+        globs = linked_cases(src, os.path.join(work, "cases"), n_src,
+                             n_cases)
+        out["write_cases_s"] = time.perf_counter() - t0
+
+        def run(name, tag, extra_argv=(), **over):
+            cfg = dict(published, dataset_path={"AutoPETII": globs},
+                       save_path=os.path.join(work, name, "save"),
+                       log_path=os.path.join(work, name, f"logs_{tag}"),
+                       **over)
+            path = os.path.join(work, f"{name}_{tag}.json")
+            with open(path, "w") as f:
+                json.dump(cfg, f)
+            argv = ["--dataset_name", "AutoPETII", "--model_name", name,
+                    "--model_config", model_config_path, "--train_config",
+                    path, *extra_argv]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t1 = time.perf_counter()
+            res = train_main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            date = os.path.basename(res["save_path"])
+            with open(os.path.join(cfg["log_path"],
+                                   f"AutoPETII_{name}_{date}.log")) as f:
+                log = f.read()
+            return dict(res=res, cfg=cfg, argv=argv, log=log, wall_s=wall,
+                        epochs=split_lines(log),
+                        launches={n: c for n, c in counts().items() if c},
+                        peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+        def figures(name, r, trace_dir):
+            tr = trace_split(trace_dir)
+            n_steps = sum(e["steps"] for e in r["epochs"])
+            fig = dict(
+                steps=n_steps, epoch_s=[e["epoch_s"] for e in r["epochs"]],
+                step_median_ms=[e["step_median_ms"] for e in r["epochs"]],
+                patches_per_s=[e["patches_per_s"] for e in r["epochs"]],
+                trace_steps=tr["steps"],
+                device_ms=tr["device_ms"] / tr["steps"],
+                wall_ms=tr["wall_ms"] / tr["steps"],
+                idle_share=1 - tr["device_ms"] / tr["wall_ms"],
+                peak_gb=r["peak_gb"], wall_s=r["wall_s"],
+                launches=r["launches"],
+                losses=[float(v) for v in re.findall(
+                    r"Training Loss:([\d.]+)", r["log"])])
+            if tr["steps"] < 5 or len(fig["losses"]) != n_steps \
+                    or not all(math.isfinite(v) for v in fig["losses"]):
+                raise AssertionError(f"{name} trainer CLI: trace {tr}, "
+                                     f"losses {fig['losses']}")
+            per = {n: c / n_steps for n, c in r["launches"].items()}
+            print(f"[21] {card} | {name} train_main (AutoPETII, published "
+                  f"configs, bf16): {len(r['epochs'])} epoch(s) of "
+                  f"{r['epochs'][0]['steps']} steps of 4 patches 96³ in "
+                  f"{r['wall_s']:.1f} s | step median "
+                  + ", ".join(f"{v:.3f}" for v in fig["step_median_ms"])
+                  + f" ms (stream span) | trace of {tr['steps']} steps: "
+                  f"device {fig['device_ms']:.3f} ms/step, wall "
+                  f"{fig['wall_ms']:.3f} ms/step, idle share "
+                  f"{fig['idle_share']:.3f} | peak {fig['peak_gb']:.2f} GB | "
+                  f"launches per step {per or 'none'} | losses "
+                  f"{fig['losses'][0]:.4f} ... {fig['losses'][-1]:.4f}",
+                  flush=True)
+            return fig
+
+        for name in names:
+            trace_dir = os.path.join(work, name, "trace")
+            if name != "U-RWKV":
+                r = run(name, "main", epochs=1, profile_dir=trace_dir)
+                if r["launches"] or r["epochs"][0]["val_batches"]:
+                    raise AssertionError(f"{name} trainer CLI: launches "
+                                         f"{r['launches']}, epochs "
+                                         f"{r['epochs']}")
+                out[name] = figures(name, r, trace_dir)
+                continue
+            r = run(name, "main", epochs=2, val_interval=1,
+                    save_model_interval=1, profile_dir=trace_dir)
+            n_steps = sum(e["steps"] for e in r["epochs"])
+            n_val = sum(e["val_batches"] for e in r["epochs"])
+            want = {"wkv": 6 * (n_steps + n_val), "wkv_bwd": 6 * n_steps}
+            if len(r["epochs"]) != 2 or not n_val or r["launches"] != want:
+                raise AssertionError(f"U-RWKV trainer CLI: launches "
+                                     f"{r['launches']}, want {want}; epochs "
+                                     f"{r['epochs']}")
+            fig = figures(name, r, trace_dir)
+            save_dir = r["res"]["save_path"]
+            files = sorted(f for f in os.listdir(save_dir)
+                           if f.endswith(".pth"))
+            if files != ["0.pth", "1.pth", "train_best.pth",
+                         "val_best.pth"]:
+                raise AssertionError(f"U-RWKV trainer CLI checkpoints "
+                                     f"{files}")
+            # resume from 0.pth: epoch 2 again, at its learning rate
+            ckpt0 = os.path.join(save_dir, "0.pth")
+            saved = float(torch.load(ckpt0, weights_only=True)[
+                "optimizer"]["state"][0]["step"])
+            r2 = run(name, "resume", ("--checkpoint_path", ckpt0), epochs=2,
+                     val_interval=1, save_model_interval=1)
+            optim = r2["res"]["state"].optimizer
+            lr = optim.param_groups[0]["lr"]
+            want_lr = EpochScheduler(r2["cfg"]).learning_rate(1)
+            now = float(optim.state_dict()["state"][0]["step"])
+            per_epoch = r["epochs"][0]["steps"]
+            if "Resumed from" not in r2["log"] or lr != want_lr \
+                    or saved != per_epoch or now != saved + per_epoch:
+                raise AssertionError(f"U-RWKV resume: lr {lr} (want "
+                                     f"{want_lr}), optimizer step {saved} "
+                                     f"-> {now}")
+            # serve the run's val_best.pth on the test split
+            test_json = os.path.join(work, "test.json")
+            with open(test_json, "w") as f:
+                json.dump({"result_metric_path": os.path.join(work,
+                                                              "metric"),
+                           "sliding_window": {"overlap": 0.25}}, f)
+            zero_counts()
+            t1 = time.perf_counter()
+            rows = serve_main(["--dataset_name", "AutoPETII", "--model_name",
+                               name, "--model_config", model_config_path,
+                               "--train_config", r["argv"][-1],
+                               "--test_config", test_json,
+                               "--checkpoint_dir", save_dir])
+            serve_s = time.perf_counter() - t1
+            served = {n: c for n, c in counts().items() if c}
+            n_test = n_cases - int((r["cfg"]["train_rate"]
+                                    + r["cfg"]["val_rate"]) * n_cases)
+            check_csv(os.path.join(work, "metric", "AutoPETII_U-RWKV.csv"),
+                      BINARY_COLUMNS[:-1], n_test)
+            if set(served) != {"wkv"}:
+                raise AssertionError(f"U-RWKV served launches {served}")
+            print(f"[21] {card} | U-RWKV resumed from 0.pth at epoch 2: lr "
+                  f"{lr:.3e} (the scheduler's), optimizer step {saved:.0f} "
+                  f"-> {now:.0f} ({r2['wall_s']:.1f} s) | val_best.pth "
+                  f"served by cli.test_main on {len(rows)} test cases: dice "
+                  + ", ".join(f"{row['dice']:.4f}" for row in rows)
+                  + f" ({serve_s:.1f} s, launches {served})", flush=True)
+            out[name] = dict(fig, launches_total=r["launches"],
+                             n_val=n_val, resume_s=r2["wall_s"],
+                             serve_s=serve_s, served_launches=served)
+            del r, r2, optim
+            torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import argparse
     import torch
@@ -1924,6 +2330,41 @@ def main() -> int:
     big_batch = 16                               # bench.py's B
 
     lap(2)
+    serving = {"pwa_attention": pwa_attention.window_attention,
+               "jlc_stage1": fused_jlc.jlc_stage1,
+               "jlc_stage2": fused_jlc.jlc_stage2}
+    wrappers = dict(serving, **{
+        "pwa_attention_train_fwd": pwa_attention.window_attention_train_fwd,
+        "pwa_attention_train_bwd": pwa_attention.window_attention_train_bwd,
+        "pwa_attention_train_fwd_long":
+            pwa_attention.window_attention_train_fwd_long,
+        "pwa_attention_train_bwd_long":
+            pwa_attention.window_attention_train_bwd_long,
+        "jlc_stage1_bwd": fused_jlc.jlc_stage1_bwd,
+        "jlc_branch_wgrad": fused_jlc.jlc_branch_wgrad,
+        "jlc_stage2_bwd": fused_jlc.jlc_stage2_bwd,
+        "wkv": wkv.wkv, "wkv_bwd": wkv.wkv_bwd})
+    # each kernel's count: its wrapper's ``launches`` (the fp32 form) or,
+    # for the bf16 forms, ``launches_bf16``
+    counters = {n: (w, "launches") for n, w in wrappers.items()}
+    counters.update({f"{n}_bf16": (wrappers[n], "launches_bf16") for n in (
+        "pwa_attention", "pwa_attention_train_fwd", "pwa_attention_train_bwd",
+        "pwa_attention_train_fwd_long", "pwa_attention_train_bwd_long",
+        "jlc_stage1", "jlc_stage2", "jlc_stage1_bwd", "jlc_branch_wgrad",
+        "jlc_stage2_bwd")})
+
+    def zero_counts():
+        for w, attr in counters.values():
+            setattr(w, attr, 0)
+
+    def counts():
+        return {n: getattr(w, attr) for n, (w, attr) in counters.items()}
+
+    # -- phase 21, part 1: the zoo's train steps card vs CPU ------------------
+    report["zoo_train_steps"] = zoo_train_steps(card, zero_counts, counts,
+                                                all_models)
+    torch.cuda.empty_cache()
+    lap("21_steps")
     # -- phase 3: K1 ----------------------------------------------------------
     def k1_shapes(cfg, levels, tiles=tiles):
         size = [s // cfg["patch_size"] for s in cfg["input_size"]]
@@ -1949,7 +2390,7 @@ def main() -> int:
     units, errs = {}, {}
 
     def record(kname, shape_name, weight, n_bytes, n_flop, err, ms,
-               plain_ms, library_ms, unit="serving", tc_flop=0):
+               plain_ms, library_ms, unit="serving", tc_flop=0, tag=3):
         """``weight``: calls per ``unit`` at this shape (0: checked and
         timed, but in no unit's sums); ``tc_flop``: products of bf16
         operands, bounded at the tensor cores' rate."""
@@ -1961,7 +2402,7 @@ def main() -> int:
                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=library_ms)
         report["shapes"].append(row)
-        print(f"[3] {kname} {shape_name}: max abs err {err[0]:.3e} rel "
+        print(f"[{tag}] {kname} {shape_name}: max abs err {err[0]:.3e} rel "
               f"{err[1]:.3e} | kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
               f"bound {b_ms:.4f} ms ({b_by})"
               + (f" library {library_ms:.4f} ms" if library_ms is not None
@@ -2744,35 +3185,6 @@ def main() -> int:
 
     lap(3)
     # -- phase 4: full-width eval forward, card vs CPU -----------------------
-    serving = {"pwa_attention": pwa_attention.window_attention,
-               "jlc_stage1": fused_jlc.jlc_stage1,
-               "jlc_stage2": fused_jlc.jlc_stage2}
-    wrappers = dict(serving, **{
-        "pwa_attention_train_fwd": pwa_attention.window_attention_train_fwd,
-        "pwa_attention_train_bwd": pwa_attention.window_attention_train_bwd,
-        "pwa_attention_train_fwd_long":
-            pwa_attention.window_attention_train_fwd_long,
-        "pwa_attention_train_bwd_long":
-            pwa_attention.window_attention_train_bwd_long,
-        "jlc_stage1_bwd": fused_jlc.jlc_stage1_bwd,
-        "jlc_branch_wgrad": fused_jlc.jlc_branch_wgrad,
-        "jlc_stage2_bwd": fused_jlc.jlc_stage2_bwd,
-        "wkv": wkv.wkv})
-    # each kernel's count: its wrapper's ``launches`` (the fp32 form) or,
-    # for the bf16 forms, ``launches_bf16``
-    counters = {n: (w, "launches") for n, w in wrappers.items()}
-    counters.update({f"{n}_bf16": (wrappers[n], "launches_bf16") for n in (
-        "pwa_attention", "pwa_attention_train_fwd", "pwa_attention_train_bwd",
-        "pwa_attention_train_fwd_long", "pwa_attention_train_bwd_long",
-        "jlc_stage1", "jlc_stage2", "jlc_stage1_bwd", "jlc_branch_wgrad",
-        "jlc_stage2_bwd")})
-
-    def zero_counts():
-        for w, attr in counters.values():
-            setattr(w, attr, 0)
-
-    def counts():
-        return {n: getattr(w, attr) for n, (w, attr) in counters.items()}
 
     model, cfg = build_veloxseg(cfg_dict, device="cuda", seed=0)
     x96 = torch.randn(1, 96, 96, 96, 2, generator=torch.Generator()
@@ -2887,7 +3299,8 @@ def main() -> int:
     lap(5)
     # -- phase 6: the train step, full width, as published -----------------
     del model, first, seg
-    loss_obj = CompositeLoss(train_cfg, cfg)
+    loss_obj = CompositeLoss("VeloxSeg", train_cfg,
+                             num_modal=cfg.num_modalities)
     opt_cfg = train_cfg["optimizer"]
 
     def make_state(model_cfg, device, seed):
@@ -3060,7 +3473,8 @@ def main() -> int:
     yf = (xf[..., 0] > 1.0).long()
     xf_dev, yf_dev = xf.to(dev), yf.to(dev)
     # bench.py:146-151: the same loss weights and AdamW as train_cfg's
-    flag_loss = CompositeLoss(train_cfg, fcfg)
+    flag_loss = CompositeLoss("VeloxSeg", train_cfg,
+                              num_modal=fcfg.num_modalities)
     want_f = {"jlc_stage1": 13, "jlc_stage2": 13, "jlc_stage1_bwd": 13,
               "jlc_branch_wgrad": 13, "jlc_stage2_bwd": 13,
               "pwa_attention_train_fwd": 3,
@@ -3433,6 +3847,95 @@ def main() -> int:
           flush=True)
 
     lap(20)
+    # -- phase 21, part 2: K6b and the trainer CLI on the zoo --------------
+    torch.cuda.empty_cache()
+    # K6b at U-RWKV's train shapes: (4, 216, 128) at AutoPET-II and BraTS
+    # (6 launches a step, the unit "urwkv_train"), (4, 256, 128) at
+    # Hecktor; w = decay / T as the model passes it (of both signs) and a
+    # seeded w of ±1, where the state's log-max rescaling runs at each step
+    k6b_cases = [(216, "model", 6), (216, "wide", 0), (256, "model", 0)]
+    report["wkv_bwd"] = []
+    route_ms = None
+    for t_b, w_kind, weight in k6b_cases:
+        decay, first, *_ = _fancy_init(c6)
+        if w_kind == "model":
+            wb = torch.from_numpy(decay / t_b).to(dev)
+        else:
+            wb = (torch.rand(c6, generator=gen) * 2 - 1).to(dev)
+        ub = torch.from_numpy(first / t_b).to(dev)
+        kb, vb, gb = (randn(b6, t_b, c6) for _ in range(3))
+        got = wkv.wkv_bwd(wb, ub, kb, vb, gb)
+        again = wkv.wkv_bwd(wb, ub, kb, vb, gb)
+        ref = wkv.wkv_bwd_plain(wb, ub, kb, vb, gb)
+        torch.cuda.synchronize()
+        errs_b = []
+        for name_g, g, g2, r in zip(("gw", "gu", "gk", "gv"), got, again,
+                                    ref):
+            scale = float(r.abs().max())
+            e = float((g - r).abs().max())
+            # fp32: the same two sweeps, expf and fused multiply-adds on
+            # the card, the batch sums in the same order
+            if not e <= 1e-4 * scale:
+                raise AssertionError(f"K6b {name_g} ({b6},{t_b},{c6}) "
+                                     f"{w_kind}: {e:.3e} on scale "
+                                     f"{scale:.3e}")
+            if not torch.equal(g, g2):
+                raise AssertionError(f"K6b {name_g} differs on repeat")
+            errs_b.append((e, e / scale))
+        err_b = (max(e for e, _ in errs_b), max(r for _, r in errs_b))
+        ms_b = cuda_ms(lambda: wkv.wkv_bwd(wb, ub, kb, vb, gb))
+        for _ in range(3):  # the profiler drops a window's kernels at times
+            dev_ms_b = device_ms(lambda: wkv.wkv_bwd(wb, ub, kb, vb, gb))
+            if dev_ms_b > 0:
+                break
+        # the entry point launched back to back into preallocated outputs
+        # (no allocation, no count): the host issues faster than the card
+        # runs it, so events give the device's rate
+        lib6, out6 = _cuda.lib("wkv"), [torch.empty_like(kb) for _ in "kv"]
+        part6 = torch.empty(2, b6, c6, device=dev)
+        gwu6 = torch.empty(2, c6, device=dev)
+        raw_b = cuda_ms(lambda: lib6.vs_wkv_bwd(
+            *(t.data_ptr() for t in (wb, ub, kb, vb, gb, *out6, part6,
+                                     gwu6)),
+            b6, t_b, c6, wkv.wkv_bwd_channels(t_b), _cuda.stream_ptr(dev)),
+            200)
+        plain_b = cuda_ms(lambda: wkv.wkv_bwd_plain(wb, ub, kb, vb, gb), 3)
+        # the torch-op route: autograd through K6's chunked decomposition
+        # in torch ops (not one call), its backward alone
+        leaves = [t.clone().requires_grad_() for t in (wb, ub, kb, vb)]
+        yb = wkv.wkv_chunked_plain(*leaves, wkv.wkv_launch(t_b).chunks)
+        route = cuda_ms(lambda: torch.autograd.grad(
+            yb, leaves, gb, retain_graph=True), 3)
+        del yb, leaves
+        if weight:
+            route_ms = route
+        record("wkv_bwd", f"({b6},{t_b},{c6}) w {w_kind}", weight,
+               *wkv_bwd_work(b6, t_b, c6), err_b, ms_b, plain_b, None,
+               "urwkv_train", tag=21)
+        print(f"[21] K6b ({b6},{t_b},{c6}) w {w_kind}: bit-identical on "
+              f"repeat | device {dev_ms_b:.4f} ms (profiler), "
+              f"{raw_b:.4f} ms a raw launch (events) | the torch-op route "
+              f"(autograd through wkv_chunked_plain, its backward) "
+              f"{route:.3f} ms", flush=True)
+        report["wkv_bwd"].append(dict(
+            T=t_b, w=w_kind, max_abs_err=err_b[0], max_rel_err=err_b[1],
+            ms=ms_b, device_ms=dev_ms_b, raw_launch_ms=raw_b,
+            plain_ms=plain_b,
+            torch_op_route_ms=route))
+    # K6 at the train step's shape is phase 3's (4, 216, 128)
+    units.setdefault("urwkv_train", {})["wkv"] = dict(
+        units["urwkv_serving"]["wkv"])
+    report["zoo_trainer"] = zoo_trainer_cli_phase(
+        card, zero_counts, counts,
+        os.path.join(ROOT, "config", "models_config_autopetii.json"),
+        os.path.join(ROOT, "config", "train_config_bs4.json"))
+    ztr = report["zoo_trainer"]["U-RWKV"]
+    urwkv_train_launches = {n: ztr["launches_total"].get(n, 0)
+                            for n in counters}
+    print(f"[21] zoo training phase {time.perf_counter() - t_lap[0]:.1f} s",
+          flush=True)
+
+    lap(21)
     # -- phase 15 -----------------------------------------------------------
     meta = {
         "pwa_attention": ("veloxseg_torch/csrc/pwa_attention_train.cu",
@@ -3460,6 +3963,8 @@ def main() -> int:
         "jlc_stage2_bwd": ("veloxseg_torch/csrc/jlc_stage2.cu",
                            "veloxseg_tpu/ops/fused_jlc.py:194"),
         "wkv": ("veloxseg_torch/csrc/wkv.cu", "veloxseg_tpu/ops/wkv.py:77"),
+        "wkv_bwd": ("veloxseg_torch/csrc/wkv.cu",
+                    "veloxseg_tpu/ops/wkv.py:161"),
     }
     # the bf16 forms: the same sources built with -DVS_BF16
     bf16_forms = ("pwa_attention", "pwa_attention_train_fwd",
@@ -3474,6 +3979,7 @@ def main() -> int:
            "train_flagship_bf16": f"bf16 train step, B={big_batch}, "
                                   f"flagship 128³",
            "urwkv_serving": "U-RWKV forward, 4 tiles, 96³",
+           "urwkv_train": "U-RWKV train step, B=4, 96³",
            "speed_autopet": f"bf16 forward, B={speed_b}, AutoPET-II 96³ "
                             f"(speed CLI)"}
     headline = {"pwa_attention": "serving", "jlc_stage1": "serving",
@@ -3483,7 +3989,7 @@ def main() -> int:
                 "jlc_stage2_bwd": "train_96",
                 "pwa_attention_train_fwd_long": "train_flagship",
                 "pwa_attention_train_bwd_long": "train_flagship",
-                "wkv": "urwkv_serving"}
+                "wkv": "urwkv_serving", "wkv_bwd": "urwkv_train"}
     headline.update({f"{n}_bf16": "train_96_bf16" for n in bf16_forms})
     headline.update({"pwa_attention_bf16": "speed_autopet",
                      "jlc_stage2_bf16": "speed_autopet",
@@ -3520,7 +4026,8 @@ def main() -> int:
                                trainer_train),
              "trainer_validation": (("serving",), trainer_val),
              "speed_cli": (("speed_autopet", "speed_urwkv"), speed_launches),
-             "extern_cli": (("serving",), extern_launches)}
+             "extern_cli": (("serving",), extern_launches),
+             "urwkv_trainer_cli": (("urwkv_train",), urwkv_train_launches)}
     line = {"kernels": []}
     for n, (src, replaces) in meta.items():
         k = units[headline[n]][n]
@@ -3544,6 +4051,9 @@ def main() -> int:
             bound_by="bytes" if k["tb"] >= k["to"] else "operations",
             library_ms=k["lib"], excess_ms=sum(by_path.values()),
             excess_ms_by_path=by_path))
+    for k in line["kernels"]:
+        if k["name"] == "wkv_bwd":    # no one PyTorch call computes it
+            k["torch_op_route_ms"] = route_ms
     report["units"] = units
     missing = set(meta) - {k["name"] for k in line["kernels"]
                            if k["launches"] > 0}

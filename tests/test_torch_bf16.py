@@ -218,7 +218,9 @@ def test_reconstruction_target_is_the_input_as_computed(dtype):
         model.parameters(), lr=0.0))
     x, y = ref.batch(2)
     xt = torch.from_numpy(x)
-    tts.train_step_fn(Spy(ref.TRAIN_CFG, tcfg), "cpu", with_metrics=False,
+    tts.train_step_fn(Spy("VeloxSeg", ref.TRAIN_CFG,
+                          num_modal=tcfg.num_modalities), "cpu",
+                      with_metrics=False,
                       compute_dtype=dtype)(state, xt,
                                            torch.from_numpy(y).long(), None)
     assert seen["sr"].dtype == torch.float32

@@ -143,7 +143,8 @@ def test_flagship_windows_train_step_matches_jax():
 
     state = create_train_state(model, toptim.build_optimizer(
         "adamw", OPT, model.parameters()))
-    step = train_step_fn(tloss.CompositeLoss(TRAIN_CFG, tcfg), device="cpu")
+    step = train_step_fn(tloss.CompositeLoss(
+        "VeloxSeg", TRAIN_CFG, num_modal=tcfg.num_modalities), device="cpu")
     state, aux = step(state, torch.from_numpy(x), torch.from_numpy(y).long(),
                       None)
     # the tolerances of tests/test_torch_train_step.py

@@ -47,9 +47,10 @@ _ISOLATED = textwrap.dedent("""
                                                   train_step_fn)
     state = create_train_state(model, build_optimizer(
         "adamw", {{"lr": 2.5e-4, "weight_decay": 0.01}}, model.parameters()))
-    step = train_step_fn(CompositeLoss({{
+    step = train_step_fn(CompositeLoss("VeloxSeg", {{
         "deep_Loss_weight": [1, 1, 1, 1], "RC_Loss_weight": 0.5,
-        "Feature_Loss_weight": 2.0}}, cfg), device="cpu")
+        "Feature_Loss_weight": 2.0}}, num_modal=cfg.num_modalities),
+        device="cpu")
     x = torch.randn(1, 32, 32, 32, 2)
     _, aux = step(state, x, (x[..., 0] > 0).long(),
                   torch.Generator().manual_seed(0))
@@ -209,8 +210,9 @@ def test_entry_points_default_to_cuda(tmp_path):
         build_veloxseg(VeloxSegConfig(), device="cuda")
     from veloxseg_torch.train.loss import CompositeLoss
     from veloxseg_torch.train.train_state import train_step_fn
-    loss = CompositeLoss({"deep_Loss_weight": [1], "RC_Loss_weight": 0.5,
-                          "Feature_Loss_weight": 2.0}, VeloxSegConfig())
+    loss = CompositeLoss("VeloxSeg", {
+        "deep_Loss_weight": [1], "RC_Loss_weight": 0.5,
+        "Feature_Loss_weight": 2.0}, num_modal=VeloxSegConfig().num_modalities)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_step_fn(loss)
     from veloxseg_torch.models.registry import load_model

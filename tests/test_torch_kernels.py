@@ -108,6 +108,65 @@ def test_attention_kernel_at_other_geometries(c_qk, c_v, l, slabs, windows,
 JLC_LEVELS = [(16, 4, 3, 24), (32, 4, 3, 12), (64, 8, 2, 6), (128, 8, 2, 3)]
 
 
+def _wkv_bwd_inputs(dev, b, t, c, w_scale):
+    """WKV operands and an output gradient; ``w`` of both signs, at
+    ``w_scale`` large enough (relative to T) that the log-max rescaling
+    of the state runs."""
+    w = torch.from_numpy(normal((c,), 81, w_scale)).to(dev)
+    u = torch.from_numpy(normal((c,), 82)).to(dev)
+    k, v, gy = (torch.from_numpy(normal((b, t, c), s)).to(dev)
+                for s in (83, 84, 85))
+    return w, u, k, v, gy
+
+
+# K6b at U-RWKV's train shapes ((4, 216, 128): AutoPET-II and BraTS;
+# (4, 256, 128): Hecktor) with w = decay / T as the model passes it and
+# with |w| ~ 1 of both signs; a ragged last channel group (40 = 32 + 8);
+# C not a multiple of 4 (4-byte staging); T = 1
+@pytest.mark.parametrize("b,t,c,w_scale", [
+    (4, 216, 128, 3.0 / 216), (4, 216, 128, 1.0), (4, 256, 128, 1.0),
+    (3, 50, 40, 0.5), (2, 30, 10, 2.0), (2, 1, 8, 1.0)])
+def test_wkv_bwd_kernel_matches_plain(b, t, c, w_scale):
+    from veloxseg_torch.ops import wkv as wkv_ops
+    dev = cuda_or_skip()
+    w, u, k, v, gy = _wkv_bwd_inputs(dev, b, t, c, w_scale)
+    n0 = wkv_ops.wkv_bwd.launches
+    got = wkv_ops.wkv_bwd(w, u, k, v, gy)
+    again = wkv_ops.wkv_bwd(w, u, k, v, gy)
+    torch.cuda.synchronize()
+    assert wkv_ops.wkv_bwd.launches == n0 + 2
+    ref = wkv_ops.wkv_bwd_plain(w, u, k, v, gy)
+    for name, g, r, g2 in zip(("gw", "gu", "gk", "gv"), got, ref, again):
+        # fp32; the same two sweeps, expf and fused multiply-adds on the
+        # card, the batch sums in the same order
+        scale = float(r.abs().max())
+        assert float((g - r).abs().max()) <= 1e-4 * scale + 1e-7, name
+        assert torch.equal(g, g2), name       # bit for bit on repeat
+
+
+def test_wkv_autograd_runs_k6_and_k6b():
+    from veloxseg_torch.ops import wkv as wkv_ops
+    dev = cuda_or_skip()
+    w, u, k, v, gy = _wkv_bwd_inputs(dev, 4, 216, 128, 1.0)
+    for dt in (torch.float32, torch.bfloat16):
+        leaves = [t.to(dt).requires_grad_() for t in (w, u, k, v)]
+        n6, n6b = wkv_ops.wkv.launches, wkv_ops.wkv_bwd.launches
+        y = wkv_ops.wkv(*leaves)
+        grads = torch.autograd.grad(y, leaves, gy.to(dt))
+        torch.cuda.synchronize()
+        assert (wkv_ops.wkv.launches - n6, wkv_ops.wkv_bwd.launches - n6b) \
+            == (1, 1)
+        assert all(g.dtype == dt for g in grads)
+        ref = wkv_ops.wkv_bwd_plain(*(t.to(dt).float() for t in (w, u, k, v)),
+                                    gy.to(dt).float())
+        for g, r in zip(grads, ref):
+            if dt == torch.float32:
+                assert float((g - r).abs().max()) \
+                    <= 1e-4 * float(r.abs().max()) + 1e-7
+            else:
+                assert_bf16_match(g, r.to(dt), "K6b bf16")
+
+
 @pytest.mark.parametrize("c,groups,expansion,s", JLC_LEVELS)
 def test_jlc_kernels_match_plain(c, groups, expansion, s):
     dev = cuda_or_skip()
@@ -875,9 +934,10 @@ def test_tiny_train_step_on_card_matches_cpu():
                                 conv_drop=0.0))
     x = torch.from_numpy(normal((2, 32, 32, 32, 2), seed=5))
     y = (x[..., 0] > 0.5).long()
-    loss = CompositeLoss({"deep_Loss_weight": [1, 1, 1, 1],
-                          "RC_Loss_weight": 0.5,
-                          "Feature_Loss_weight": 2.0}, cfg)
+    loss = CompositeLoss("VeloxSeg", {"deep_Loss_weight": [1, 1, 1, 1],
+                                      "RC_Loss_weight": 0.5,
+                                      "Feature_Loss_weight": 2.0},
+                         num_modal=cfg.num_modalities)
     grads, losses = [], []
     for d in (dev, torch.device("cpu")):
         model, _ = build_veloxseg(cfg, device=d, seed=3)

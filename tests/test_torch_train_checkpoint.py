@@ -79,7 +79,9 @@ def _batch(seed):
 
 def test_pth_round_trip_resumes_exactly(tmp_path):
     from veloxseg_torch.core.config import VeloxSegConfig
-    loss = tloss.CompositeLoss(TRAIN_CFG, VeloxSegConfig.from_dict(NO_DROP))
+    loss = tloss.CompositeLoss(
+        "VeloxSeg", TRAIN_CFG,
+        num_modal=VeloxSegConfig.from_dict(NO_DROP).num_modalities)
     step = tts.train_step_fn(loss, "cpu", with_metrics=False)
     a = _state(1)
     a, _ = step(a, *_batch(2), None)
@@ -112,7 +114,9 @@ def test_misplaced_optimizer_state_raises(tmp_path):
     otherwise loads into torch silently; the checkpoint loader refuses
     it."""
     from veloxseg_torch.core.config import VeloxSegConfig
-    loss = tloss.CompositeLoss(TRAIN_CFG, VeloxSegConfig.from_dict(NO_DROP))
+    loss = tloss.CompositeLoss(
+        "VeloxSeg", TRAIN_CFG,
+        num_modal=VeloxSegConfig.from_dict(NO_DROP).num_modalities)
     a, _ = tts.train_step_fn(loss, "cpu", with_metrics=False)(
         _state(1), *_batch(2), None)
     path = str(tmp_path / "0.pth")
@@ -188,9 +192,9 @@ def test_jax_ckpt_resumes_optimizer(tmp_path, kind):
     # back sorted; a model's init orders its keys by creation)
     host = jax.device_get(params)
     a = optimizer_state_from_jax(serialization.to_state_dict(
-        jax.device_get(opt_state)), host)
+        jax.device_get(opt_state)), host, state_dict_from_jax)
     b = optimizer_state_from_jax(serialization.to_state_dict(
-        jax.device_get(opt_state)), _reversed(host))
+        jax.device_get(opt_state)), _reversed(host), state_dict_from_jax)
     assert a.keys() == b.keys() and len(a) == 346
     for k in a:
         for name in a[k]:

@@ -74,7 +74,8 @@ def _port_state(cfg, seed=1):
 def runs():
     tcfg, jcfg = configs(NO_DROP)
     jmodel = JaxVeloxSeg(jcfg)
-    port_loss = tloss.CompositeLoss(TRAIN_CFG, tcfg)
+    port_loss = tloss.CompositeLoss("VeloxSeg", TRAIN_CFG,
+                                    num_modal=tcfg.num_modalities)
     jax_loss = jloss.CompositeLoss("VeloxSeg", TRAIN_CFG)
     tx = joptim.build_optimizer("adamw", OPT)
     out = {}
@@ -110,7 +111,7 @@ def runs():
     out["accum"] = (aux, jax.device_get(jaux))
     moments = optimizer_state_from_jax(
         serialization.to_state_dict(jax.device_get(js.opt_state)),
-        jax.device_get(js.params))
+        jax.device_get(js.params), state_dict_from_jax)
     out["accum_grads"] = (
         {k: p.grad.detach().clone()
          for k, p in st.model.named_parameters()},
@@ -199,7 +200,8 @@ def test_eval_step_matches_jax(runs):
 def test_multi_step_equals_single_steps():
     cfg = dict(TINY, conv_drop=0.1, drop_path=0.1)
     tcfg, _ = configs(cfg)
-    loss = tloss.CompositeLoss(TRAIN_CFG, tcfg)
+    loss = tloss.CompositeLoss("VeloxSeg", TRAIN_CFG,
+                               num_modal=tcfg.num_modalities)
     x = np.stack([_batch(s)[0][:1] for s in (7, 8, 9)])
     y = np.stack([_batch(s)[1][:1] for s in (7, 8, 9)])
     single = _port_state(tcfg, seed=5)

@@ -81,7 +81,8 @@ def run():
         outs_port = model.train()(torch.from_numpy(x), None)
     state = create_train_state(model, toptim.build_optimizer(
         "adamw", OPT, model.parameters()))
-    step = train_step_fn(tloss.CompositeLoss(TRAIN_CFG, tcfg), device="cpu")
+    step = train_step_fn(tloss.CompositeLoss(
+        "VeloxSeg", TRAIN_CFG, num_modal=tcfg.num_modalities), device="cpu")
     port_steps, losses = [], []
     for i in range(3):
         state, aux = step(state, torch.from_numpy(x),
@@ -117,7 +118,9 @@ def test_composite_loss_matches_jax(run):
     assert run["port_losses"][0] == pytest.approx(run["jax_loss"], rel=1e-5)
     x, y = _batch()
     outs = [torch.from_numpy(np.array(o)) for o in run["jax_outs"]]
-    got = tloss.CompositeLoss(TRAIN_CFG, VeloxSegConfig(**TINY))(
+    got = tloss.CompositeLoss(
+        "VeloxSeg", TRAIN_CFG,
+        num_modal=VeloxSegConfig(**TINY).num_modalities)(
         outs, torch.from_numpy(y).long(), sr_labels=torch.from_numpy(x))
     ref = jloss.CompositeLoss("VeloxSeg", TRAIN_CFG)(
         [jnp.asarray(o) for o in run["jax_outs"]], jnp.asarray(y),
@@ -165,7 +168,8 @@ def _dropout_loss(seed):
     x, y = _batch(5)
     state = create_train_state(model, toptim.build_optimizer(
         "adamw", OPT, model.parameters()))
-    step = train_step_fn(tloss.CompositeLoss(TRAIN_CFG, cfg), device="cpu")
+    step = train_step_fn(tloss.CompositeLoss(
+        "VeloxSeg", TRAIN_CFG, num_modal=cfg.num_modalities), device="cpu")
     gen = torch.Generator().manual_seed(seed)
     _, aux = step(state, torch.from_numpy(x), torch.from_numpy(y).long(),
                   gen)

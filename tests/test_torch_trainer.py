@@ -47,6 +47,7 @@ from torch_port_helpers import (TINY_JSON, assert_adamw_weights_close,
                                 assert_csvs_agree, assert_masks_agree,
                                 driver_workspace,
                                 jax_compile_cache, jax_resume_checkpoint,
+                                jax_zoo_resume_checkpoint,
                                 run_both_drivers, run_both_trainers,
                                 tiny_train_config)
 from veloxseg_torch.interop.jax_params import state_dict_from_jax
@@ -179,12 +180,52 @@ def test_brats_final_weights_match_jax(brats_runs):
     assert n["real"] > 0.3 * (n["real"] + n["noise"]), n
 
 
+# U-RWKV at its published AutoPET-II config: WKV's backward (K6b's plain
+# sweeps on the CPU) under the trainer
+URWKV = {"input_channel": 2, "num_classes": 2}
+
+
+@pytest.fixture(scope="module")
+def urwkv_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("trainer_urwkv")
+    globs = make_autopet_fixtures(str(root / "data"), n_cases=5)
+    ckpt = jax_zoo_resume_checkpoint(root / "start" / "run" / "0.ckpt",
+                                     "U-RWKV", URWKV, (32, 32, 32), seed=41,
+                                     lr=LR)
+    with jax_compile_cache(root / "jax_cache"):
+        return run_both_trainers(root, "AutoPETII", {"U-RWKV": URWKV},
+                                 tiny_train_config("AutoPETII", globs, LR),
+                                 ckpt, model_name="U-RWKV")
+
+
+def test_urwkv_losses_and_dice_match_jax(urwkv_runs):
+    port, ref = urwkv_runs["port"], urwkv_runs["jax"]
+    assert len(port["losses"]) == len(ref["losses"]) == STEPS
+    np.testing.assert_allclose(port["losses"], ref["losses"], rtol=1e-4)
+    for key in ("best_train_dice", "best_val_dice"):
+        assert port[key] == pytest.approx(ref[key], abs=2e-3), key
+    assert "Resumed from" in port["log"] and "at epoch 1" in port["log"]
+    stems = sorted(os.path.splitext(f)[0] for f in
+                   os.listdir(port["save_path"]) if f.endswith(".pth"))
+    assert stems == ["1", "2", "train_best", "val_best"]
+
+
+def test_urwkv_final_weights_match_jax(urwkv_runs):
+    got = urwkv_runs["port"]["state"].model.state_dict()
+    ref = urwkv_runs["state_map"](jax.device_get(
+        urwkv_runs["jax"]["state"].params))
+    n = assert_adamw_weights_close(got, ref, urwkv_runs["jax_grad_max"],
+                                   LR, STEPS)
+    assert n["real"] > 0.3 * (n["real"] + n["noise"]), n
+
+
 @pytest.mark.parametrize("case", ["no_cuda", "mesh", "distributed",
                                   "model"])
 def test_run_train_refuses(tmp_path, case):
     """Without a card the default device raises, in ``run_train`` and in
-    the CLI; ``--mesh``, ``--distributed`` and models other than VeloxSeg
-    raise, naming the ROADMAP item that ports them."""
+    the CLI; ``--mesh``, ``--distributed`` and a model the port does not
+    train yet (VNet, whose train forward draws dropout) raise, naming the
+    ROADMAP item that ports them."""
     from veloxseg_torch.cli.train_main import main
     args = argparse.Namespace(dataset_name="AutoPETII",
                               model_name="VeloxSeg", mesh=None,
@@ -202,12 +243,41 @@ def test_run_train_refuses(tmp_path, case):
                   "--model_config", str(tmp_path / "m.json")])
         return
     if case == "model":
-        args.model_name = "U-RWKV"
+        args.model_name = "VNet"
     else:
         setattr(args, case, "auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.run_train(args, {}, {"VeloxSeg": MODEL, "U-RWKV": {}},
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item"):
+        ttrainer.run_train(args, {}, {"VeloxSeg": MODEL, "VNet": {}},
                            device="cpu")
+
+
+@pytest.mark.parametrize("name", ["U-RWKV", "UNet", "MedNeXt", "SwinUNETR",
+                                  "U-KAN"])
+def test_cli_trains_zoo_model(fixture_globs, tmp_path, name):
+    """``cli.train_main`` accepts the five zoo models the port trains, at
+    their published AutoPET-II configs: it builds the model (SwinUNETR at
+    the patch), its loss branch and its bf16 step, and runs an epoch count
+    of 0 to its end; the eleven others raise (``test_run_train_refuses``)."""
+    import json
+    from veloxseg_torch.cli.train_main import main
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "config",
+            "models_config_autopetii.json")) as f:
+        published = json.load(f)
+    tc = dict(_train_config(fixture_globs, str(tmp_path / "save")),
+              epochs=0)
+    (tmp_path / "t.json").write_text(json.dumps(tc))
+    (tmp_path / "m.json").write_text(json.dumps(published))
+    res = main(["--dataset_name", "AutoPETII", "--model_name", name,
+                "--train_config", str(tmp_path / "t.json"),
+                "--model_config", str(tmp_path / "m.json"),
+                "--device", "cpu", "--num_workers", "1"])
+    assert name in ttrainer.TRAINABLE
+    assert res["state"].step == 0
+    assert not hasattr(res["state"].model, "cfg")  # not VeloxSeg's config
+    log = [f for f in os.listdir(res["save_path"]) if f.endswith(".log")]
+    with open(os.path.join(res["save_path"], log[0])) as f:
+        assert "steps in bfloat16" in f.read()
 
 
 @pytest.fixture(scope="module")

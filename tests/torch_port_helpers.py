@@ -10,6 +10,7 @@ seeded numpy values, and its ``state_dict()`` is mapped to JAX params with
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -342,7 +343,8 @@ def assert_csvs_agree(jax_csv: str, port_csv: str, masks_equal) -> None:
 # Weights after AdamW steps, against a reference run from the same start.
 
 def assert_adamw_weights_close(got: dict, ref: dict, grad_max: dict,
-                               lr: float, steps: int) -> dict:
+                               lr: float, steps: int,
+                               noise_floor: Optional[dict] = None) -> dict:
     """Hold the weights ``got`` after ``steps`` AdamW steps against the
     reference's ``ref``, element by element, split by the reference's
     gradients (``grad_max``: per key, each element's largest |gradient|
@@ -355,7 +357,10 @@ def assert_adamw_weights_close(got: dict, ref: dict, grad_max: dict,
     and in the other tensors each element whose gradient is at most 1e-4
     of its tensor's largest, the gradient tests' relative tolerance (taps
     that reach only zero padding, elements whose sign that tolerance does
-    not fix). Returns the counts of noise and real elements."""
+    not fix); with ``noise_floor`` (per key, a gradient magnitude), also
+    each element whose gradient is at most that (the two sides' measured
+    gradient disagreement, where fp32 cannot fix a sign to 1e-4). Returns
+    the counts of noise and real elements."""
     assert set(got) == set(ref)
     g_all = max(float(g.max()) for g in grad_max.values())
     assert g_all > 0.0
@@ -370,6 +375,8 @@ def assert_adamw_weights_close(got: dict, ref: dict, grad_max: dict,
         g_max = float(g.max())
         noise = (torch.ones_like(g, dtype=torch.bool)
                  if g_max <= 1e-5 * g_all else g <= 1e-4 * g_max)
+        if noise_floor is not None:
+            noise = noise | (g <= noise_floor[k])
         bound = torch.where(noise, 2.0 * steps * lr * 1.1, 0.25 * lr)
         worst = int((err - bound).argmax())
         assert bool((err <= bound).all()), (
@@ -433,8 +440,51 @@ def jax_resume_checkpoint(path, model_json: dict, seed: int, lr: float):
     return str(path)
 
 
+def jax_zoo_resume_checkpoint(path, name: str, model_json: dict, patch,
+                              seed: int, lr: float):
+    """Write a JAX training ``.ckpt`` of epoch 0 for the zoo model ``name``
+    at ``path``: the JAX model's parameters initialized at ``patch`` (two
+    input channels, as the JAX trainer builds an AutoPET-II model) and an
+    adamw state after one optax step from seeded gradients. Returns the
+    path as a string."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    from veloxseg_tpu.models.registry import load_model as jax_load
+    from veloxseg_tpu.train import checkpoint as jck
+    from veloxseg_tpu.train import optim as joptim
+    model = jax_load(name, {name: model_json})
+    params = jax.jit(model.init, static_argnames="train")(
+        {"params": jax.random.PRNGKey(seed),
+         "dropout": jax.random.PRNGKey(seed + 1)},
+        jnp.zeros((1, *patch, 2), jnp.float32), train=True)["params"]
+    tx = joptim.build_optimizer("adamw", {"lr": lr, "weight_decay": 0.01})
+    opt_state = tx.init(params)
+    rng = np.random.default_rng(seed + 1)
+    grads = jax.tree_util.tree_map(lambda p: jnp.asarray(
+        rng.standard_normal(p.shape).astype(np.float32) * 0.01), params)
+    updates, opt_state = tx.update(grads, opt_state, params)
+    params = optax.apply_updates(params, updates)
+    jck.save_checkpoint(str(path), params, opt_state, epoch=0,
+                        best_train_dice=0.0, best_val_dice=0.0,
+                        scheduler_state={"plateau_scale": 1.0,
+                                         "best": None, "bad_epochs": 0})
+    return str(path)
+
+
+def port_state_map(name: str, model_config: dict, patch):
+    """``params -> state dict``: the port's map of ``name``'s JAX params
+    (``train/checkpoint._FORMATS``), on a model built at ``patch``."""
+    from veloxseg_torch.models.registry import load_model
+    from veloxseg_torch.train.checkpoint import _FORMATS
+    model = load_model(name, model_config, device="cpu", input_size=patch)
+    from_jax, _ = _FORMATS[type(model)]
+    return lambda params: from_jax(model, params)
+
+
 def run_both_trainers(root, dataset: str, model_config: dict,
-                      train_config: dict, ckpt: str):
+                      train_config: dict, ckpt: str,
+                      model_name: str = "VeloxSeg"):
     """``veloxseg_tpu.train.trainer.run_train`` and the port's ``run_train``
     (``device="cpu"``), both forced to step in fp32 by replacing each
     trainer module's ``train_step_fn`` (both trainers step in bf16), each
@@ -442,9 +492,10 @@ def run_both_trainers(root, dataset: str, model_config: dict,
     ``root/<side>/save``; both steps record each iteration's loss, and the
     JAX step each element's largest |gradient| over the run, read from
     optax's first moment (adamw's ``mu_t = b1·mu_{t-1} + (1 - b1)·g_t``,
-    b1 0.9, taken in float64 from the fp32 moments). Returns ``{side:
-    run_train's dict plus "log" (the log's text) and "losses"}``, and
-    ``"jax_grad_max"``: port key → tensor."""
+    b1 0.9, taken in float64 from the fp32 moments), mapped to port keys
+    by ``model_name``'s own map. Returns ``{side: run_train's dict plus
+    "log" (the log's text) and "losses"}``, ``"jax_grad_max"``: port
+    key → tensor, and ``"state_map"``, the map."""
     import argparse
     import os
 
@@ -458,11 +509,14 @@ def run_both_trainers(root, dataset: str, model_config: dict,
 
     losses = {"jax": [], "port": []}
     grad_max = {}
+    state_map = port_state_map(
+        model_name, model_config,
+        train_config["patch_size"][dataset])
 
     def first_moments(state):
         st = optimizer_state_from_jax(
             serialization.to_state_dict(jax.device_get(state.opt_state)),
-            jax.device_get(state.params))
+            jax.device_get(state.params), state_map)
         return {k: v["exp_avg"].double() for k, v in st.items()}
 
     def recording(side, inner):
@@ -494,7 +548,7 @@ def run_both_trainers(root, dataset: str, model_config: dict,
                              ("port", ttrainer.run_train,
                               {"device": "cpu"})):
             args = argparse.Namespace(
-                dataset_name=dataset, model_name="VeloxSeg",
+                dataset_name=dataset, model_name=model_name,
                 checkpoint_path=ckpt, num_workers=2, model_index=None,
                 select_modal=None, mesh=None, distributed=None)
             tc = dict(train_config,
@@ -507,6 +561,7 @@ def run_both_trainers(root, dataset: str, model_config: dict,
             res["losses"] = losses[side]
             out[side] = res
     out["jax_grad_max"] = grad_max
+    out["state_map"] = state_map
     return out
 
 

@@ -150,7 +150,8 @@ def port_step(case: str, compute_dtype):
     model, tcfg = port_model()
     state = tts.create_train_state(model, build_optimizer(
         "adamw", {"lr": 1e-3}, model.parameters()))
-    loss_obj = CompositeLoss(TRAIN_CFG, tcfg)
+    loss_obj = CompositeLoss("VeloxSeg", TRAIN_CFG,
+                             num_modal=tcfg.num_modalities)
     batches = [batch(s) for s in BATCH_SEEDS]
     if case == "step":
         step = tts.train_step_fn(loss_obj, "cpu",

@@ -168,6 +168,16 @@ def wkv_work(b, t, c):
     return 4 * (3 * b * t * c + 2 * c), 24 * b * t * c
 
 
+def wkv_bwd_work(b, t, c):
+    """Bytes and operations of the WKV backward (K6b) on (b, t, c): k, v
+    and gy read once, gk and gv written once, w and u read, gw and gu
+    written; per (b, t, c) 56 operations: the forward sweep's 12 (a
+    maximum, two exponentials, the state's update) and the reverse sweep's
+    44 (the output rebuilt, two more exponentials, the four gradients and
+    the adjoints' update)."""
+    return 4 * (5 * b * t * c + 4 * c), 56 * b * t * c
+
+
 def sdpa_backend(fn) -> str:
     """Which backend of ``scaled_dot_product_attention`` one call of ``fn``
     ran: the names of the device kernels it launched, mapped to the

@@ -158,7 +158,8 @@ def main() -> int:
             opt["optimizer_type"], opt["optimizer_args"],
             model.parameters()))
         train_step = train_step_fn(
-            CompositeLoss(train_cfg, model.cfg),
+            CompositeLoss("VeloxSeg", train_cfg,
+                          num_modal=model.cfg.num_modalities),
             compute_dtype=torch.bfloat16 if args.bf16 else None)
         y = (x[..., 0] > 1.0).long()
         gen = torch.Generator(device="cuda").manual_seed(2)

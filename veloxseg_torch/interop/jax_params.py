@@ -21,14 +21,15 @@ Any path that cannot be placed raises, so nothing is dropped silently; so
 does a single-kernel JLC block, which the port does not build.
 
 :func:`optimizer_state_from_jax` maps the optax state of a JAX training
-checkpoint onto the same keys: Adam's moments are params-shaped, so they
-take the weights' layout transforms.
+checkpoint onto the same keys, by the model's own map (this module's for
+VeloxSeg, ``zoo_params``'s for the zoo): Adam's moments are params-shaped,
+so they take the weights' layout transforms.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -263,27 +264,32 @@ def _find_state(tree: Any, keys: Tuple[str, ...]):
 
 
 def optimizer_state_from_jax(opt_state: Mapping[str, Any],
-                             params: Mapping[str, Any]
+                             params: Mapping[str, Any],
+                             state_map: Callable[[Mapping[str, Any]],
+                                                 Dict[str, torch.Tensor]]
                              ) -> Dict[str, Dict[str, torch.Tensor]]:
     """The optax state of a JAX checkpoint (``to_state_dict`` form, as
     :func:`..train.flax_msgpack.msgpack_restore` reads it) → per reference
     key, the ``torch.optim`` state of that parameter: for adam and adamw
     ``mu`` → ``exp_avg``, ``nu`` → ``exp_avg_sq``, ``count`` → ``step``;
     for sgd with momentum ``trace`` → ``momentum_buffer``; nothing for plain
-    sgd. The injected learning rate is dropped: the scheduler sets it per
-    epoch."""
+    sgd. Each moment is a params-shaped tree, mapped to reference keys by
+    ``state_map``: the model's own map of its JAX params
+    (:func:`state_dict_from_jax` for VeloxSeg; ``train/checkpoint.py``'s
+    ``_FORMATS`` holds every model's). The injected learning rate is
+    dropped: the scheduler sets it per epoch."""
     if "params" in params and len(params) == 1:
         params = params["params"]
     adam = _find_state(opt_state, ("count", "mu", "nu"))
     if adam is not None:
         step = torch.tensor(float(np.asarray(adam["count"])),
                             dtype=torch.float32)
-        mu = state_dict_from_jax(_params_shaped(adam["mu"], params))
-        nu = state_dict_from_jax(_params_shaped(adam["nu"], params))
+        mu = state_map(_params_shaped(adam["mu"], params))
+        nu = state_map(_params_shaped(adam["nu"], params))
         return {k: {"step": step.clone(), "exp_avg": mu[k],
                     "exp_avg_sq": nu[k]} for k in mu}
     trace = _find_state(opt_state, ("trace",))
     if trace is not None:
-        buf = state_dict_from_jax(_params_shaped(trace["trace"], params))
+        buf = state_map(_params_shaped(trace["trace"], params))
         return {k: {"momentum_buffer": v} for k, v in buf.items()}
     return {}

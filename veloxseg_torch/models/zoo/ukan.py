@@ -53,7 +53,10 @@ class DWBnRelu(nn.Module):
         self.bn = BatchNormNoTrack(dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.bn(self.dwconv(x)))
+        # an NCDHW copy of the KAN layer's channels-last view: PyTorch's
+        # CPU bf16 depthwise conv3d gives a wrong weight gradient on a
+        # channels-last input at 2³ (U-KAN's 1/32 level at 64³)
+        return F.relu(self.bn(self.dwconv(x.contiguous())))
 
 
 class KANLayer(nn.Module):

@@ -20,6 +20,12 @@ The JAX package's documented quirks, kept:
 - batch norms normalize over the batch they are given, in eval mode too;
 - GELU is exact (erf); LayerNorms use eps 1e-6, as the JAX package's, and
   round in bf16 as its own LayerNorm does (:mod:`.common`).
+
+The train forward is the eval forward (no dropout; the batch norms take
+batch statistics in every mode), as the JAX module's is. Under autograd
+the WKV recurrence runs K6 forward and K6b backward (:func:`..ops.wkv.wkv`),
+and the gradients reach ``spatial_decay`` and ``spatial_first`` through
+their ``/ T``.
 """
 
 from __future__ import annotations

@@ -64,7 +64,8 @@ SIGNATURES = {
                    "vs_jlc_branch_wgrad": [_P] * 6 + [_I] * 11 + [_P]},
     "jlc_stage2": {"vs_jlc_stage2": [_P] * 9 + [_I] * 8 + [_P],
                    "vs_jlc_stage2_bwd": [_P] * 15 + [_I] * 10 + [_P]},
-    "wkv": {"vs_wkv": [_P] * 5 + [_I] * 5 + [_P]},
+    "wkv": {"vs_wkv": [_P] * 5 + [_I] * 5 + [_P],
+            "vs_wkv_bwd": [_P] * 9 + [_I] * 4 + [_P]},
 }
 # the bf16 builds export the same entry points
 SIGNATURES.update({f"{n}_bf16": SIGNATURES[n] for n in BF16_SOURCES})

@@ -223,8 +223,12 @@ def _optimizer_state_from_jax(optimizer: torch.optim.Optimizer,
                               model: torch.nn.Module, opt_state: dict,
                               params: dict) -> dict:
     """A ``torch.optim`` state dict for ``optimizer`` from a JAX optax
-    state: each parameter's state placed at its index in the optimizer."""
-    by_key = optimizer_state_from_jax(opt_state, params)
+    state (its moments mapped by the model's own map of its params, as its
+    weights are): each parameter's state placed at its index in the
+    optimizer."""
+    from_jax, _ = _FORMATS[type(model)]
+    by_key = optimizer_state_from_jax(opt_state, params,
+                                      lambda tree: from_jax(model, tree))
     names = {id(p): k for k, p in model.named_parameters()}
     state, index = {}, 0
     for group in optimizer.param_groups:

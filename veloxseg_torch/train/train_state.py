@@ -34,6 +34,7 @@ a TPU layout: the port computes the same metrics from the unblocked head.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Dict, List, Optional, Union
 
 import torch
@@ -58,6 +59,15 @@ def create_train_state(model: torch.nn.Module,
     return TrainState(model=model, optimizer=optimizer)
 
 
+def takes_generator(model: torch.nn.Module) -> bool:
+    """Whether ``model``'s forward draws its dropout from a
+    ``torch.Generator`` argument (VeloxSeg's ``forward(x, generator)``);
+    the zoo's models, which draw nothing in training, take the input
+    alone, and the step passes the generator only to a model that takes
+    one."""
+    return "generator" in inspect.signature(model.forward).parameters
+
+
 def _loss_and_heads(state: TrainState, loss_obj: CompositeLoss,
                     dev: torch.device, deep_metric_heads: bool,
                     compute_dtype: Optional[torch.dtype]):
@@ -66,24 +76,28 @@ def _loss_and_heads(state: TrainState, loss_obj: CompositeLoss,
     backward; with ``compute_dtype``, the forward on the parameters and
     inputs cast to it (``_loss_grads_fn``, ``train_state.py:42-69``)."""
 
+    draws = takes_generator(state.model)
+
     def f(inputs, labels, generator):
         if next(state.model.parameters()).device.type != dev.type:
             raise ValueError(f"the model is not on {dev}")
         x = inputs.to(dev, torch.float32)
         labels = labels.to(dev)
         state.model.train()
-        if compute_dtype in (None, torch.float32):
-            outs = state.model(x, generator)
-        else:
+        params = None
+        if compute_dtype not in (None, torch.float32):
             x = x.to(compute_dtype)
             params = {k: p.to(compute_dtype) if p.is_floating_point() else p
                       for k, p in state.model.named_parameters()}
-            outs = functional_call(state.model, params, (x, generator))
+        args = (x, generator) if draws else (x,)
+        outs = (state.model(*args) if params is None
+                else functional_call(state.model, params, args))
         # the reconstruction target is the input as the forward saw it
         # (``sr_labels=x.astype(jnp.float32)``, ``train_state.py:55-59``)
         loss = loss_obj(outs, labels, sr_labels=x.float())
-        heads = (loss_obj.metric_outputs(outs) if deep_metric_heads
-                 else [outs[0]])
+        heads = loss_obj.metric_outputs(outs)
+        if not deep_metric_heads:
+            heads = heads[:1]
         return loss, [h.detach() for h in heads], labels
 
     return f
@@ -119,7 +133,10 @@ def train_step_fn(loss_obj: CompositeLoss,
     Returns ``step(state, inputs, labels, generator) -> (state, aux)``:
     ``inputs`` (B, D, H, W, C) fp32 and ``labels`` (B, D, H, W) integer,
     moved to the device; ``generator`` the ``torch.Generator`` (on the
-    device) that draws every dropout mask and attention seed of the step.
+    device) that draws every dropout mask and attention seed of the step,
+    passed to a model whose forward takes one (:func:`takes_generator`);
+    the zoo's models draw nothing in training and are called on the input
+    alone. ``loss_obj`` is the model's ``CompositeLoss``.
     """
     dev = resolve_device(device)
 

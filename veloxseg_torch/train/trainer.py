@@ -34,8 +34,13 @@ Deltas from the JAX trainer:
   come from the unblocked head 0.
 - one device: ``--mesh`` and ``--distributed`` raise (``ROADMAP.md`` §1
   item 5).
-- VeloxSeg only: other models raise (the zoo's losses and U-RWKV training
-  are ``ROADMAP.md`` §1 items 6 and 7).
+- the models of :data:`TRAINABLE`: VeloxSeg, and U-RWKV, UNet, MedNeXt,
+  SwinUNETR and U-KAN, whose JAX train forward is their eval forward (no
+  dropout, one output); U-RWKV's WKV backward is kernel K6b. The other
+  eleven of the zoo raise (their dropout and deep-supervision training
+  forwards: ``ROADMAP.md`` §1 item 6). The loss is the model's branch of
+  ``CompositeLoss``; the step passes the dropout generator to VeloxSeg
+  alone (``train_state.takes_generator``).
 - ``steps_per_dispatch`` K is accepted (still exclusive of ``grad_accum``)
   and logged, and the loop steps one batch at a time: the JAX trainer
   scans K steps in one dispatch, and eager PyTorch issues K steps as K
@@ -75,6 +80,10 @@ from .metrics import segmentation_metrics
 from .metrics_brats import brats_dice
 from .optim import EpochScheduler, build_optimizer, set_learning_rate
 from .train_state import create_train_state, eval_step_fn, train_step_fn
+
+
+# the models the port trains
+TRAINABLE = ("VeloxSeg", "U-RWKV", "UNet", "MedNeXt", "SwinUNETR", "U-KAN")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,10 +224,11 @@ def run_train(args, train_config: dict, model_config: dict,
         raise ValueError(
             f"Model {args.model_name!r} not present in the model config; "
             f"available: {sorted(model_config)}")
-    if args.model_name != "VeloxSeg":
+    if args.model_name not in TRAINABLE:
         raise NotImplementedError(
-            f"the port trains VeloxSeg only; {args.model_name} needs its "
-            "loss and its backward (ROADMAP.md §1 items 6-7)")
+            f"the port trains {', '.join(TRAINABLE)}; {args.model_name} "
+            "needs its training forward (dropout, deep supervision: "
+            "ROADMAP.md §1 item 6)")
     date = datetime.now().strftime("%m_%d")
 
     # Resume re-derives the run dir from the checkpoint path
@@ -262,16 +272,22 @@ def run_train(args, train_config: dict, model_config: dict,
     logger.info(f"Validation set includes: {len(val_files)}")
 
     # Model / optimizer / loss --------------------------------------
+    patch_size = train_config["patch_size"][args.dataset_name]
     generator = seed_everything(DEFAULT_SEED, dev)  # reference seed (C17)
+    # a sized model (SwinUNETR's bias tables) is built for the patch, as
+    # the JAX trainer's init on a patch-sized example sizes it
     model = load_model(args.model_name, model_config, device=dev,
-                       seed=DEFAULT_SEED)
+                       seed=DEFAULT_SEED, input_size=patch_size)
     opt_cfg = train_config["optimizer"]
     optimizer = build_optimizer(opt_cfg["optimizer_type"],
                                 opt_cfg["optimizer_args"],
                                 model.parameters())
     state = create_train_state(model, optimizer)
     scheduler = EpochScheduler(train_config)
-    loss_obj = CompositeLoss(train_config, model.cfg)
+    in_ch = model_config[args.model_name].get("in_ch", [1, 1])
+    num_modal = len(in_ch) if isinstance(in_ch, (list, tuple)) else 1
+    loss_obj = CompositeLoss(args.model_name, train_config,
+                             num_modal=num_modal)
 
     start_epoch = 0
     best_train_dice = 0.0
@@ -394,7 +410,6 @@ def run_train(args, train_config: dict, model_config: dict,
                               iteration)
 
     # Loaders last: their threads stop in the ``finally`` below.
-    patch_size = train_config["patch_size"][args.dataset_name]
     num_workers = getattr(args, "num_workers", 4)
     # In-RAM decoded-volume cache (MONAI CacheDataset analogue): epochs
     # >= 2 skip NIfTI decode and the foreground crop, within a byte budget

@@ -10,7 +10,7 @@ package. All pure Python.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 def resolve_modal_index(select_modal, raw_modal_count: int) -> List[int]:
@@ -140,6 +140,17 @@ def normalized_deep_loss_weights(configured_weights: Sequence[float],
             "outputs unless all configured weights are equal")
     total = sum(weights)
     return [w / total for w in weights]
+
+
+def a2fseg_deep_output_groups(output_count: int,
+                              group_size: int = 5) -> List[Tuple[int, int]]:
+    """Slice bounds of A2FSeg's grouped deep outputs (1 + N·group_size
+    outputs)."""
+    if output_count <= 1 or (output_count - 1) % group_size != 0:
+        raise ValueError(
+            f"A2FSeg output count {output_count} must be 1 + N * "
+            f"{group_size}")
+    return [(s, s + group_size) for s in range(1, output_count, group_size)]
 
 
 def veloxseg_output_layout(output_count: int, num_modal: int) -> Dict:
