@@ -156,7 +156,7 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     holds the bf16 step card against CPU): losses within 1e-4 relative, epoch
     dice within 2e-3, weights element by element within 0.25·lr where the
     CPU's gradient is real and 2·3·lr·1.1 where it is rounding noise.
-    Last, the steady run: 100 cases (links to the 10), 2 epochs of 30
+    Last, the steady run: 60 cases (links to the 10), 2 epochs of 18
     steps with the published intervals (no validation), launches per step
     phase 6's, the split of each epoch and its patches/s after the first
     batch, the trainer's own device ms per step and idle share from its
@@ -194,7 +194,8 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
 19. (run before 15) the zoo: the eight baselines of the registry (UNet,
     VNet, MedNeXt, UNETR, SwinUNETR, SegFormer, SlimUNETR, UNETRpp) at
     their published AutoPET-II configs with seeded weights: each one's
-    eval forward of a seeded (2, 96, 96, 96, 2) batch on the card against
+    eval forward of a seeded (1, 96, 96, 96, 2) batch (``ZOO_BATCH``; 2
+    until phase 22 came) on the card against
     the CPU in fp32 (phase 4's tolerance, 1e-4 of the scale, or 4× the
     card forward's own movement under a 1e-7 relative input change where
     that is larger: SegFormer's softmax is steep) and in bf16 (the card's
@@ -202,7 +203,7 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     distance: ``ZOO_BF16_MAX``), with no kernel of the port launched;
     ``speed_main`` over the eight at AutoPET-II's shape
     (``ZOO_SPEED_DATASETS``; the three until phase 21 came) (images/s,
-    batch, Params, GFLOPs per image; ``SPEED_T_TIMED``, probes of
+    batch, Params, GFLOPs per image; ``ZOO_SPEED_T_TIMED``, probes of
     ``ZOO_PROBE_ITERS``), and the serving CLI on SwinUNETR from a ``.pth``
     the port wrote over one 96 × 96 × 80 synthetic case, card against
     ``run_inference(..., device="cpu")`` by phase 13's rule, and each
@@ -232,7 +233,10 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     UNet, MedNeXt, SwinUNETR and U-KAN: one train step at 64³, B = 2
     (U-KAN 4), card against CPU in fp32 (the loss within 1e-5; every
     gradient within phase [8]'s rule plus 4x the CPU's own fp32 distance
-    from its float64 step: ``zoo_grads_close``) and in bf16
+    from the float64 step: ``zoo_grads_close``; the float64 step, the
+    model, input and loss in float64, runs on the card, U-RWKV's on the
+    CPU, and U-KAN's on both, within 1e-10 of each gradient's scale) and
+    in bf16
     (``STEP_BOUND`` against the CPU's bf16 step, which must repeat bit for
     bit, its convolutions' backward in fp32 on the bf16 operands; the loss
     term dropped where the CPU's bf16 loss lies within 1e-5 of its fp32
@@ -245,6 +249,21 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
     ``cli.test_main``; the four others one epoch each. Per run the median
     step's stream span, the trace's device ms per step and idle share, and
     peak memory.
+22. zoo training, part two (its train steps card vs CPU run after [21]'s,
+    the rest after [21]). The seven that draw in training (VNet, UNETR,
+    SlimUNETR, NestedFormer, SuperLightNet, HCMA-UNet) and SegFormer: one
+    train step card against CPU as [21]'s, in factor mode (the dropouts
+    ``x · (1 + rate)``, SuperLightNet's block i folding direction i mod 3:
+    ``factor_mode``), each bound also allowing 4x the card's own movement
+    under a 1e-7 input change, at the smallest size where that holds
+    (``ZOO_TRAIN_DROPOUT_SIZE``, ``tools/zoo_train_sizes.py``). Then real
+    dropout: a bf16 step of VNet and of HCMA-UNet at their published rates
+    from a CUDA generator, its masks, loss and gradients bit for bit on a
+    repeat from the same seed, other masks under another, each site's keep
+    fraction within 4σ. Then ``cli.train_main`` at the published
+    AutoPET-II configs on VNet, SuperLightNet and HCMA-UNet, one epoch
+    each, as [21] runs its four: the median step's stream span, the
+    trace's device ms per step and idle share, peak memory.
 15. print the seconds of each phase, one ``{"kernels": [...]}`` line (a
     row per kernel and per bf16 form, with ``excess_ms``, each path's
     launches × (ms − bound) per call at that path's own shapes, summed),
@@ -255,6 +274,8 @@ Details go to ``<out>/chip_smoke.json`` (``--out``, default ``runs``).
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import hashlib
 import json
 import math
@@ -281,10 +302,12 @@ from chip_measure import (FORWARD_BOUND, HBM_BYTES_PER_S,  # noqa: E402
 # the speed CLI's timing in phase 16: three windows of 1 s (the CLI's own
 # default is 12 s, three of 4)
 SPEED_T_TIMED = 3.0
-# and in phase 19, where a zoo model's B = 16 forward takes up to 0.8 s:
-# each window's probe of 3 + 3 dispatches (the CLI's 20 + 20 took 680 s
-# for the 24 runs)
-ZOO_PROBE_ITERS = 3
+# and in phases 19 and 20, where a zoo model's B = 16 forward takes up to
+# 0.8 s: three windows of 0.5 s, each window's probe of 2 + 2 dispatches
+# (the CLI's 20 + 20 took 680 s for the 24 runs; 3 s and 3 + 3 until
+# phase 22 came)
+ZOO_SPEED_T_TIMED = 1.5
+ZOO_PROBE_ITERS = 2
 # the dataset shapes of phases 19 and 20's speed runs: AutoPET-II's alone
 # since phase 21 came (the three took ~180 s of each phase; the Hecktor and
 # BraTS figures measured before stand in PERF.md)
@@ -903,10 +926,12 @@ def step_spans(step, state, batches, gen, n=12):
 
 
 def trainer_steady_run(card, zero_counts, counts, per_step, work, published,
-                       model_config_path, src_globs, n_src, n_cases=100):
+                       model_config_path, src_globs, n_src, n_cases=60):
     """Phase 14's epochs at a length where the per-epoch costs are minor:
     ``n_cases`` AutoPET-II cases (links to the ``n_src`` written ones, so
-    60 train cases: 30 steps an epoch) with the published configs but for
+    36 train cases: 18 steps an epoch; 100 and 30 until phase 22 came, a
+    depth cut to keep the script in its time) with the published configs
+    but for
     the dataset paths, 2 epochs, the save and log paths and
     ``profile_dir`` (a trace of steps 3-12 of epoch 1); validation and the
     periodic checkpoint every 5 epochs as published, so neither runs.
@@ -955,8 +980,9 @@ def trainer_steady_run(card, zero_counts, counts, per_step, work, published,
                            f"AutoPETII_VeloxSeg_{date}.log")) as f:
         epochs = split_lines(f.read())
     n_steps = sum(e["steps"] for e in epochs)
-    if len(epochs) != 2 or n_steps != 60 or any(e["val_batches"]
-                                                for e in epochs):
+    per_epoch = int(published["train_rate"] * n_cases) // 2
+    if len(epochs) != 2 or n_steps != 2 * per_epoch or any(
+            e["val_batches"] for e in epochs):
         raise AssertionError(f"steady trainer run: epochs {epochs}")
     want = {n: n_steps * per_step.get(n, 0) for n in launches}
     if launches != want:
@@ -1619,7 +1645,9 @@ ZOO_CANNOT = {("NestedFormer", "Hecktor2022")}
 # phase 20: the seven that close the zoo
 ZOO_LAST = ("VSmTrans", "NestedFormer", "A2FSeg", "HDense", "SuperLightNet",
             "U-KAN", "HCMA-UNet")
-ZOO_BATCH = 2        # the forwards card vs CPU, at 96³
+# the forwards card vs CPU, at 96³ (B = 2 until phase 22 came: a scale cut,
+# the CPU's forwards setting the time of phases 19 and 20)
+ZOO_BATCH = 1
 # the bf16 forward on the card against the CPU's fp32 one: at least
 # FORWARD_BOUND's 0.5 (it rounds as bf16) and at most this much of the
 # CPU's own bf16-to-fp32 distance (it is the same function). Its distance
@@ -1638,8 +1666,8 @@ def zoo_phase(card, zero_counts, counts, configs, patches, spacing,
     ``serve`` HCMA-UNet): the zoo baselines ``names`` of the registry at
     their published AutoPET-II configs (``configs``: each dataset's models
     config), seeded weights. Per model, the fp32 eval forward of a seeded
-    (2, 96, 96, 96, 2) batch on the card against the same on the CPU,
-    within 1e-4 of the CPU logits' scale, or within 4× the card forward's
+    (ZOO_BATCH, 96, 96, 96, 2) batch on the card against the same on the
+    CPU, within 1e-4 of the CPU logits' scale, or within 4× the card forward's
     own movement under a 1e-7 relative change of its input where that is
     larger (the ill-conditioned models: printed); then both in bf16
     (``.to(bf16)``, as the speed CLI runs them), the card's against the
@@ -1652,7 +1680,6 @@ def zoo_phase(card, zero_counts, counts, configs, patches, spacing,
     device="cpu")`` by phase 13's rule, with each device's float64 forward
     of the model it served, through the same window, as ``compare_rows``'s
     ``ref64``. Every line is tagged ``[tag]``. Returns the report."""
-    import copy
     import tempfile
 
     import torch
@@ -1732,7 +1759,7 @@ def zoo_phase(card, zero_counts, counts, configs, patches, spacing,
               f"{ms16:.3f} ms bf16 (CPU {cpu_s:.2f} s) | no kernel launched "
               f"| {time.perf_counter() - t0:.1f} s", flush=True)
 
-    speed_main.T_TIMED = SPEED_T_TIMED
+    speed_main.T_TIMED = ZOO_SPEED_T_TIMED
     speed_main.PROBE_ITERS = ZOO_PROBE_ITERS
     for dataset in ZOO_SPEED_DATASETS:
         torch.cuda.synchronize()
@@ -1763,7 +1790,7 @@ def zoo_phase(card, zero_counts, counts, configs, patches, spacing,
                   f"{r['throughput']:.2f} images/s @ batch size "
                   f"{r['batch_size']}, Params {r['params'] / 1e6} M, "
                   f"GFLOPs per image {r['flops'] / 1e9} (bf16, T_TIMED "
-                  f"{SPEED_T_TIMED} s)", flush=True)
+                  f"{ZOO_SPEED_T_TIMED} s)", flush=True)
         print(f"[{tag}] speed CLI {dataset}, the {len(names)}: "
               f"{run_s:.1f} s",
               flush=True)
@@ -1880,16 +1907,70 @@ ZOO_TRAIN = ("U-RWKV", "UNet", "MedNeXt", "SwinUNETR", "U-KAN")
 # few values, as tests/test_torch_zoo_train.py runs it)
 ZOO_TRAIN_SIZE = 64
 ZOO_TRAIN_BATCH = {"U-KAN": 4}
+# the models whose float64 yardstick step runs on the CPU: U-RWKV's K6
+# takes fp32 alone; every other model's runs on the card, which agrees
+# with the CPU's float64 step to 1e-10 (ZOO_AGREE64, held in each run)
+ZOO_CPU64 = ("U-RWKV",)
+ZOO_AGREE64 = "U-KAN"
+# phase 22: the seven that draw in training (SegFormer with them), and the
+# smallest size at which [21]'s rule holds for each (tools/zoo_train_sizes.py)
+ZOO_TRAIN_DROPOUT = ("VNet", "UNETR", "SegFormer", "SlimUNETR",
+                     "NestedFormer", "SuperLightNet", "HCMA-UNet")
+ZOO_TRAIN_DROPOUT_SIZE = {"VNet": (32, 32, 32), "UNETR": (32, 32, 32),
+                          "SegFormer": (32, 32, 32),
+                          "SlimUNETR": (32, 32, 32),
+                          "NestedFormer": (48, 48, 32),
+                          "SuperLightNet": (32, 32, 32),
+                          "HCMA-UNet": (64, 64, 64)}
 
 
-def zoo_grads_close(what, card, cpu, cpu64):
+def sized_entry(name, entry, size):
+    """``name``'s model-config entry for an input of ``size``: its size key
+    (``img_size``, ``image_size``, ``patch_ini``) set to it, SlimUNETR's
+    ``embedding_dim`` to its bottleneck's token count."""
+    entry = dict(entry)
+    for key in ("img_size", "image_size", "patch_ini"):
+        if key in entry:
+            entry[key] = list(size)
+    if name == "SlimUNETR":
+        entry["embedding_dim"] = math.prod(s // 32 for s in size)
+    return entry
+
+
+@contextlib.contextmanager
+def factor_mode():
+    """The zoo's dropouts as ``x · (1 + rate)`` (the factor in x's dtype)
+    and SuperLightNet's block i folding direction i mod 3, while the
+    context lasts: the steps then are one function on every device, as
+    ``tests/test_torch_zoo_train_dropout.py`` holds them against JAX."""
+    from veloxseg_torch.models.zoo import common, superlightnet
+    saved = common.dropout, superlightnet.fold_directions
+
+    def factor(x, rate, training, generator, channel=False):
+        if not training or rate == 0.0:
+            return x
+        return x * x.new_tensor(1.0 + rate)
+
+    common.dropout = factor
+    superlightnet.fold_directions = \
+        lambda n, generator: [i % 3 for i in range(n)]
+    try:
+        yield
+    finally:
+        common.dropout, superlightnet.fold_directions = saved
+
+
+def zoo_grads_close(what, card, cpu, cpu64, card_moved=None):
     """Card fp32 gradients against the CPU's, each tensor within 1e-4 of
     its own largest magnitude plus 1e-5 of the model's largest gradient
     (phase [8]'s rule) plus 4x the CPU's own fp32 distance from ``cpu64``,
-    the CPU's float64 step's gradients: sums over 64³ voxels that cancel
+    the float64 step's gradients: sums over 64³ voxels that cancel
     (the first convs' weights) which fp32 cannot give to 1e-4;
     ``tests/test_torch_zoo_train.py`` holds the port against JAX the same
-    way. Returns (the worst tensor's share of its tolerance, its key, the
+    way. With ``card_moved``, the card's gradients on an input moved by
+    1e-7 relative, each tolerance also takes 4x the card's own movement
+    (phase [22]'s ill-conditioned models, as [19] holds a steep forward).
+    Returns (the worst tensor's share of its tolerance, its key, the
     card's distance from the float64 gradients over all tensors relative
     to the CPU's), or raises."""
     g_all = max(float(g.abs().max()) for g in cpu.values())
@@ -1899,6 +1980,8 @@ def zoo_grads_close(what, card, cpu, cpu64):
         err = float((card[k] - r).abs().max())
         tol = (1e-4 * float(r.abs().max()) + 1e-5 * g_all
                + 4.0 * float((r - cpu64[k]).abs().max()))
+        if card_moved is not None:
+            tol += 4.0 * float((card_moved[k] - card[k]).abs().max())
         d_card += float(((card[k] - cpu64[k]) ** 2).sum())
         d_cpu += float(((r - cpu64[k]) ** 2).sum())
         if err / tol > worst:
@@ -1935,60 +2018,78 @@ def cpu_bf16_conv_backward_in_fp32():
     return Fp32ConvBackward()
 
 
-def zoo_train_steps(card, zero_counts, counts, all_models,
-                    size=ZOO_TRAIN_SIZE, names=ZOO_TRAIN):
-    """Phase 21: each model's train step (``train_state.train_step_fn``,
-    AdamW as published) from one seed's weights on one seeded batch of
-    ``size``³ (B = 2, U-KAN 4), on the card and on the CPU. In fp32 by
-    ``zoo_grads_close`` with the CPU's float64 step (the model and input
-    in float64) as the yardstick of fp32's own error, the loss within
-    1e-5. In bf16, as the trainer steps, by ``chip_measure.STEP_BOUND``
-    against the CPU's bf16 step, whose loss term is dropped where the
-    CPU's bf16 loss lies within 1e-5 of its fp32 loss (a loss averaged
-    over 64³ voxels that does not see bf16). The CPU's bf16 step runs its
-    convolutions' backward under :func:`cpu_bf16_conv_backward_in_fp32`
-    and must repeat bit for bit in two runs. U-RWKV's steps on the card
-    launch K6 and K6b 6 times each, the others no kernel of the port."""
+def zoo_train_steps(card, zero_counts, counts, all_models, names=ZOO_TRAIN,
+                    sizes=None, tag=21, factor=False, moved=False):
+    """Phases 21 and 22: each model's train step (``train_state.
+    train_step_fn``, AdamW as published) from one seed's weights on one
+    seeded batch of ``sizes[name]`` (default 64³; B = 2, U-KAN 4), on the
+    card and on the CPU (``factor``: under :class:`factor_mode`, the
+    dropouts a factor and SuperLightNet's folds fixed). In fp32 by
+    ``zoo_grads_close`` with a float64 step (the model, the input and
+    the loss in float64) as the yardstick of fp32's own error, on the card
+    but for ``ZOO_CPU64``'s; for ``ZOO_AGREE64`` also on the CPU, the two
+    within 1e-10 of each gradient's scale. The loss within 1e-5. In
+    bf16, as the trainer steps, by ``chip_measure.STEP_BOUND`` against the
+    CPU's bf16 step, whose loss term is dropped where the CPU's bf16 loss
+    lies within 1e-5 of its fp32 loss (a loss averaged over the voxels
+    that does not see bf16). The CPU's bf16 step runs its convolutions'
+    backward under :func:`cpu_bf16_conv_backward_in_fp32` and must repeat
+    bit for bit in two runs. With ``moved`` (phase [22]), the card also
+    steps on the input moved by 1e-7 relative, and each of these bounds
+    also allows 4x the card's own movement (the losses, each gradient;
+    ``chip_measure.step_distances``'s ``moved``): the ill-conditioned
+    models' steps (the steep softmax of SegFormer, the 12- and 2-channel
+    LayerNorms of SuperLightNet and HCMA-UNet) move under rounding as much
+    as the two devices differ. U-RWKV's steps on the card launch K6 and
+    K6b 6 times each, the others no kernel of the port."""
     import numpy as np
     import torch
     from veloxseg_torch.models.registry import load_model
     from veloxseg_torch.train.loss import CompositeLoss
     from veloxseg_torch.train.optim import build_optimizer
     from veloxseg_torch.train.train_state import (create_train_state,
+                                                  takes_generator,
                                                   train_step_fn)
     opt = {"lr": 2.5e-4, "weight_decay": 0.01}
     loss_cfg = {"deep_Loss_weight": [1, 1, 1, 1]}
+    sizes = sizes or {}
     out = {}
     for name in names:
         t0 = time.perf_counter()
         b = ZOO_TRAIN_BATCH.get(name, 2)
+        size = tuple(sizes.get(name, (ZOO_TRAIN_SIZE,) * 3))
         rng = np.random.default_rng(21)
         x = torch.from_numpy(rng.standard_normal(
-            (b, size, size, size, 2)).astype(np.float32))
-        y = torch.from_numpy((rng.random((b, size, size, size)) < 0.3)
+            (b, *size, 2)).astype(np.float32))
+        y = torch.from_numpy((rng.random((b, *size)) < 0.3)
                              .astype(np.int64))
-        cfg = {name: dict(all_models[name])}
-        if "img_size" in cfg[name]:          # U-KAN's, as its entry holds
-            cfg[name]["img_size"] = [size] * 3
+        x_moved = x * (1 + 1e-7 * torch.from_numpy(rng.standard_normal(
+            x.shape).astype(np.float32)))
+        cfg = {name: sized_entry(name, all_models[name], size)}
         loss_obj = CompositeLoss(name, loss_cfg)
         runs, launches, secs = {}, {}, {}
+        # one seeded init, copied to each run's device
+        base = load_model(name, cfg, device="cpu", seed=0, input_size=size)
 
-        def one_step(key, dev, dt):
-            model = load_model(name, cfg, device=dev, seed=0,
-                               input_size=(size,) * 3)
+        def build(dev):
+            return copy.deepcopy(base).to(dev)
+
+        def one_step(key, dev, dt, inputs=x):
+            model = build(dev)
             state = create_train_state(model, build_optimizer(
                 "adamw", opt, model.parameters()))
             step = train_step_fn(loss_obj, dev, with_metrics=False,
                                  compute_dtype=dt)
+            gen = torch.Generator(dev).manual_seed(22)
             if dev == "cuda":
                 torch.cuda.synchronize()
                 zero_counts()
             t1 = time.perf_counter()
             if dev == "cpu" and dt is not None:
                 with cpu_bf16_conv_backward_in_fp32():
-                    state, aux = step(state, x, y, None)
+                    state, aux = step(state, inputs, y, gen)
             else:
-                state, aux = step(state, x, y, None)
+                state, aux = step(state, inputs, y, gen)
             if dev == "cuda":
                 torch.cuda.synchronize()
                 launches[key] = {n: c for n, c in counts().items() if c}
@@ -1997,40 +2098,72 @@ def zoo_train_steps(card, zero_counts, counts, all_models,
                 k: p.grad.detach().double().cpu()
                 for k, p in model.named_parameters()})
 
-        for key, dev, dt in (("card32", "cuda", None), ("cpu32", "cpu", None),
-                             ("card16", "cuda", torch.bfloat16),
-                             ("cpu16", "cpu", torch.bfloat16)):
-            runs[key] = one_step(key, dev, dt)
-        again = one_step("cpu16_again", "cpu", torch.bfloat16)
-        if not (again[0] == runs["cpu16"][0] and all(
-                torch.equal(again[1][k], g)
-                for k, g in runs["cpu16"][1].items())):
-            raise AssertionError(f"{name}: the CPU's bf16 step does not "
-                                 f"repeat bit for bit")
-        del again
-        # the CPU's step in float64, the yardstick of fp32's own error (the
-        # loss's reductions stay fp32, as the loss casts)
-        model = load_model(name, cfg, device="cpu", seed=0,
-                           input_size=(size,) * 3).double().train()
-        t1 = time.perf_counter()
-        loss64 = loss_obj(model(x.double()), y, sr_labels=x.double())
-        loss64.backward()
-        secs["cpu64"] = time.perf_counter() - t1
-        g64 = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
-        del model, loss64
+        def step64(key, dev):
+            """The loss and gradients with the model, the input and the
+            loss in float64."""
+            model = build(dev).double().train()
+            xd = x.double().to(dev)
+            args = ((xd, torch.Generator(dev).manual_seed(22))
+                    if takes_generator(model) else (xd,))
+            t1 = time.perf_counter()
+            loss = loss_obj(model(*args), y.to(dev), sr_labels=xd)
+            loss.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs[key] = time.perf_counter() - t1
+            return float(loss), {k: p.grad.detach().cpu()
+                                 for k, p in model.named_parameters()}
+
+        with factor_mode() if factor else contextlib.nullcontext():
+            for key, dev, dt in (("card32", "cuda", None),
+                                 ("cpu32", "cpu", None),
+                                 ("card16", "cuda", torch.bfloat16),
+                                 ("cpu16", "cpu", torch.bfloat16)):
+                runs[key] = one_step(key, dev, dt)
+            if moved:
+                runs["card32_moved"] = one_step("card32_moved", "cuda", None,
+                                                x_moved)
+                runs["card16_moved"] = one_step(
+                    "card16_moved", "cuda", torch.bfloat16, x_moved)
+            again = one_step("cpu16_again", "cpu", torch.bfloat16)
+            if not (again[0] == runs["cpu16"][0] and all(
+                    torch.equal(again[1][k], g)
+                    for k, g in runs["cpu16"][1].items())):
+                raise AssertionError(f"{name}: the CPU's bf16 step does not "
+                                     f"repeat bit for bit")
+            del again
+            where64 = "cpu" if name in ZOO_CPU64 else "cuda"
+            l64, g64 = step64(f"{where64}64", where64)
+            agree = None
+            if name == ZOO_AGREE64:
+                l64c, g64c = step64("cpu64", "cpu")
+                # of each gradient's scale, a floor of 1e-5 of the
+                # largest for the gradients that are 0 in exact arithmetic
+                g_all = max(float(g.abs().max()) for g in g64c.values())
+                agree = max(float((g - g64c[k]).abs().max())
+                            / (float(g64c[k].abs().max()) + 1e-5 * g_all)
+                            for k, g in g64.items())
+                if not (agree <= 1e-10
+                        and abs(l64 - l64c) <= 1e-10 * abs(l64c)):
+                    raise AssertionError(
+                        f"{name}: the card's float64 step {l64} lies "
+                        f"{agree:.3e} of a gradient's scale from the CPU's "
+                        f"({l64c})")
         want = {"wkv": 6, "wkv_bwd": 6} if name == "U-RWKV" else {}
-        if launches["card32"] != want or launches["card16"] != want:
+        if any(v != want for v in launches.values()):
             raise AssertionError(f"{name} train step launches {launches}, "
                                  f"want {want} in each")
         (l32, g32), (lc, gc) = runs["cpu32"], runs["card32"]
         l16 = runs["cpu16"][0]
+        lm, gm = runs.get("card32_moved", (lc, None))
         if not all(math.isfinite(v) for v, _ in runs.values()) \
-                or not abs(lc - l32) <= 1e-5 * abs(l32):
+                or not abs(lc - l32) <= 1e-5 * abs(l32) + 4 * abs(lm - lc):
             raise AssertionError(f"{name} step losses "
                                  f"{ {k: v for k, (v, _) in runs.items()} }")
         worst, worst_key, ratio = zoo_grads_close(
-            f"{name} fp32 step", gc, g32, g64)
-        d = step_distances(runs["card16"], runs["cpu16"], runs["cpu32"])
+            f"{name} fp32 step at {size}", gc, g32, g64, gm)
+        d = step_distances(runs["card16"], runs["cpu16"], runs["cpu32"],
+                           runs.get("card16_moved"))
         bad = step_bound_violations(d)
         loss_sees_bf16 = abs(l16 - l32) >= 1e-5 * abs(l32)
         if not loss_sees_bf16:
@@ -2040,14 +2173,23 @@ def zoo_train_steps(card, zero_counts, counts, all_models,
                 f"{name} bf16 step card vs CPU outside {STEP_BOUND} in "
                 f"{bad}: {d}; losses card {runs['card16'][0]}, CPU "
                 f"{l16}, CPU fp32 {l32}")
-        print(f"[21] {card} | {name} train step ({b}, {size}³, 2) card vs "
-              f"CPU: fp32 loss {lc:.6f} vs {l32:.6f} (rel "
-              f"{abs(lc - l32) / abs(l32):.2e}, tol 1e-5); {len(g32)} "
-              f"gradients, worst {worst:.3f} of the tolerance ({worst_key}; "
-              f"with 4x the CPU's own fp32 distance from its float64 step, "
-              f"the card's all together {ratio:.3f}x the CPU's) | bf16 "
-              f"relative to the CPU's bf16-to-fp32 distance (the CPU's "
-              f"repeating bit for bit): loss {d['loss']:.4f} (card "
+        shape = "x".join(str(s) for s in size)
+        print(f"[{tag}] {card} | {name} train step ({b}, {shape}, 2)"
+              + (" in factor mode" if factor else "")
+              + f" card vs CPU: fp32 loss {lc:.6f} vs {l32:.6f} (rel "
+              f"{abs(lc - l32) / abs(l32):.2e}, tol 1e-5"
+              + (f" + 4x the card's movement {abs(lm - lc):.2e}" if moved
+                 else "")
+              + f"); {len(g32)} gradients, worst {worst:.3f} of the "
+              f"tolerance ({worst_key}; with 4x the CPU's own fp32 distance "
+              f"from the {where64}'s float64 step"
+              + (", and 4x the card's movement" if moved else "")
+              + f", the card's all together {ratio:.3f}x the CPU's"
+              + ("" if agree is None else
+                 f"; the card's float64 step {agree:.2e} of each gradient's "
+                 f"scale from the CPU's")
+              + f") | bf16 relative to the CPU's bf16-to-fp32 distance (the "
+              f"CPU's repeating bit for bit): loss {d['loss']:.4f} (card "
               f"{runs['card16'][0]:.6f}, CPU {l16:.6f}"
               + ("" if loss_sees_bf16 else
                  ", not held: the CPU's bf16 loss within 1e-5 of its fp32")
@@ -2057,11 +2199,12 @@ def zoo_train_steps(card, zero_counts, counts, all_models,
               f"step {launches['card32'] or 'none'} | s: "
               + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
               + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
-        out[name] = dict(loss=[lc, l32], worst_ratio=worst,
+        out[name] = dict(size=list(size), loss=[lc, l32], worst_ratio=worst,
                          worst_param=worst_key, global_ratio=ratio,
+                         float64_on=where64, float64_agree=agree,
                          bf16=d, bf16_loss_held=loss_sees_bf16,
                          launches=launches, step_s=secs)
-        del runs
+        del runs, base
     return out
 
 
@@ -2082,7 +2225,7 @@ def linked_cases(src_globs, root, n_src, n_cases):
 
 def zoo_trainer_cli_phase(card, zero_counts, counts, model_config_path,
                           train_config_path, shape=(112, 112, 104),
-                          n_src=10, n_cases=30, names=ZOO_TRAIN):
+                          n_src=10, n_cases=30, names=ZOO_TRAIN, tag=21):
     """Phase 21: ``cli.train_main`` on the card for the zoo models the port
     trains, at the published AutoPET-II model and train configs (96³
     patches, 4 a step, bf16, AdamW 2.5e-4) but for the dataset paths, the
@@ -2163,7 +2306,7 @@ def zoo_trainer_cli_phase(card, zero_counts, counts, model_config_path,
                 raise AssertionError(f"{name} trainer CLI: trace {tr}, "
                                      f"losses {fig['losses']}")
             per = {n: c / n_steps for n, c in r["launches"].items()}
-            print(f"[21] {card} | {name} train_main (AutoPETII, published "
+            print(f"[{tag}] {card} | {name} train_main (AutoPETII, published "
                   f"configs, bf16): {len(r['epochs'])} epoch(s) of "
                   f"{r['epochs'][0]['steps']} steps of 4 patches 96³ in "
                   f"{r['wall_s']:.1f} s | step median "
@@ -2252,6 +2395,121 @@ def zoo_trainer_cli_phase(card, zero_counts, counts, model_config_path,
                              serve_s=serve_s, served_launches=served)
             del r, r2, optim
             torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 22: zoo training, part two --------------------------------------
+
+# the real dropout's checks on the card: these models' steps at their
+# published rates
+ZOO_REAL_DROPOUT = ("VNet", "HCMA-UNet")
+# and cli.train_main on these
+ZOO_TRAIN_CLI_DROPOUT = ("VNet", "SuperLightNet", "HCMA-UNet")
+
+
+def real_dropout_steps(card, all_models, names=ZOO_REAL_DROPOUT,
+                       size=(32, 32, 32), b=2):
+    """Phase 22: one bf16 train step of each of ``names`` on the card at
+    its published dropout rates, drawing from a CUDA generator: every
+    site's mask recorded (``models/zoo/common.dropout`` wrapped). A
+    second step from the same weights and generator seed gives the same
+    masks, loss and gradients bit for bit (cuDNN's deterministic
+    algorithms on for the three steps); a third under another seed other
+    masks and another loss. Each site's keep fraction (the kept share of
+    its nonzero inputs; per sample and channel for VNet's channel
+    dropouts) lies within 4σ of its binomial: the worst is printed."""
+    import numpy as np
+    import torch
+    from veloxseg_torch.models.registry import load_model
+    from veloxseg_torch.models.zoo import common
+    from veloxseg_torch.train.loss import CompositeLoss
+    from veloxseg_torch.train.optim import build_optimizer
+    from veloxseg_torch.train.train_state import (create_train_state,
+                                                  train_step_fn)
+    real = common.dropout
+    out = {}
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.standard_normal((b, *size, 2))
+                         .astype(np.float32))
+    y = torch.from_numpy((rng.random((b, *size)) < 0.3).astype(np.int64))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in names:
+            t0 = time.perf_counter()
+            cfg = {name: sized_entry(name, all_models[name], size)}
+            runs = []
+            for seed in (7, 7, 8):
+                sites = []
+
+                def recording(t, rate, training, generator, channel=False,
+                              sites=sites):
+                    got = real(t, rate, training, generator, channel)
+                    if training and rate:
+                        kept, live = got != 0, t != 0
+                        if channel:
+                            kept = kept.flatten(2).any(-1)
+                            live = live.flatten(2).any(-1)
+                        sites.append((rate, channel, kept & live,
+                                      int(live.sum())))
+                    return got
+
+                model = load_model(name, cfg, device="cuda", seed=0,
+                                   input_size=size)
+                state = create_train_state(model, build_optimizer(
+                    "adamw", {"lr": 2.5e-4, "weight_decay": 0.01},
+                    model.parameters()))
+                step = train_step_fn(CompositeLoss(name, {
+                    "deep_Loss_weight": [1, 1, 1, 1]}), "cuda",
+                    with_metrics=False, compute_dtype=torch.bfloat16)
+                common.dropout = recording
+                try:
+                    state, aux = step(state, x, y, torch.Generator(
+                        "cuda").manual_seed(seed))
+                finally:
+                    common.dropout = real
+                torch.cuda.synchronize()
+                runs.append((float(aux["loss"]), sites, {
+                    k: p.grad.detach().clone()
+                    for k, p in model.named_parameters()}))
+                del model, state
+            (l0, s0, g0), (l1, s1, g1), (l2, s2, _) = runs
+            same = (l0 == l1 and len(s0) == len(s1) and all(
+                torch.equal(a[2], c[2]) for a, c in zip(s0, s1))
+                and all(torch.equal(g, g1[k]) for k, g in g0.items()))
+            other = l2 != l0 and any(not torch.equal(a[2], c[2])
+                                     for a, c in zip(s0, s2))
+            worst, worst_site, draws = 0.0, None, 0
+            for i, (rate, channel, kept, n) in enumerate(s0):
+                keep = 1.0 - rate
+                share = float(kept.sum()) / n
+                z = abs(share - keep) / math.sqrt(keep * (1 - keep) / n)
+                draws += n
+                if z > worst:
+                    worst, worst_site = z, (i, rate, channel, n, share)
+            if not (same and other and s0 and worst <= 4.0
+                    and all(math.isfinite(r[0]) for r in runs)):
+                raise AssertionError(
+                    f"{name} real dropout: repeat bit for bit {same}, "
+                    f"another seed differs {other}, {len(s0)} sites, worst "
+                    f"keep fraction {worst:.2f} sigma at {worst_site}")
+            rates = sorted({(r, c) for r, c, _, _ in s0})
+            print(f"[22] {card} | {name} bf16 train step ({b}, "
+                  f"{'x'.join(map(str, size))}, 2) at its published "
+                  f"dropout rates {rates} (rate, per channel), a CUDA "
+                  f"generator: {len(s0)} sites, {draws} draws; the same "
+                  f"seed again bit for bit (masks, loss {l0:.6f}, "
+                  f"{len(g0)} gradients), another seed other masks (loss "
+                  f"{l2:.6f}) | worst site's keep fraction "
+                  f"{worst_site[4]:.5f} against {1 - worst_site[1]} over "
+                  f"{worst_site[3]} draws: {worst:.2f} sigma (tol 4) | "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            out[name] = dict(sites=len(s0), draws=draws, rates=rates,
+                             worst_sigma=worst, losses=[l0, l1, l2])
+            del runs, s0, s1, s2, g0, g1
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     return out
 
 
@@ -2365,6 +2623,12 @@ def main() -> int:
                                                 all_models)
     torch.cuda.empty_cache()
     lap("21_steps")
+    # -- phase 22, part 1: the seven that draw in training, in factor mode
+    report["zoo_train_dropout_steps"] = zoo_train_steps(
+        card, zero_counts, counts, all_models, names=ZOO_TRAIN_DROPOUT,
+        sizes=ZOO_TRAIN_DROPOUT_SIZE, tag=22, factor=True, moved=True)
+    torch.cuda.empty_cache()
+    lap("22_steps")
     # -- phase 3: K1 ----------------------------------------------------------
     def k1_shapes(cfg, levels, tiles=tiles):
         size = [s // cfg["patch_size"] for s in cfg["input_size"]]
@@ -3936,6 +4200,19 @@ def main() -> int:
           flush=True)
 
     lap(21)
+    # -- phase 22, part 2: real dropout, and the trainer CLI on three ------
+    torch.cuda.empty_cache()
+    report["real_dropout"] = real_dropout_steps(card, all_models)
+    report["zoo_trainer_dropout"] = zoo_trainer_cli_phase(
+        card, zero_counts, counts,
+        os.path.join(ROOT, "config", "models_config_autopetii.json"),
+        os.path.join(ROOT, "config", "train_config_bs4.json"),
+        names=ZOO_TRAIN_CLI_DROPOUT, tag=22)
+    print(f"[22] zoo training, part two {time.perf_counter() - t_lap[0]:.1f}"
+          f" s (its steps card vs CPU {phase_s['22_steps']} s, run after "
+          f"phase 2)", flush=True)
+
+    lap(22)
     # -- phase 15 -----------------------------------------------------------
     meta = {
         "pwa_attention": ("veloxseg_torch/csrc/pwa_attention_train.cu",

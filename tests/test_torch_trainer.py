@@ -224,8 +224,8 @@ def test_urwkv_final_weights_match_jax(urwkv_runs):
 def test_run_train_refuses(tmp_path, case):
     """Without a card the default device raises, in ``run_train`` and in
     the CLI; ``--mesh``, ``--distributed`` and a model the port does not
-    train yet (VNet, whose train forward draws dropout) raise, naming the
-    ROADMAP item that ports them."""
+    train yet (UNETRpp, whose train forward adds deep supervision) raise,
+    naming the ROADMAP item that ports them."""
     from veloxseg_torch.cli.train_main import main
     args = argparse.Namespace(dataset_name="AutoPETII",
                               model_name="VeloxSeg", mesh=None,
@@ -243,11 +243,11 @@ def test_run_train_refuses(tmp_path, case):
                   "--model_config", str(tmp_path / "m.json")])
         return
     if case == "model":
-        args.model_name = "VNet"
+        args.model_name = "UNETRpp"
     else:
         setattr(args, case, "auto")
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item"):
-        ttrainer.run_train(args, {}, {"VeloxSeg": MODEL, "VNet": {}},
+        ttrainer.run_train(args, {}, {"VeloxSeg": MODEL, "UNETRpp": {}},
                            device="cpu")
 
 
@@ -257,7 +257,9 @@ def test_cli_trains_zoo_model(fixture_globs, tmp_path, name):
     """``cli.train_main`` accepts the five zoo models the port trains, at
     their published AutoPET-II configs: it builds the model (SwinUNETR at
     the patch), its loss branch and its bf16 step, and runs an epoch count
-    of 0 to its end; the eleven others raise (``test_run_train_refuses``)."""
+    of 0 to its end (the seven that draw in training: in
+    ``test_torch_zoo_train_dropout.py``); the four others raise
+    (``test_run_train_refuses``)."""
     import json
     from veloxseg_torch.cli.train_main import main
     with open(os.path.join(os.path.dirname(os.path.dirname(

@@ -44,7 +44,9 @@ import optax
 import pytest
 import torch
 
-from torch_port_helpers import assert_adamw_weights_close
+from torch_port_helpers import (assert_adamw_weights_close,
+                                assert_zoo_bf16_step, assert_zoo_grads_match,
+                                zoo_grads_by_key)
 from veloxseg_torch.models.registry import load_model
 from veloxseg_torch.train import checkpoint as tck
 from veloxseg_torch.train.loss import CompositeLoss
@@ -59,8 +61,6 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 import zoo_reference as zr  # noqa: E402
 import zoo_train_reference as ztr  # noqa: E402
-from chip_measure import (step_bound_violations,  # noqa: E402
-                          step_distances)
 
 MODELS = ztr.MODELS
 # the models whose fp32 gradients fp32 itself cannot give to the rule's
@@ -84,6 +84,8 @@ def jax_reference_process(tmp_path_factory):
     if proc.poll() is None:
         proc.kill()
         proc.wait()
+    for p in (path, params_path):   # ~1 GB of arrays, read already
+        p.unlink(missing_ok=True)
 
 
 @pytest.fixture(scope="module")
@@ -119,14 +121,6 @@ def _port_model(name, params):
     return model
 
 
-def _grads_by_key(model, flat_grads):
-    """JAX gradients (flat flax paths) → the port's parameter keys, by the
-    model's own map (the weights' layout transforms are linear)."""
-    from_jax, _ = tck._FORMATS[type(model)]
-    mapped = from_jax(model, zr.nest(flat_grads))
-    return {k: mapped[k] for k, _ in model.named_parameters()}
-
-
 def _step(name, params, dtype=None):
     """One port train step of ``name`` from ``params`` on the test's batch:
     its loss, every gradient and the state after the step."""
@@ -143,7 +137,7 @@ def _step(name, params, dtype=None):
 
 def _grads64(name, params):
     """The port's gradients of ``name``'s loss with the model and the
-    input in float64 (the loss's reductions stay fp32, as it casts)."""
+    input in float64, the loss too."""
     model = _port_model(name, params).double().train()
     x = torch.from_numpy(zr.model_input(name)).double()
     CompositeLoss(name, ztr.TRAIN_CFG)(
@@ -240,43 +234,20 @@ def test_train_step_loss_matches_jax(port, reference, name):
 
 @pytest.mark.parametrize("name", MODELS)
 def test_every_gradient_matches_jax(port, reference, name):
+    # for the models whose fp32 gradients fp32 cannot give to 1e-4 (sums
+    # over 2·32³ voxels that cancel: the first convs' weights; U-KAN's
+    # batch norms over its 4-voxel deepest level), the rule adds 4x the
+    # two fp32 steps' own distances from their float64 steps; the port's
+    # fp32 step lay 0.23x-4.7x JAX's distance from float64 as a whole
     _, got, state = port["fp32"][name]
-    ref = _grads_by_key(state.model, reference[name]["grads"])
-    assert set(got) == set(ref)
+    ref = zoo_grads_by_key(state.model, reference[name]["grads"])
     if name in F64:
-        jax64 = _grads_by_key(state.model, reference[name]["grads64"])
-        own64 = port["f64"][name]
-    g_all = max(float(v.abs().max()) for v in ref.values())
-    worst = []
-    for k, r in ref.items():
-        err = float((got[k] - r).abs().max())
-        # 1e-4 of the gradient's own max; plus a floor of 1e-5 of the
-        # model's largest gradient for the gradients that are 0 in exact
-        # arithmetic (biases in front of a norm), where both sides hold
-        # rounding noise; plus, where fp32 cannot give the gradient to 1e-4
-        # (sums over 2·32³ voxels that cancel: the first convs' weights;
-        # U-KAN's batch norms over its 4-voxel deepest level), 4x the
-        # larger of the two fp32 steps' own errors, each its distance from
-        # its own float64 step. A wrong gradient lies in a side's fp32 and
-        # float64 steps alike, so it does not widen its side's term.
-        rule = 1e-4 * float(r.abs().max()) + 1e-5 * g_all
-        fp32_own = 0.0
-        if name in F64:
-            fp32_own = max(float((r - jax64[k]).abs().max()),
-                           float((got[k].double() - own64[k]).abs().max()))
-        worst.append((err / (rule + 4.0 * fp32_own), k, err, rule,
-                      fp32_own))
-    worst.sort(reverse=True)
-    assert worst[0][0] <= 1.0, worst[:3]
-    if name in F64:
-        # and the port's fp32 step as a whole no farther from JAX's float64
-        # step than 8x JAX's fp32 step is (measured 0.23x-4.7x): a step
-        # computing anything in a narrower type than fp32 lies thousands
-        # of times farther, and its own float64 step would not show it
-        def dist(a):
-            return sum(float(((a[k].double() - jax64[k].double()) ** 2)
-                             .sum()) for k in jax64) ** 0.5
-        assert dist(got) <= 8.0 * dist(ref), (dist(got), dist(ref))
+        assert_zoo_grads_match(
+            got, ref, zoo_grads_by_key(state.model,
+                                       reference[name]["grads64"]),
+            port["f64"][name])
+    else:
+        assert_zoo_grads_match(got, ref)
 
 
 @pytest.mark.parametrize("name", MODELS)
@@ -285,7 +256,7 @@ def test_params_after_adamw_step_match_optax(port, reference, name):
     model = state.model
     from_jax, _ = tck._FORMATS[type(model)]
     ref = from_jax(model, zr.nest(reference[name]["stepped"]))
-    jax_grads = _grads_by_key(model, reference[name]["grads"])
+    jax_grads = zoo_grads_by_key(model, reference[name]["grads"])
     grad_max = {k: g.abs() for k, g in jax_grads.items()}
     # Adam's first step is lr·g/(|g| + eps): where the two fp32 steps'
     # gradients disagree by more than a quarter of |g| (their measured
@@ -303,37 +274,10 @@ def test_params_after_adamw_step_match_optax(port, reference, name):
     assert n["real"] > share * (n["real"] + n["noise"]), n
 
 
-def _bf16_step_within_step_bound(port, reference, name, over):
-    """``name``'s step in bf16 (the parameters and the input cast inside
-    the step) against JAX's bf16 step, by JAX's own bf16-to-fp32
-    distance: the loss and each tensor by ``STEP_BOUND``, and its two
-    distances over all gradients together taken over the ``over``
-    tensors."""
-    loss, grads, state = port["bf16"][name]
-    ref = reference[name]
-
-    def mapped(flat):
-        return {k: v.numpy() for k, v in _grads_by_key(state.model,
-                                                       flat).items()}
-
-    got = {k: g.numpy() for k, g in grads.items()}
-    r16, r32 = mapped(ref["grads_bf16"]), mapped(ref["grads"])
-    d = step_distances((loss, got), (ref["loss_bf16"], r16),
-                       (ref["loss"], r32))
-    keys = [k for k in got if over(got[k])]
-    d_over = step_distances(
-        (loss, {k: got[k] for k in keys}),
-        (ref["loss_bf16"], {k: r16[k] for k in keys}),
-        (ref["loss"], {k: r32[k] for k in keys}))
-    d.update(grads_to_bf16=d_over["grads_to_bf16"],
-             grads_to_fp32=d_over["grads_to_fp32"])
-    assert not step_bound_violations(d), d
-
-
 def test_urwkv_bf16_step_within_step_bound(port, reference):
     """U-RWKV's, WKV's fp32 recurrence cast at its edges."""
-    _bf16_step_within_step_bound(port, reference, "U-RWKV",
-                                 over=lambda g: True)
+    loss, grads, state = port["bf16"]["U-RWKV"]
+    assert_zoo_bf16_step(loss, grads, state.model, reference["U-RWKV"])
 
 
 @pytest.mark.parametrize("name", [n for n in BF16 if n != "U-RWKV"])
@@ -347,8 +291,9 @@ def test_bf16_step_within_step_bound(port, reference, name):
     (``tools/zoo_train_reference.py``), SwinUNETR's ``out`` bias 98% off
     its fp32 value and 97.5% of the whole distance, where the port's sums
     accumulate in fp32; each tensor is held all the same."""
-    _bf16_step_within_step_bound(port, reference, name,
-                                 over=lambda g: g.ndim >= 2)
+    loss, grads, state = port["bf16"][name]
+    assert_zoo_bf16_step(loss, grads, state.model, reference[name],
+                         over=lambda g: g.ndim >= 2)
 
 
 def test_ukan_depthwise_conv_bf16_weight_grad_at_its_deepest_level():

@@ -682,3 +682,93 @@ def jax_eval_params(name: str, cfg: dict, shape) -> int:
         jnp.zeros((1, *shape), jnp.float32))["params"]
     return sum(int(np.prod(a.shape))
                for a in jax.tree_util.tree_leaves(shapes))
+
+
+# ---------------------------------------------------------------------------
+# The zoo's train steps against the JAX ones (``tools/zoo_train_reference.py``).
+
+def zoo_grads_by_key(model: torch.nn.Module, flat_grads: dict) -> dict:
+    """JAX gradients (flat flax paths) → the port's parameter keys, by the
+    model's own map (the weights' layout transforms are linear)."""
+    import zoo_reference as zr
+    from veloxseg_torch.train.checkpoint import _FORMATS
+    from_jax, _ = _FORMATS[type(model)]
+    mapped = from_jax(model, zr.nest(flat_grads))
+    return {k: mapped[k] for k, _ in model.named_parameters()}
+
+
+def assert_zoo_grads_match(got: dict, ref: dict, jax64: Optional[dict] = None,
+                           own64: Optional[dict] = None,
+                           moved: Optional[tuple] = None) -> None:
+    """The port's fp32 gradients ``got`` against JAX's ``ref`` (both by the
+    port's keys), each tensor within 1e-4 of its own largest magnitude
+    plus 1e-5 of the model's largest gradient; with the float64 steps'
+    gradients (JAX's ``jax64``, the port's ``own64``), plus 4x the larger
+    of the two fp32 steps' distances from their own float64 step, and the
+    port's fp32 step as a whole no farther from JAX's float64 step than
+    8x JAX's fp32 step is. With ``moved``, (JAX's, the port's) fp32
+    gradients on the input moved by 1e-7 relative, plus 4x the larger of
+    the two steps' own movements in place of the float64 term: a wrong
+    gradient moves as little as a right one, so it does not widen its
+    side's term."""
+    assert set(got) == set(ref)
+    g_all = max(float(v.abs().max()) for v in ref.values())
+    worst = []
+    for k, r in ref.items():
+        err = float((got[k] - r).abs().max())
+        # 1e-4 of the gradient's own max; plus a floor of 1e-5 of the
+        # model's largest gradient for the gradients that are 0 in exact
+        # arithmetic (biases in front of a norm), where both sides hold
+        # rounding noise; plus, where fp32 cannot give the gradient to 1e-4
+        # (sums over 2·32³ voxels that cancel), 4x the larger of the two
+        # fp32 steps' own errors, each its distance from its own float64
+        # step. A wrong gradient lies in a side's fp32 and float64 steps
+        # alike, so it does not widen its side's term.
+        rule = 1e-4 * float(r.abs().max()) + 1e-5 * g_all
+        fp32_own = 0.0
+        if jax64 is not None:
+            fp32_own = max(float((r - jax64[k]).abs().max()),
+                           float((got[k].double() - own64[k]).abs().max()))
+        if moved is not None:
+            fp32_own = max(float((moved[0][k] - r).abs().max()),
+                           float((moved[1][k] - got[k]).abs().max()))
+        worst.append((err / (rule + 4.0 * fp32_own), k, err, rule,
+                      fp32_own))
+    worst.sort(reverse=True)
+    assert worst[0][0] <= 1.0, worst[:3]
+    if jax64 is not None:
+        # a step computing anything in a narrower type than fp32 lies
+        # thousands of times farther, and its own float64 step would not
+        # show it
+        def dist(a):
+            return sum(float(((a[k].double() - jax64[k].double()) ** 2)
+                             .sum()) for k in jax64) ** 0.5
+        assert dist(got) <= 8.0 * dist(ref), (dist(got), dist(ref))
+
+
+def assert_zoo_bf16_step(loss: float, grads: dict, model: torch.nn.Module,
+                         ref: dict, over=lambda g: True,
+                         held: Optional[set] = None) -> None:
+    """A port bf16 step (its loss and gradients) against JAX's bf16 step
+    (``ref``: one model's reference entry) by JAX's own bf16-to-fp32
+    distance: the loss and each tensor by ``STEP_BOUND``, and its two
+    distances over all gradients together taken over the tensors that
+    ``over`` keeps; with ``held``, the tensors of those keys alone (the
+    floor still by the model's largest gradient)."""
+    from chip_measure import step_bound_violations, step_distances
+
+    def mapped(flat):
+        return {k: v.numpy() for k, v in zoo_grads_by_key(model,
+                                                          flat).items()}
+
+    got = {k: g.numpy() for k, g in grads.items()}
+    r16, r32 = mapped(ref["grads_bf16"]), mapped(ref["grads"])
+    taken = [k for k in got if held is None or k in held]
+    d = step_distances((loss, got), (ref["loss_bf16"], r16),
+                       (ref["loss"], r32), keys=taken)
+    d_over = step_distances((loss, got), (ref["loss_bf16"], r16),
+                            (ref["loss"], r32),
+                            keys=[k for k in taken if over(got[k])])
+    d.update(grads_to_bf16=d_over["grads_to_bf16"],
+             grads_to_fp32=d_over["grads_to_fp32"])
+    assert not step_bound_violations(d), d

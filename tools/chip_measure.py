@@ -259,7 +259,7 @@ STEP_BOUND = {"loss": 0.5, "grads_to_bf16": 1.5, "grads_to_fp32": 0.5,
               "tensor_to_bf16": 4.0}
 
 
-def step_distances(got, ref16, ref32) -> dict:
+def step_distances(got, ref16, ref32, moved=None, keys=None) -> dict:
     """A bf16 step's distances from a reference bf16 step and the same
     reference in fp32, each relative to the reference's own bf16-to-fp32
     distance. Each argument is ``(loss, {key: gradient})`` (arrays or CPU
@@ -273,28 +273,37 @@ def step_distances(got, ref16, ref32) -> dict:
     reference's rounding happens to land near its fp32 value (a bias of two
     elements whose gradient is one bf16 sum), and the floor, 1e-5 of the
     largest gradient times √n, covers the gradients that are 0 in exact
-    arithmetic (biases in front of an InstanceNorm)."""
+    arithmetic (biases in front of an InstanceNorm). ``moved``, the same
+    step as ``got`` on an input moved by 1e-7 relative (an ill-conditioned
+    model's, phase [22]): each denominator also takes got's own movement,
+    the loss's eightfold (so that ``STEP_BOUND``'s 0.5 allows 4× it) and
+    each tensor's once (its 4 allows 4× it), as phase [19] holds a steep
+    forward within 4× its movement. ``keys``: the tensors taken (default
+    all); the floor's largest gradient is over all of them."""
     import numpy as np
 
     def arr(t):
         return np.asarray(t, dtype=np.float64)
 
     (loss, g), (l16, g16), (l32, g32) = got, ref16, ref32
+    m_loss, m = moved if moved is not None else (loss, g)
     g_all = max(float(np.abs(arr(v)).max()) for v in g32.values())
     d2 = e2 = f2 = 0.0
     worst, worst_key = 0.0, None
-    for k, r32 in g32.items():
-        r32, r16, p = arr(r32), arr(g16[k]), arr(g[k])
+    for k in (g32 if keys is None else keys):
+        r32, r16, p = arr(g32[k]), arr(g16[k]), arr(g[k])
         d = float(np.linalg.norm(r16 - r32))
         e = float(np.linalg.norm(p - r16))
         d2 += d * d
         e2 += e * e
         f2 += float(np.linalg.norm(p - r32)) ** 2
         ratio = e / (d + 2.0 ** -8 * float(np.linalg.norm(r32))
-                     + 1e-5 * g_all * math.sqrt(p.size))
+                     + 1e-5 * g_all * math.sqrt(p.size)
+                     + float(np.linalg.norm(arr(m[k]) - p)))
         if ratio > worst:
             worst, worst_key = ratio, k
-    return {"loss": abs(loss - l16) / abs(l16 - l32),
+    return {"loss": abs(loss - l16) / (abs(l16 - l32)
+                                       + 8.0 * abs(m_loss - loss)),
             "grads_to_bf16": math.sqrt(e2 / d2),
             "grads_to_fp32": math.sqrt(f2 / d2),
             "tensor_to_bf16": worst, "tensor": worst_key}

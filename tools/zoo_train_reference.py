@@ -21,12 +21,36 @@ with the parameters, the input and every statistic in float64 (JAX's x64
 mode and :func:`float64_statistics`, in that step's thread alone): how
 far the fp32 step lies from it is the JAX step's own fp32 error, which the
 test's rule allows four times over for models whose gradients fp32 cannot
-give to 1e-4. ``--params-out`` writes the steps' start first, so that the
-test can run the port's steps while these compile.
+give to 1e-4. For the models named by ``--moved``, the same compiled fp32
+step also on the input moved by 1e-7 relative (``zoo_reference.
+perturbed``): how far that moves the gradients is the cheaper yardstick of
+fp32's own error (no second compile). ``--params-out`` writes the steps'
+start first, so that the test can run the port's steps while these
+compile.
+
+``--factor`` runs the steps in factor mode, for the models whose train
+forward draws (:data:`MODELS_DROPOUT`): :func:`factor_mode` replaces
+flax's ``Dropout.__call__`` and the zoo's ``ChannelDropout.__call__`` by
+``x · (1 + rate)`` wherever the site is not deterministic, and makes
+SuperLightNet's THPA block *i* (in the forward's order) take fold
+direction *i* mod 3 where it draws one; the JAX package's loaded modules
+are patched, its files are not. The port's test swaps its dropout and its
+fold draw for the same, so that a dropout site missing, misplaced or at
+the wrong rate shows as a wrong gradient, and all three fold branches get
+one. HCMA-UNet's parameters start with each up-projection bias's groups
+of s³ tied (``zoo_reference.tie_hcma_up_bias``), and its gradients are
+written with each group's entries replaced by their sum
+(:func:`tie_hcma_up_grads`): the reference's ``O``-length bias, which the
+port holds, takes that sum; the AdamW step takes those gradients, so its
+biases stay tied.
 
 It runs in a process of its own with XLA's excess precision off
 (``--xla_allow_excess_precision=false``, set before JAX starts), so that
-each bf16 operation rounds, as the port's eager ones do. A bf16 reduction
+each bf16 operation rounds, as the port's eager ones do, and with LLVM at
+optimization level 1 (``--xla_backend_optimization_level=1``): its
+compiles take a third less CPU than at the default level (HCMA-UNet and
+VNet: 214 against 314 CPU-s), which the test suite's time needs, and its
+fp32 results move within rounding (HCMA-UNet's loss by 2e-6 relative). A bf16 reduction
 then accumulates in bf16: the gradient of a parameter that enters by
 broadcast over the voxels (a bias, a norm's scale) is summed over the
 volume in bf16, so JAX's bf16 step lies far from its fp32 one there
@@ -48,6 +72,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MODELS = ("U-RWKV", "UNet", "MedNeXt", "SwinUNETR", "U-KAN")
+# the second group, stepped in factor mode (``--factor``) in a process of
+# its own
+MODELS_DROPOUT = ("VNet", "UNETR", "SegFormer", "SlimUNETR", "NestedFormer",
+                  "SuperLightNet", "HCMA-UNet")
+# SuperLightNet's THPA blocks in its forward's order, at the published
+# "small" depths (1, 1, 2, 2, 2)
+SLN_BLOCKS = ("repr0_0", "repr1_0", "repr2_0", "repr2_1", "repr3_0",
+              "repr3_1", "emb_0", "emb_1")
 # config/train_config_bs4.json's loss weights and optimizer
 TRAIN_CFG = {"deep_Loss_weight": [1, 1, 1, 1], "RC_Loss_weight": 0.5,
              "Feature_Loss_weight": 2.0}
@@ -82,6 +114,56 @@ def float64_statistics():
             mod.jnp = view
 
 
+def factor_mode():
+    """Patch the loaded JAX zoo into factor mode (the module docstring):
+    a non-deterministic dropout at ``rate`` returns ``x · (1 + rate)``,
+    the factor a weakly typed scalar as ``x / keep`` is (rounded to x's
+    dtype), and SuperLightNet's block of :data:`SLN_BLOCKS` index *i*
+    takes branch *i* mod 3 of its ``nn.switch``."""
+    import flax.linen as nn
+    from veloxseg_tpu.models.zoo import common, superlightnet
+
+    def dropout_call(self, inputs, deterministic=None, rng=None):
+        det = nn.merge_param("deterministic", self.deterministic,
+                             deterministic)
+        return inputs if det or self.rate == 0.0 \
+            else inputs * (1.0 + self.rate)
+
+    def channel_dropout_call(self, x, deterministic):
+        return x if deterministic or self.rate == 0.0 \
+            else x * (1.0 + self.rate)
+
+    class FixedSwitch:
+        """``superlightnet``'s ``nn``, whose ``switch`` takes the
+        block's fixed branch."""
+
+        def __getattr__(self, name):
+            return getattr(nn, name)
+
+        @staticmethod
+        def switch(index, branches, module, *operands, **kwargs):
+            i = SLN_BLOCKS.index(module.name)
+            return branches[i % 3](module, *operands)
+
+    nn.Dropout.__call__ = dropout_call
+    common.ChannelDropout.__call__ = channel_dropout_call
+    superlightnet.nn = FixedSwitch()
+
+
+def tie_hcma_up_grads(flat: dict) -> dict:
+    """HCMA-UNet's gradients with each up-projection bias's groups of
+    s³ replaced by their sum, repeated: the gradient of the reference's
+    ``O``-length bias, in the JAX layout."""
+    out = dict(flat)
+    zr = zoo_reference()
+    for u, s in enumerate(zr.HCMA_UP_STRIDES):
+        key = f"up_{u}/up/bias"
+        if key in out:
+            sums = out[key].reshape(-1, s ** 3).sum(axis=1)
+            out[key] = np.repeat(sums, s ** 3).astype(out[key].dtype)
+    return out
+
+
 def labels(name: str) -> np.ndarray:
     """The seeded binary labels of ``name``'s input, (B, D, H, W) int32."""
     shape = zoo_reference().input_shape(name)[:4]
@@ -96,7 +178,7 @@ def zoo_reference():
 
 
 def jax_train_reference(names, bf16, f64, path: str,
-                        params_path: str = "") -> dict:
+                        params_path: str = "", moved=()) -> dict:
     """Write ``{name}/params/{flax path}`` (the step's start),
     ``{name}/loss``, ``{name}/grads/{path}``, ``{name}/stepped/{path}``
     (the parameters after one AdamW step), for the models in ``bf16``
@@ -127,7 +209,10 @@ def jax_train_reference(names, bf16, f64, path: str,
             {"params": jax.random.PRNGKey(0),
              "dropout": jax.random.PRNGKey(1)},
             jnp.zeros((1, *x.shape[1:]), jnp.float32), train=True)
-        return name, zr.noisy(flat(variables["params"]))
+        params = zr.noisy(flat(variables["params"]))
+        if name == "HCMA-UNet":
+            params = zr.tie_hcma_up_bias(params)
+        return name, params
 
     def step(name, params, dt):
         """The JAX trainer's step core in ``dt`` (None: fp32, then one
@@ -138,12 +223,26 @@ def jax_train_reference(names, bf16, f64, path: str,
         state = create_train_state(model, zr.nest(params),
                                    build_optimizer("adamw", OPT))
         suffix = "" if dt is None else "_bf16"
-        loss, _, grads = jax.jit(_loss_grads_fn(
-            CompositeLoss(name, TRAIN_CFG), compute_dtype=dt))(
-            state, jnp.asarray(x), jnp.asarray(y), jax.random.PRNGKey(2))
+        loss_grads = jax.jit(_loss_grads_fn(
+            CompositeLoss(name, TRAIN_CFG), compute_dtype=dt))
+        loss, _, grads = loss_grads(state, jnp.asarray(x), jnp.asarray(y),
+                                    jax.random.PRNGKey(2))
         out = {f"{name}/loss{suffix}": np.float64(loss)}
-        out.update({f"{name}/grads{suffix}/{k}": a
-                    for k, a in flat(grads).items()})
+        g = flat(grads)
+        if name == "HCMA-UNet":
+            g = tie_hcma_up_grads(g)
+            grads = zr.nest(g)
+        out.update({f"{name}/grads{suffix}/{k}": a for k, a in g.items()})
+        if dt is None and name in moved:
+            # the same compiled step on the input moved by 1e-7 relative
+            loss_m, _, grads_m = loss_grads(
+                state, jnp.asarray(zr.perturbed(x)), jnp.asarray(y),
+                jax.random.PRNGKey(2))
+            gm = flat(grads_m)
+            if name == "HCMA-UNet":
+                gm = tie_hcma_up_grads(gm)
+            out[f"{name}/loss_moved"] = np.float64(loss_m)
+            out.update({f"{name}/grads_moved/{k}": a for k, a in gm.items()})
         if dt is None:
             stepped = jax.jit(lambda s, g: s.apply_gradients(grads=g))(
                 state, grads)
@@ -176,8 +275,10 @@ def jax_train_reference(names, bf16, f64, path: str,
                     return loss_obj(outs, jnp.asarray(y), sr_labels=xd)
 
                 loss, grads = jax.jit(jax.value_and_grad(f))(p64)
-                out = {f"{name}/grads64/{k}": a
-                       for k, a in flat(grads).items()}
+                g = flat(grads)
+                if name == "HCMA-UNet":
+                    g = tie_hcma_up_grads(g)
+                out = {f"{name}/grads64/{k}": a for k, a in g.items()}
                 out[f"{name}/loss64"] = np.float64(loss)
         finally:
             _FLOAT64_THREAD.on = False
@@ -238,17 +339,28 @@ def main() -> int:
     ap.add_argument("--out", help="the .npz to write")
     ap.add_argument("--params-out", default="",
                     help="an .npz to write the steps' start to first")
+    ap.add_argument("--moved", default="",
+                    help="comma list of the models whose fp32 step also "
+                         "runs on the input moved by 1e-7 relative")
+    ap.add_argument("--factor", action="store_true",
+                    help="step in factor mode (the dropouts x·(1 + rate), "
+                         "SuperLightNet's fold directions fixed)")
     args = ap.parse_args()
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_allow_excess_precision" not in flags:
-        os.environ["XLA_FLAGS"] = \
-            f"{flags} --xla_allow_excess_precision=false".strip()
+        flags += " --xla_allow_excess_precision=false"
+    if "xla_backend_optimization_level" not in flags:
+        flags += " --xla_backend_optimization_level=1"
+    os.environ["XLA_FLAGS"] = flags.strip()
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, ROOT)
+    if args.factor:
+        factor_mode()
     jax_train_reference([n for n in args.models.split(",") if n],
                         {n for n in args.bf16.split(",") if n},
                         {n for n in args.f64.split(",") if n}, args.out,
-                        args.params_out)
+                        args.params_out,
+                        {n for n in args.moved.split(",") if n})
     return 0
 
 

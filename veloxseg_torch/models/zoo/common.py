@@ -12,8 +12,11 @@ act on the last axis.
   (:mod:`..interop.zoo_params`);
 - ``max_pool3d`` and ``avg_pool3d`` are ``F.max_pool3d`` and
   ``F.avg_pool3d`` (no padding, floor sizes, as flax's VALID pools);
-- :class:`ChannelDropout` is the identity in eval mode, and zoo training
-  is not ported.
+- :func:`dropout` is the zoo's one dropout, elementwise (flax's
+  ``nn.Dropout``, :class:`Dropout`) or per sample and channel
+  (``common.py:144-157``, :class:`ChannelDropout`); every site of the zoo
+  draws through it, from the ``torch.Generator`` its model's forward is
+  handed.
 
 The norms round as the JAX ones do in bf16: the statistics and the
 normalized value in fp32, that value rounded to the input's dtype, then
@@ -25,6 +28,8 @@ already rounded, as flax's ``Dense`` (a dot, then ``+ bias``) does, and
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -156,20 +161,50 @@ def ConvTranspose3d(in_ch: int, out_ch: int, kernel_size: int = 2,
                             padding=padding, groups=groups, bias=bias)
 
 
-class ChannelDropout(nn.Module):
-    """``Dropout3d`` (``common.py:144-157``): the identity in eval mode or
-    at rate 0. Zoo training is not ported, so a training forward at a
-    non-zero rate raises instead of dropping nothing."""
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator],
+            channel: bool = False) -> torch.Tensor:
+    """The JAX zoo's dropout, ``where(mask, x / keep, 0)`` with ``keep =
+    1 − rate`` and ``x / keep`` rounded in x's dtype (keep too, as JAX's
+    weakly typed scalar is: in bf16 the quotient rounds as the JAX bf16
+    step's does). The mask is ``rand < keep`` drawn from ``generator`` on
+    x's device: over every element, or with ``channel`` per sample and
+    channel of a channels-first ``x``, ``(B, C, 1, …)`` broadcast over the
+    spatial axes. The identity in eval mode or at rate 0, drawing nothing;
+    in training at a non-zero rate without a generator it raises (it
+    never draws from the global generator)."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(f"a train-mode dropout at rate {rate} needs a "
+                         "torch.Generator")
+    keep = 1.0 - rate
+    shape = (x.shape[:2] + (1,) * (x.dim() - 2)) if channel else x.shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / x.new_tensor(keep), x.new_zeros(()))
+
+
+class Dropout(nn.Module):
+    """flax's ``nn.Dropout(rate)``: :func:`dropout` over every element."""
 
     def __init__(self, rate: float):
         super().__init__()
-        self.rate = rate
+        self.rate = float(rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate:
-            raise NotImplementedError(
-                "zoo training is not ported (ROADMAP.md §1 item 6)")
-        return x
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        return dropout(x, self.rate, self.training, generator)
+
+
+class ChannelDropout(Dropout):
+    """``Dropout3d`` (``common.py:144-157``): :func:`dropout` of whole
+    channels per sample of a channels-first ``(B, C, D, H, W)``."""
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        return dropout(x, self.rate, self.training, generator, channel=True)
 
 
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:

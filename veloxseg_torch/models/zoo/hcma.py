@@ -5,7 +5,12 @@ DenseConv blocks, the channel split, the slice attention, no skip
 branch): a DenseConv stem, four Down levels (average pool ⊕ a strided
 ResNeXt conv, a triplane Mamba, a DenseConv), four Up levels (1×1 adapt +
 instance norm + LeakyReLU, + the pre-extractor skip, a transposed conv of
-kernel = stride) and a 1×1 head.
+kernel = stride) and a 1×1 head. In training the DenseConv blocks of the
+Down levels drop their depthwise branch at r and their expansion at 2r,
+r = (0.025, 0.05, 0.1, 0.1) by level (``hcma.py:75, 79-80``; the stem's
+r is 0), and the head drops its input at 0.1 (``hcma.py:421``), drawn
+from the generator passed to the forward; SS2D's dropout is at 0, so it
+has no site (``hcma.py:214-216``).
 
 The triplane Mamba splits the channels (C/2, C/4, C/4) over three
 directional branches, one per axis D, H, W (``hcma.py:300-324``): each
@@ -41,7 +46,7 @@ _map_hcma_key``; the three heads the predict mode does not run
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -53,8 +58,10 @@ from ...ops.selective_scan import selective_scan
 from ...utils.device import resolve_device
 from ...utils.layout import to_channels_first, to_channels_last
 from ..registry import register_model
-from .common import (ConvTranspose3d, LayerNorm, Linear, _normalize, gelu,
-                     init_weights_, pointwise, wide)
+from .common import (ConvTranspose3d, Dropout, LayerNorm, Linear, _normalize,
+                     gelu, init_weights_, pointwise, wide)
+
+Gen = Optional[torch.Generator]
 
 
 def _lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -85,11 +92,16 @@ class InstanceNormAffine(nn.Module):
 
 class DenseConvBlock(nn.Module):
     """Depthwise 3³ + instance norm, then a dense 1×1 expand (GELU) and a
-    dense 1×1 out over the concatenated features (+ x at equal width)."""
+    dense 1×1 out over the concatenated features (+ x at equal width); in
+    training the norm's output drops at ``dropout_rate`` and the expansion
+    at twice it."""
 
-    def __init__(self, in_ch: int, out_ch: int, expand_rate: int = 4):
+    def __init__(self, in_ch: int, out_ch: int, expand_rate: int = 4,
+                 dropout_rate: float = 0.0):
         super().__init__()
         c = in_ch
+        self.drop1 = Dropout(dropout_rate)
+        self.drop2 = Dropout(2 * dropout_rate)
         self.conv_list = nn.ModuleList([
             nn.Sequential(GroupedConv3d(c, c, 3, groups=c),
                           InstanceNormAffine(c)),
@@ -97,9 +109,13 @@ class DenseConvBlock(nn.Module):
             nn.Sequential(Conv1x1(2 * c + c * expand_rate, out_ch))])
         self.residual = in_ch == out_ch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1 = self.conv_list[0][1](_conv_cl(self.conv_list[0][0], x))
-        x2 = gelu(pointwise(self.conv_list[1][0], torch.cat([x, x1], dim=-1)))
+    def forward(self, x: torch.Tensor, generator: Gen = None
+                ) -> torch.Tensor:
+        x1 = self.drop1(self.conv_list[0][1](_conv_cl(self.conv_list[0][0],
+                                                      x)), generator)
+        x2 = self.drop2(gelu(pointwise(self.conv_list[1][0],
+                                       torch.cat([x, x1], dim=-1))),
+                        generator)
         out = pointwise(self.conv_list[2][0], torch.cat([x, x1, x2], dim=-1))
         return out + x if self.residual else out
 
@@ -316,18 +332,19 @@ class Down(nn.Module):
     returns (pre-extractor, post-extractor)."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int,
-                 feature_size: Sequence[int], expand_rate: int = 4):
+                 feature_size: Sequence[int], expand_rate: int = 4,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.stride = stride
         self.downsample_resnext = ResNeXtConv(in_ch, in_ch, stride)
         self.tmamba = TriplaneMamba(in_ch, feature_size)
-        self.extractor = nn.ModuleList([DenseConvBlock(in_ch, out_ch,
-                                                       expand_rate)])
+        self.extractor = nn.ModuleList([DenseConvBlock(
+            in_ch, out_ch, expand_rate, dropout_rate)])
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator: Gen = None):
         x = self.tmamba(_avg_pool(x, self.stride)
                         + self.downsample_resnext(x))
-        return x, self.extractor[0](x)
+        return x, self.extractor[0](x, generator)
 
 
 class Up(nn.Module):
@@ -352,7 +369,9 @@ class HCMA(nn.Module):
                  patch_ini: Sequence[int] = (128, 128, 128),
                  channels: Sequence[int] = (32, 64, 128, 256, 512),
                  strides: Sequence[int] = (2, 2, 2, 1),
-                 encoder_expand_rate: Sequence[int] = (4, 4, 4, 4)):
+                 encoder_expand_rate: Sequence[int] = (4, 4, 4, 4),
+                 dropout_rate_list: Sequence[float] = (0.025, 0.05, 0.1,
+                                                       0.1)):
         super().__init__()
         depth = len(strides)
         sizes = [tuple(patch_ini)]
@@ -363,23 +382,28 @@ class HCMA(nn.Module):
         for i in range(depth):
             self.encoders.append(Down(channels[i], channels[i + 1],
                                       strides[i], sizes[i + 1],
-                                      encoder_expand_rate[i]))
+                                      encoder_expand_rate[i],
+                                      dropout_rate_list[i]))
         self.decoders = nn.ModuleList(
             Up(channels[depth - i], channels[depth - i - 1],
                strides[depth - i - 1]) for i in range(depth))
         # the predict mode's head, out[depth - 1], alone
         self.out = nn.ModuleDict({str(depth - 1): nn.Module()})
         self.out[str(depth - 1)].conv1 = Conv1x1(channels[0], n_classes)
+        self.out_drop = Dropout(0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.encoders[0](x)
+    def forward(self, x: torch.Tensor, generator: Gen = None
+                ) -> torch.Tensor:
+        """``generator`` draws the dropouts in training."""
+        h = self.encoders[0](x, generator)
         skips = []
         for down in self.encoders[1:]:
-            x_down, h = down(h)
+            x_down, h = down(h, generator)
             skips.append(x_down)
         for up, skip in zip(self.decoders, reversed(skips)):
             h = up(h, skip)
-        return pointwise(self.out[str(len(self.decoders) - 1)].conv1, h)
+        return pointwise(self.out[str(len(self.decoders) - 1)].conv1,
+                         self.out_drop(h, generator))
 
 
 @register_model("HCMA-UNet", sized="patch_ini")

@@ -8,9 +8,11 @@ reference never updates its grid, so it is a constant here, in fp32 on
 every device whatever the model's dtype, and no part of the state dict
 (the reference's ``.grid`` keys are dropped when a ``.pth`` is read).
 
-As the JAX layer: the input, the basis and both products in fp32 and the
-output cast back to the input's dtype; in bf16 the scaled spline weights
-``spline_weight ∘ spline_scaler`` are one bf16 product before they widen.
+As the JAX layer: the input, the basis and both products in fp32 (float64
+stays float64, as the zoo's norms keep it: a float64 step is then float64
+throughout) and the output cast back to the input's dtype; in bf16 the
+scaled spline weights ``spline_weight ∘ spline_scaler`` are one bf16
+product before they widen.
 
 Parameter names and shapes are the reference's: ``base_weight`` and
 ``spline_scaler`` ``(out, in)``, ``spline_weight`` ``(out, in, grid_size
@@ -22,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+
+from .common import wide
 
 
 def _make_grid(in_features: int, grid_size: int, spline_order: int,
@@ -82,11 +86,13 @@ class KANLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = x.shape
-        xf = x.reshape(-1, shape[-1]).float()
-        base = torch.nn.functional.silu(xf) @ self.base_weight.float().t()
-        basis = b_splines(xf, self.grid(x.device), self.spline_order)
+        xf = wide(x.reshape(-1, shape[-1]))
+        base = torch.nn.functional.silu(xf) @ self.base_weight.to(
+            xf.dtype).t()
+        basis = b_splines(xf, self.grid(x.device).to(xf.dtype),
+                          self.spline_order)
         scaled = (self.spline_weight
-                  * self.spline_scaler.unsqueeze(-1)).float()
+                  * self.spline_scaler.unsqueeze(-1)).to(xf.dtype)
         spline = basis.reshape(xf.shape[0], -1) \
             @ scaled.reshape(scaled.shape[0], -1).t()
         return (base + spline).to(x.dtype).reshape(*shape[:-1], -1)

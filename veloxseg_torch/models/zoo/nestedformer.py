@@ -17,7 +17,11 @@ are sized by the input, so the model is built for an ``image_size``
 (default 96³). Its 1/16 bottleneck must be a multiple of the window: at
 Hecktor's (128, 128, 64) it is (8, 8, 4), where the JAX module fails in
 a reshape, so the builder raises :class:`..registry.CannotRunAtShape`
-(a ``ValueError``) there.
+(a ``ValueError``) there. In training every attention of the fusion
+(each block's two axial ones and the cross attention) drops its fp32
+weights and its output at 0.1
+(``nestedformer.py:122, 126``), drawn from the generator passed to the
+forward.
 
 Parameter names: the reference's state-dict keys
 (``encoder.encoders.0.conv_0.conv_1.conv_1.0``, ``encoder.encoders.0.
@@ -34,7 +38,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +49,10 @@ from ...nn.norms import InstanceNorm
 from ...utils.device import resolve_device
 from ...utils.layout import to_channels_first, to_channels_last
 from ..registry import CannotRunAtShape, register_model
-from .common import (ConvTranspose3d, LayerNorm, Linear, gelu, init_weights_,
-                     pointwise, wide)
+from .common import (ConvTranspose3d, Dropout, LayerNorm, Linear, gelu,
+                     init_weights_, pointwise, wide)
+
+Gen = Optional[torch.Generator]
 
 FEA = (16, 16, 32, 64, 128, 16)
 
@@ -168,24 +174,30 @@ class ModalityEncoder(nn.Module):
 
 
 class MHA(nn.Module):
-    def __init__(self, hidden: int, heads: int = 8):
+    """Attention with the weights (in fp32) and the output dropped at
+    ``drop`` in training."""
+
+    def __init__(self, hidden: int, heads: int = 8, drop: float = 0.1):
         super().__init__()
         self.heads = heads
+        self.attn_drop = Dropout(drop)
+        self.out_drop = Dropout(drop)
         self.query = Linear(hidden, hidden)
         self.key = Linear(hidden, hidden)
         self.value = Linear(hidden, hidden)
         self.out = Linear(hidden, hidden)
 
-    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
+                generator: Gen = None) -> torch.Tensor:
         b, nq, c = q_in.shape
         nk, h = kv_in.shape[1], self.heads
         q = self.query(q_in).view(b, nq, h, c // h).transpose(1, 2)
         k = self.key(kv_in).view(b, nk, h, c // h).transpose(1, 2)
         v = self.value(kv_in).view(b, nk, h, c // h).transpose(1, 2)
         s = (wide(q) @ wide(k).transpose(-1, -2)) / math.sqrt(c // h)
-        a = torch.softmax(s, dim=-1).to(v.dtype)
-        return self.out((a @ v).transpose(1, 2).reshape(b, nq, c))
+        a = self.attn_drop(torch.softmax(s, dim=-1), generator).to(v.dtype)
+        o = self.out((a @ v).transpose(1, 2).reshape(b, nq, c))
+        return self.out_drop(o, generator)
 
 
 class Window3DAttention(nn.Module):
@@ -252,7 +264,8 @@ class MultiAttBlock(nn.Module):
         self.ffn_norm = LayerNorm(hidden)
         self.ffn = _FFN(hidden, mlp_dim, conv=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Gen = None
+                ) -> torch.Tensor:
         b, d, h, w, c = x.shape
         y = self.attention_norm(x)
         x1 = y.reshape(b * d, h * w, c)
@@ -261,8 +274,8 @@ class MultiAttBlock(nn.Module):
         if a.is_position:
             x1 = x1 + a.pos_embedding_1.position_embeddings
             x2 = x2 + a.pos_embedding_2.position_embeddings
-        x1 = a.v_attention(x1, x1).reshape(b, d, h, w, c)
-        x2 = a.h_attention(x2, x2).reshape(b, h, w, d, c).permute(
+        x1 = a.v_attention(x1, x1, generator).reshape(b, d, h, w, c)
+        x2 = a.h_attention(x2, x2, generator).reshape(b, h, w, d, c).permute(
             0, 3, 1, 2, 4)
         x = (x1 + x2 + a.window_attention(y)) + x
         return self.ffn(self.ffn_norm(x)) + x
@@ -278,10 +291,11 @@ class _SpatialAtt(nn.Module):
             MultiAttBlock(hidden, 2 * hidden, window, size, i == 0)
             for i in range(num_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Gen = None
+                ) -> torch.Tensor:
         q = pointwise(self.embeddings.patch_embeddings, x)
         for block in self.block_list:
-            q = block(q)
+            q = block(q, generator)
         return q
 
 
@@ -293,8 +307,9 @@ class _CrossAttention(nn.Module):
         self.ffn_norm = LayerNorm(hidden)
         self.ffn = _FFN(hidden, 2 * hidden, conv=False)
 
-    def forward(self, q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
-        y = self.attention_norm_cross(self.attn_cross(q, kv) + q)
+    def forward(self, q: torch.Tensor, kv: torch.Tensor,
+                generator: Gen = None) -> torch.Tensor:
+        y = self.attention_norm_cross(self.attn_cross(q, kv, generator) + q)
         return self.ffn_norm(self.ffn(y) + y)
 
 
@@ -321,14 +336,15 @@ class _ModalityAtt(nn.Module):
         return (sel.transpose(1, 2) @ e.reshape(b, d * h * w, c)) \
             / (d * h * w)
 
-    def forward(self, q_seq: torch.Tensor, feats) -> torch.Tensor:
+    def forward(self, q_seq: torch.Tensor, feats, generator: Gen = None
+                ) -> torch.Tensor:
         kv = []
         for emb, f in zip(self.embeddings, feats):
             e = pointwise(emb.patch_embeddings, f)
             e = e.reshape(e.shape[0], -1, e.shape[-1]) \
                 + emb.position_embeddings
             kv.append(self.tokens(e.reshape(f.shape[:-1] + (-1,))))
-        return self.cross_attention(q_seq, torch.cat(kv, dim=1))
+        return self.cross_attention(q_seq, torch.cat(kv, dim=1), generator)
 
 
 class Fusion(nn.Module):
@@ -341,11 +357,11 @@ class Fusion(nn.Module):
         self.modality_att = _ModalityAtt(model_num, hidden, math.prod(size),
                                          token_mixer_size)
 
-    def forward(self, feats) -> torch.Tensor:
+    def forward(self, feats, generator: Gen = None) -> torch.Tensor:
         """The modalities' channels-last bottlenecks → the fused one."""
-        q = self.spatial_att(torch.cat(feats, dim=-1))
+        q = self.spatial_att(torch.cat(feats, dim=-1), generator)
         b, d, h, w, c = q.shape
-        y = self.modality_att(q.reshape(b, d * h * w, c), feats)
+        y = self.modality_att(q.reshape(b, d * h * w, c), feats, generator)
         return y.reshape(b, d, h, w, c)
 
 
@@ -386,7 +402,9 @@ class NestedFormer(nn.Module):
         self.upcat_1 = UpCat(FEA[1], FEA[0], FEA[5])
         self.final_conv = Conv1x1(FEA[5], out_channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Gen = None
+                ) -> torch.Tensor:
+        """``generator`` draws the attentions' dropouts in training."""
         x = to_channels_first(x)
         per_mod = [enc(x[:, m:m + 1])
                    for m, enc in enumerate(self.encoder.encoders)]
@@ -396,7 +414,7 @@ class NestedFormer(nn.Module):
                 torch.cat([f[level] for f in per_mod], dim=1))
 
         fusion = to_channels_first(self.fusion(
-            [to_channels_last(f[4]) for f in per_mod])) + fuse(4)
+            [to_channels_last(f[4]) for f in per_mod], generator)) + fuse(4)
         u = self.upcat_4(fusion, fuse(3))
         u = self.upcat_3(u, fuse(2))
         u = self.upcat_2(u, fuse(1))

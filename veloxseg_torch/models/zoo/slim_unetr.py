@@ -13,7 +13,10 @@ The reference's bottleneck quirk is kept (``Decoder.py:58``, ``
 slim_unetr.py:117-123``): the ``(B, N, C)`` tokens are reshaped straight
 to ``(B, C, D, H, W)``, which scrambles tokens and channels.
 ``embedding_dim`` must equal the bottleneck's token count (27 at 96³, 32
-at 128×128×64, 1 at 32³).
+at 128×128×64, 1 at 32³). In training the tokens pass a dropout at
+``dropout`` (0.3 unless the config says otherwise, ``slim_unetr.py:122,
+159``) after the position embedding, drawn from the generator passed to
+the forward.
 
 Parameter names: the reference's state-dict keys
 (``Encoder.DWconv1.depth_wise``, ``Encoder.block1.0.GlobalST.qkv``,
@@ -25,7 +28,7 @@ and out.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -34,8 +37,8 @@ from ...nn.basic import Conv1x1, GroupedConv3d
 from ...utils.device import resolve_device
 from ...utils.layout import to_channels_first, to_channels_last
 from ..registry import register_model
-from .common import (BatchNormNoTrack, ConvTranspose3d, GroupNorm, gelu,
-                     init_weights_, wide)
+from .common import (BatchNormNoTrack, ConvTranspose3d, Dropout, GroupNorm,
+                     gelu, init_weights_, wide)
 
 
 class _Positional(nn.Module):
@@ -143,7 +146,8 @@ def _blocks(c: int, n: int, heads: int, r: int) -> nn.Sequential:
 
 
 class Encoder(nn.Module):
-    def __init__(self, in_ch, ch, blocks, heads, r, embedding_dim):
+    def __init__(self, in_ch, ch, blocks, heads, r, embedding_dim,
+                 dropout):
         super().__init__()
         strides = (4, 2, 2, 2)
         cin = in_ch
@@ -154,13 +158,17 @@ class Encoder(nn.Module):
             cin = ch[i]
         self.position_embeddings = nn.Parameter(
             torch.zeros(1, embedding_dim, ch[3]))
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         skips = []
         for i in range(1, 5):
             x = getattr(self, f"block{i}")(getattr(self, f"DWconv{i}")(x))
             skips.append(x)
-        tokens = x.flatten(2).transpose(1, 2) + self.position_embeddings
+        tokens = self.dropout(
+            x.flatten(2).transpose(1, 2) + self.position_embeddings,
+            generator)
         # the quirk: (B, N, C) read as (B, C, D, H, W)
         return tokens.contiguous().reshape(x.shape), skips[:3]
 
@@ -190,15 +198,18 @@ class SlimUNETR(nn.Module):
                  channels: Sequence[int] = (24, 48, 60),
                  blocks: Sequence[int] = (1, 2, 3, 2),
                  heads: Sequence[int] = (1, 2, 4, 4),
-                 r: Sequence[int] = (4, 2, 2, 1)):
+                 r: Sequence[int] = (4, 2, 2, 1), dropout: float = 0.3):
         super().__init__()
         ch = list(channels) + [embed_dim]
         self.Encoder = Encoder(in_channels, ch, blocks, heads, r,
-                               embedding_dim)
+                               embedding_dim, dropout)
         self.Decoder = Decoder(out_channels, ch, blocks, heads, r)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, skips = self.Encoder(to_channels_first(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """``generator`` draws the bottleneck's dropout in training."""
+        x, skips = self.Encoder(to_channels_first(x), generator)
         return to_channels_last(self.Decoder(x, skips))
 
 
@@ -206,7 +217,8 @@ class SlimUNETR(nn.Module):
 def build_slim_unetr(cfg: dict, device=None, seed: int = 0) -> SlimUNETR:
     """Eval-mode SlimUNETR from its model-config entry (``in_channels``,
     ``out_channels``, ``embed_dim``, ``embedding_dim``, optional
-    ``channels``, ``blocks``, ``heads``, ``r``), He-normal seeded convs;
+    ``channels``, ``blocks``, ``heads``, ``r``, ``dropout``), He-normal
+    seeded convs;
     the position embedding at 0, as the JAX module's init."""
     dev = resolve_device(device)
     model = SlimUNETR(
@@ -215,6 +227,6 @@ def build_slim_unetr(cfg: dict, device=None, seed: int = 0) -> SlimUNETR:
         tuple(cfg.get("channels", (24, 48, 60))),
         tuple(cfg.get("blocks", (1, 2, 3, 2))),
         tuple(cfg.get("heads", (1, 2, 4, 4))),
-        tuple(cfg.get("r", (4, 2, 2, 1))))
+        tuple(cfg.get("r", (4, 2, 2, 1))), cfg.get("dropout", 0.3))
     init_weights_(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -9,10 +9,13 @@ GELU → 1×1, + the residual·scale), a GroupNorm and a two-layer 1×1 head.
 A THPA block normalizes half of its channels and runs GHPA (EGE-UNet's
 grouped multi-axis Hadamard-product attention, 2-D) on the slices across
 one folded axis, bidirectionally; it concatenates the other half, then
-instance norm and a 1×1 MLP. In eval the JAX module folds axis 2 (H) and
-runs the reverse pass as the flip of the forward one along that axis
-(``superlightnet.py:121-147``); the reference's random fold direction is
-train mode, not ported. GHPA's learned maps are resized to the slice with
+instance norm and a 1×1 MLP. The reverse pass is the flip of the forward
+one along the folded axis (``superlightnet.py:121-147``). In eval every
+block folds axis 2 (H) of the channels-last ``(B, D, H, W, C)``; in
+training each block takes a direction d ∈ {0, 1, 2} drawn per step
+(:func:`fold_directions`) and folds axis 2, 1 or 3 for d = 0, 1, 2, the
+JAX module's branches in its order (``superlightnet.py:139-144``).
+GHPA's learned maps are resized to the slice with
 ``align_corners=True`` (:func:`..ops.resize.interp_matrix`), and its 2-D
 and 1-D depthwise convs pad ``SAME``.
 
@@ -28,7 +31,8 @@ reference's layouts (GHPA's 2-D convs ``(O, I/g, k, k)``, its 1-D convs
 
 from __future__ import annotations
 
-from typing import Sequence
+import hashlib
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -120,6 +124,25 @@ class Mlp(nn.Module):
         return self.fc2(gelu(self.fc1(x)))
 
 
+# direction → the channels-last axis folded (``superlightnet.py:139-144``)
+FOLD_AXES = (2, 1, 3)
+
+
+def fold_directions(n: int, generator: torch.Generator) -> List[int]:
+    """One training step's fold directions in {0, 1, 2}, one per THPA
+    block, without a device sync: they are drawn on the host from a CPU
+    generator seeded by ``generator``'s state (a CUDA generator's seed and
+    Philox offset live on the host, so reading them launches nothing and
+    waits for nothing, where a draw on the card read by ``.item()`` would
+    wait for the card), and ``generator`` then advances by one draw on its
+    own device, so that the next step draws other directions."""
+    digest = hashlib.sha256(generator.get_state().numpy().tobytes())
+    host = torch.Generator().manual_seed(
+        int.from_bytes(digest.digest()[:8], "little"))
+    torch.empty((), device=generator.device).random_(generator=generator)
+    return torch.randint(0, 3, (n,), generator=host).tolist()
+
+
 class THPABlock(nn.Module):
     def __init__(self, channels: int, expr: int = 2):
         super().__init__()
@@ -127,15 +150,18 @@ class THPABlock(nn.Module):
         self.GHPA_dim = GHPA(half, half)
         self.mlp = Mlp(channels, expr)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: ``(B, C, D, H, W)``; GHPA over the (D, W) slices of each H."""
+    def forward(self, x: torch.Tensor, direction: int = 0) -> torch.Tensor:
+        """x: ``(B, C, D, H, W)``; GHPA over the slices across the
+        channels-last axis ``FOLD_AXES[direction]`` (direction 0: the (D,
+        W) slices of each H)."""
         half = x.shape[1] // 2
-        a = instance_norm(x[:, :half])
-        b, c, d, h, w = a.shape
-        folded = a.permute(0, 3, 2, 4, 1).reshape(b * h, d, w, c)
-        y = self.GHPA_dim(folded).reshape(b, h, d, w, c).permute(
-            0, 4, 2, 1, 3)
-        y = y + torch.flip(y, dims=(3,))
+        axis = FOLD_AXES[direction]
+        a = instance_norm(x[:, :half]).permute(0, 2, 3, 4, 1)
+        folded = torch.movedim(a, axis, 1)
+        b, n = folded.shape[:2]
+        y = self.GHPA_dim(folded.reshape(b * n, *folded.shape[2:]))
+        y = torch.movedim(y.reshape(b, n, *y.shape[1:]), 1, axis)
+        y = (y + torch.flip(y, dims=(axis,))).permute(0, 4, 1, 2, 3)
         return self.mlp(instance_norm(torch.cat([y, x[:, half:]], dim=1)))
 
 
@@ -154,16 +180,18 @@ class Encoder(nn.Module):
         self.emb_block = nn.ModuleList(THPABlock(n * 16, expr)
                                        for _ in range(depths[4]))
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, directions: Sequence[int]):
+        """``directions``: each THPA block's, in the order they run."""
+        directions = iter(directions)
         x = self.stem(x)
         skips = []
         for s in range(4):
             for block in getattr(self, f"repr_block_{s}"):
-                x = block(x)
+                x = block(x, next(directions))
             skips.append(x)
             x = getattr(self, f"dwn_block_{s}").proj(instance_norm(x))
         for block in self.emb_block:
-            x = block(x)
+            x = block(x, next(directions))
         return x, skips
 
 
@@ -207,8 +235,21 @@ class SuperLightNet(nn.Module):
         self.norm = GroupNorm(n, n)
         self.proj = Mlp(n, expr, class_nums)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, skips = self.ParallelU_Net_enc_m(to_channels_first(x))
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """In training ``generator`` draws the blocks' fold directions
+        (:func:`fold_directions`); eval folds axis 2 in every block."""
+        enc = self.ParallelU_Net_enc_m
+        n = sum(isinstance(m, THPABlock) for m in enc.modules())
+        if not self.training:
+            directions = [0] * n
+        elif generator is None:
+            raise ValueError("SuperLightNet in training draws its fold "
+                             "directions from a torch.Generator")
+        else:
+            directions = fold_directions(n, generator)
+        x, skips = enc(to_channels_first(x), directions)
         x = self.ParallelU_Net_dec_m(x, skips)
         return to_channels_last(self.proj(self.norm(x)))
 

@@ -6,7 +6,12 @@ layers 3, 6 and 9 and final norm feed a deconv + residual-conv decoder
 (feature size 16, convs with bias, per-channel GroupNorm with an affine),
 and a 1×1 head. The attention is flax's ``MultiHeadDotProductAttention``:
 separate q, k and v projections with biases, q divided by √64, softmax,
-an output projection.
+an output projection. In training the tokens pass a dropout at
+``dropout_rate`` after the position embedding (``unetr.py:102``) and the
+attention weights one at flax's default rate (``unetr.py:110``); both
+rates are 0.0, as the JAX builder leaves them (it reads no rate from the
+config), so the published model draws nothing, but the sites take the
+generator passed to the forward.
 
 Parameter names: the flax paths of the JAX module with ``/`` as ``.``
 (``patch_embed``, ``pos_embed``, ``l0_attn.query``, ``l0_fc1``,
@@ -19,7 +24,7 @@ spatial size must be ``img_size``.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -29,8 +34,8 @@ from ...nn.basic import Conv1x1, GroupedConv3d
 from ...utils.device import resolve_device
 from ...utils.layout import to_channels_first, to_channels_last
 from ..registry import register_model
-from .common import (ConvTranspose3d, GroupNorm, LayerNorm, Linear, gelu,
-                     init_weights_)
+from .common import (ConvTranspose3d, Dropout, GroupNorm, LayerNorm, Linear,
+                     gelu, init_weights_)
 
 
 class ResConvBlock(nn.Module):
@@ -85,24 +90,29 @@ class PrUpPath(nn.Module):
 class MultiHeadAttention(nn.Module):
     """flax ``MultiHeadDotProductAttention`` (self-attention, no mask):
     ``query``, ``key``, ``value`` and ``out`` projections, each a
-    :class:`.common.Linear` with bias."""
+    :class:`.common.Linear` with bias; a dropout of the attention weights
+    at ``dropout_rate`` (flax's default 0.0)."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dropout_rate: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.attn_drop = Dropout(dropout_rate)
         self.query = Linear(dim, dim)
         self.key = Linear(dim, dim)
         self.value = Linear(dim, dim)
         self.out = Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         b, n, c = x.shape
         h = self.num_heads
         d = c // h
         q = self.query(x).view(b, n, h, d).transpose(1, 2) / math.sqrt(d)
         k = self.key(x).view(b, n, h, d).transpose(1, 2)
         v = self.value(x).view(b, n, h, d).transpose(1, 2)
-        w = torch.softmax(q @ k.transpose(-1, -2), dim=-1)
+        w = self.attn_drop(torch.softmax(q @ k.transpose(-1, -2), dim=-1),
+                           generator)
         return self.out((w @ v).transpose(1, 2).reshape(b, n, c))
 
 
@@ -111,7 +121,8 @@ class UNETR(nn.Module):
                  img_size: Sequence[int] = (96, 96, 96),
                  feature_size: int = 16, hidden_size: int = 768,
                  mlp_dim: int = 3072, num_heads: int = 12,
-                 num_layers: int = 12, patch_size: int = 16):
+                 num_layers: int = 12, patch_size: int = 16,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.grid = tuple(s // patch_size for s in img_size)
         self.hidden_size = hidden_size
@@ -121,6 +132,7 @@ class UNETR(nn.Module):
                                          patch_size, stride=patch_size,
                                          padding=0)
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tokens, hidden_size))
+        self.pos_drop = Dropout(dropout_rate)
         for i in range(num_layers):
             self.add_module(f"l{i}_norm1", LayerNorm(hidden_size))
             self.add_module(f"l{i}_attn", MultiHeadAttention(hidden_size,
@@ -147,14 +159,18 @@ class UNETR(nn.Module):
         return t.transpose(1, 2).reshape(t.shape[0], self.hidden_size,
                                          *self.grid)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """``generator`` draws the dropouts in training."""
         x = to_channels_first(x)
         tokens = self.patch_embed(x).flatten(2).transpose(1, 2)
-        tokens = tokens + self.pos_embed
+        tokens = self.pos_drop(tokens + self.pos_embed, generator)
         hidden = []
         for i in range(self.num_layers):
             layer = lambda name: getattr(self, f"l{i}_{name}")  # noqa: E731
-            tokens = tokens + layer("attn")(layer("norm1")(tokens))
+            tokens = tokens + layer("attn")(layer("norm1")(tokens),
+                                            generator)
             mlp = gelu(layer("fc1")(layer("norm2")(tokens)))
             tokens = tokens + layer("fc2")(mlp)
             hidden.append(tokens)

@@ -8,7 +8,9 @@ their deep-supervised sum; every other model CE + Dice on its first
 output. MONAI ``DiceLoss(include_background=False, to_onehot_y=True,
 softmax=True)`` semantics (smooth 1e-5 in numerator and denominator).
 Channels-last logits ``(B, *spatial, C)``, integer labels
-``(B, *spatial)``; every reduction in fp32. Only the unblocked heads are
+``(B, *spatial)``; every reduction in fp32, or in float64 for float64
+outputs (a float64 step is then float64 throughout: the yardstick the
+zoo's fp32 steps are held by). Only the unblocked heads are
 ported: the JAX package's ``blocked_scale`` is a TPU layout.
 """
 
@@ -28,11 +30,16 @@ Outputs = Union[torch.Tensor, Sequence[torch.Tensor]]
 SMOOTH = 1e-5          # MONAI DiceLoss's smooth_nr and smooth_dr
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in fp32, or as it is in float64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def softmax_ce_loss(logits: torch.Tensor, labels: torch.Tensor
                     ) -> torch.Tensor:
     """Mean softmax cross-entropy over voxels with integer labels, in fp32
     (``veloxseg_tpu/train/loss.py:28-39``)."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
+    logp = torch.log_softmax(_wide(logits), dim=-1)
     return -torch.mean(torch.gather(logp, -1, labels.long()[..., None]))
 
 
@@ -42,7 +49,7 @@ def fused_ce_dice_loss(logits: torch.Tensor, labels: torch.Tensor
     background class, sharing one log-sum-exp, per class as the JAX package
     computes it."""
     n_classes = logits.shape[-1]
-    xs = [logits[..., c].float() for c in range(n_classes)]
+    xs = [_wide(logits[..., c]) for c in range(n_classes)]
     m = xs[0]
     for xc in xs[1:]:
         m = torch.maximum(m, xc)
@@ -57,7 +64,8 @@ def fused_ce_dice_loss(logits: torch.Tensor, labels: torch.Tensor
         probs_c = exps[c] / sumexp
         mask_c = labels == c
         inter = torch.where(mask_c, probs_c, 0.0).sum(dim=axes)
-        denom = probs_c.sum(dim=axes) + mask_c.float().sum(dim=axes)
+        denom = probs_c.sum(dim=axes) + mask_c.to(probs_c.dtype).sum(
+            dim=axes)
         dice_sum = dice_sum + torch.mean(
             1.0 - (2.0 * inter + SMOOTH) / (denom + SMOOTH))
     return ce + dice_sum / (n_classes - 1)
@@ -109,13 +117,12 @@ class CompositeLoss:
             s0, s1 = layout["seg"]
             seg = self.deep_seg_loss(output[s0:s1], labels)
             rc = torch.mean(torch.square(
-                output[layout["reconstruction"]].float()
-                - sr_labels.float()))
-            student = output[layout["decoder_gram"]].float()
+                _wide(output[layout["reconstruction"]]) - _wide(sr_labels)))
+            student = _wide(output[layout["decoder_gram"]])
             feat = 0.0
             for t in layout["teacher_grams"]:
                 feat = feat + torch.mean(torch.square(student
-                                                      - output[t].float()))
+                                                      - _wide(output[t])))
             feat = feat / self.num_modal
             return (seg + self.rc_loss_weight * rc
                     + self.feature_loss_weight * feat)

@@ -60,11 +60,12 @@ def create_train_state(model: torch.nn.Module,
 
 
 def takes_generator(model: torch.nn.Module) -> bool:
-    """Whether ``model``'s forward draws its dropout from a
-    ``torch.Generator`` argument (VeloxSeg's ``forward(x, generator)``);
-    the zoo's models, which draw nothing in training, take the input
-    alone, and the step passes the generator only to a model that takes
-    one."""
+    """Whether ``model``'s forward draws from a ``torch.Generator``
+    argument in training: VeloxSeg's ``forward(x, generator)``, and the
+    zoo's ``forward(x, generator=None)`` of every model with a dropout site
+    (``models/zoo/common.dropout``) or SuperLightNet's fold draw. A model
+    that draws nothing (UNet, SegFormer, ...) takes the input alone; the
+    step passes the generator only to a model that takes one."""
     return "generator" in inspect.signature(model.forward).parameters
 
 
@@ -135,8 +136,8 @@ def train_step_fn(loss_obj: CompositeLoss,
     moved to the device; ``generator`` the ``torch.Generator`` (on the
     device) that draws every dropout mask and attention seed of the step,
     passed to a model whose forward takes one (:func:`takes_generator`);
-    the zoo's models draw nothing in training and are called on the input
-    alone. ``loss_obj`` is the model's ``CompositeLoss``.
+    a model that draws nothing is called on the input alone. ``loss_obj``
+    is the model's ``CompositeLoss``.
     """
     dev = resolve_device(device)
 

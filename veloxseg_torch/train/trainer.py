@@ -34,13 +34,17 @@ Deltas from the JAX trainer:
   come from the unblocked head 0.
 - one device: ``--mesh`` and ``--distributed`` raise (``ROADMAP.md`` §1
   item 5).
-- the models of :data:`TRAINABLE`: VeloxSeg, and U-RWKV, UNet, MedNeXt,
-  SwinUNETR and U-KAN, whose JAX train forward is their eval forward (no
-  dropout, one output); U-RWKV's WKV backward is kernel K6b. The other
-  eleven of the zoo raise (their dropout and deep-supervision training
-  forwards: ``ROADMAP.md`` §1 item 6). The loss is the model's branch of
-  ``CompositeLoss``; the step passes the dropout generator to VeloxSeg
-  alone (``train_state.takes_generator``).
+- the models of :data:`TRAINABLE`: VeloxSeg, and twelve of the zoo:
+  U-RWKV, UNet, MedNeXt, SwinUNETR, U-KAN and SegFormer, which draw
+  nothing in training (U-RWKV's WKV backward is kernel K6b), and
+  VNet, UNETR, SlimUNETR, NestedFormer, SuperLightNet and HCMA-UNet, which
+  draw their dropouts (SuperLightNet its fold directions) from the step's
+  generator (``train_state.takes_generator``). The other four raise
+  (:data:`UNTRAINED`: ``ROADMAP.md`` §1 item 6). The loss is the model's
+  branch of ``CompositeLoss``; a sized model (SwinUNETR, UNETR,
+  NestedFormer, HCMA-UNet) whose entry names no size is built for the
+  patch, and NestedFormer at Hecktor's size raises ``CannotRunAtShape``
+  before any step, as its builder does.
 - ``steps_per_dispatch`` K is accepted (still exclusive of ``grad_accum``)
   and logged, and the loop steps one batch at a time: the JAX trainer
   scans K steps in one dispatch, and eager PyTorch issues K steps as K
@@ -83,7 +87,16 @@ from .train_state import create_train_state, eval_step_fn, train_step_fn
 
 
 # the models the port trains
-TRAINABLE = ("VeloxSeg", "U-RWKV", "UNet", "MedNeXt", "SwinUNETR", "U-KAN")
+TRAINABLE = ("VeloxSeg", "U-RWKV", "UNet", "MedNeXt", "SwinUNETR", "U-KAN",
+             "VNet", "UNETR", "SegFormer", "SlimUNETR", "NestedFormer",
+             "SuperLightNet", "HCMA-UNet")
+# the zoo models it does not train yet → what their training forward needs
+UNTRAINED = {
+    "UNETRpp": "its deep-supervision train forward",
+    "VSmTrans": "DropPath and its deep-supervision train forward",
+    "HDense": "its deep-supervision train forward",
+    "A2FSeg": "its 1 + 5·N grouped train outputs",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,10 +238,10 @@ def run_train(args, train_config: dict, model_config: dict,
             f"Model {args.model_name!r} not present in the model config; "
             f"available: {sorted(model_config)}")
     if args.model_name not in TRAINABLE:
+        need = UNTRAINED.get(args.model_name, "its training forward")
         raise NotImplementedError(
             f"the port trains {', '.join(TRAINABLE)}; {args.model_name} "
-            "needs its training forward (dropout, deep supervision: "
-            "ROADMAP.md §1 item 6)")
+            f"needs {need} (ROADMAP.md §1 item 6)")
     date = datetime.now().strftime("%m_%d")
 
     # Resume re-derives the run dir from the checkpoint path
