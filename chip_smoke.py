@@ -21,7 +21,9 @@ Phases (any failure exits non-zero; nothing is caught and waved through):
    L = 1024, K4f, K5f, K4b and K5b at its four JLC levels. U-RWKV: K6 at
    its bottleneck's (4, 216, 128). K1, K2f and K3f are one kernel
    (``csrc/pwa_attention_train.cu``, K1 its instance without dropout and
-   lse); its launch geometry is printed for each, and K6's.
+   lse); its launch geometry is printed for each, and K6's. K3f's and
+   K5f's bf16 forms are kernels of their own on the bf16 tensor cores
+   (``csrc/pwa_attention_long_mma.cu``, ``csrc/jlc_stage2_mma.cu``).
    K4b is held against its plain version in dy and in the branch
    weights' gradient; its weight-gradient launches
    are also timed alone ("jlc_branch_wgrad", on K4b's own dy). K2f and K3f
@@ -3142,6 +3144,10 @@ def main() -> int:
             lambda: fwd(*qkvb32, scale, p_drop)))
         vs_fp32[f"{tag}b {name}"] = (ms_b, cuda_ms(
             lambda: bwd(*qkvb32, do32, scale, p_drop, o32, l32)))
+        if long:
+            print(f"[3] K3f bf16 {name}: geometry "
+                  f"{pa.long_mma_launch(b, h, n, L, _cuda.sm_count(dev))}",
+                  flush=True)
         print(f"[3] {tag} bf16 {name}: out {equal:.4%} bit-equal to the "
               f"plain version | fwd {ms_f:.4f} ms (fp32 form "
               f"{vs_fp32[f'{tag}f {name}'][1]:.4f}), bwd {ms_b:.4f} ms (fp32 "
@@ -3157,6 +3163,7 @@ def main() -> int:
         forms on the same values; no one library call computes them. The
         statistics and every K5b output must repeat bit for bit."""
         b, c, s = out1.shape[0], out1.shape[1], out1.shape[2]
+        sms = _cuda.sm_count(dev)
         w1 = randn(e * c, c, 1, 1, 1, scale=(2.0 / c) ** 0.5).to(bf)
         b1 = randn(e * c, scale=0.1).to(bf)
         w2 = randn(c, e * c, 1, 1, 1, scale=(2.0 / (e * c)) ** 0.5).to(bf)
@@ -3188,7 +3195,8 @@ def main() -> int:
                 lambda: fused_jlc.jlc_stage2(out1, w1, b1, w2, b2),
                 lambda: fused_jlc.jlc_stage2(*f32))
         text = (f"K5f {ms5f:.4f} ms (fp32 form "
-                f"{vs_fp32[f'K5f {name}'][1]:.4f}), {dev5f}")
+                f"{vs_fp32[f'K5f {name}'][1]:.4f}), {dev5f}, geometry "
+                f"{fused_jlc.stage2_mma_launch(b, c, e * c, s ** 3, sms)}")
         if backward:
             g = randn(*out1.shape).to(bf)
             args = (out1, w1, b1, w2, g, mean, rstd)
@@ -4243,12 +4251,20 @@ def main() -> int:
         "wkv_bwd": ("veloxseg_torch/csrc/wkv.cu",
                     "veloxseg_tpu/ops/wkv.py:161"),
     }
-    # the bf16 forms: the same sources built with -DVS_BF16
+    # the bf16 forms: the same sources built with -DVS_BF16 (but K3f's and
+    # K5f's)
     bf16_forms = ("pwa_attention", "pwa_attention_train_fwd",
                   "pwa_attention_train_bwd", "pwa_attention_train_fwd_long",
                   "pwa_attention_train_bwd_long", "jlc_stage1", "jlc_stage2",
                   "jlc_stage1_bwd", "jlc_branch_wgrad", "jlc_stage2_bwd")
     meta.update({f"{n}_bf16": meta[n] for n in bf16_forms})
+    # K3f's and K5f's bf16 forms are kernels of their own, on the tensor
+    # cores
+    meta["pwa_attention_train_fwd_long_bf16"] = (
+        "veloxseg_torch/csrc/pwa_attention_long_mma.cu",
+        "veloxseg_tpu/ops/pwa_attention.py:410")
+    meta["jlc_stage2_bf16"] = ("veloxseg_torch/csrc/jlc_stage2_mma.cu",
+                               "veloxseg_tpu/ops/fused_jlc.py:177")
     per = {"serving": "forward, 4 tiles, AutoPET-II 96³",
            "train_96": f"train step, B={batch}, AutoPET-II 96³",
            "train_96_bf16": f"bf16 train step, B={batch}, AutoPET-II 96³",

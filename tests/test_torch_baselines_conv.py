@@ -196,6 +196,9 @@ def test_speed_cli_runs_the_zoo_on_the_cpu(tmp_path, monkeypatch, capsys):
     monkeypatch.setitem(speed_main.INPUT_SIZE, "AutoPETII", (32, 32, 32, 2))
     monkeypatch.setattr(speed_main, "T_TIMED", 0.3)
     monkeypatch.setattr(speed_main, "MAX_BS", 1)
+    # one probe dispatch a phase: each model's bf16 forward on the CPU
+    # takes ~1 s, and the default 20 ran 120 of them to size three windows
+    monkeypatch.setattr(speed_main, "PROBE_ITERS", 1)
     results = speed_main.main(["--dataset", "AutoPETII", "--model_config",
                                str(path), "--model_list", "UNet,SegFormer",
                                "--devices", "cpu"])

@@ -5,8 +5,13 @@ through the JAX Pallas block (``fused_jlc.jlc_block``, interpret mode, as
 ``tests/test_fused_jlc.py`` runs it) or, for volumes the 2×2×2 packing
 cannot take, through the JAX ``JLC`` module; the JLC module with its
 stage-2 dropout; K4's, K5f's and K5b's launch geometry; and K5f's and
-K5b's decompositions and padding. The CUDA kernels against their plain
-versions are in ``test_torch_kernels.py``."""
+K5b's decompositions and padding; K5f's bf16 form on the tensor cores:
+its launch geometry at every published level and its split of the
+products against the bf16 plain version. The CUDA kernels against their
+plain versions are in ``test_torch_kernels.py``."""
+
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -14,12 +19,15 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import cf, cl, dense, dhwio, normal, randomize_
+from torch_port_helpers import (assert_bf16_match, cf, cl, dense, dhwio,
+                                normal, randomize_)
 from veloxseg_torch.nn.conv_blocks import JLC
 from veloxseg_torch.ops import fused_jlc as port
 from veloxseg_tpu.interop.torch_import import convert_state_dict
 from veloxseg_tpu.nn.conv_blocks import JLC as JaxJLC
 from veloxseg_tpu.ops import fused_jlc, packed_conv
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _pallas_block_grads(c, groups, convs, expand, project, x, cot):
@@ -401,3 +409,92 @@ def test_stage2_split_form_with_padding_matches_jax_jlc_module(
     # fp32; sums in other orders (per slice and tile)
     np.testing.assert_allclose(cl(got[:, :c]), ref, rtol=0,
                                atol=1e-4 * float(np.abs(ref).max()))
+
+
+# K5f's bf16 form on the tensor cores (csrc/jlc_stage2_mma.cu): its launch
+# geometry at every JLC level of the published configs (AutoPET-II,
+# Hecktor, BraTS) at B = 2, 4 and 16, under its chosen and every forced
+# split of the hidden rows: every voxel and hidden row taken once, the
+# shared memory within a block's 232,448 bytes
+MMA_SMS = 132
+
+
+def _takes_once(ranges, n):
+    """Whether ``[lo, hi)`` ranges, in order, take 0..n-1 once each."""
+    return [i for lo, hi in ranges for i in range(lo, hi)] == list(range(n))
+
+
+def _jlc_levels():
+    """(dataset, level, C, E, S) of every JLC level of the published
+    configs: C = base_ch·2^i, S the level's voxels."""
+    out = []
+    for ds in ("autopetii", "hecktor2022", "brats2021"):
+        with open(os.path.join(ROOT, "config",
+                               f"models_config_{ds}.json")) as f:
+            cfg = json.load(f)["VeloxSeg"]
+        size = [s // cfg["patch_size"] for s in cfg["input_size"]]
+        for i, e in enumerate(cfg["conv_expansion_factor"]):
+            out.append((ds, i, cfg["base_ch"] * 2 ** i, e,
+                        int(np.prod([s // 2 ** i for s in size]))))
+    return out
+
+
+MMA_STAGE2 = [(b, *lv) for b in (2, 4, 16) for lv in _jlc_levels()]
+
+
+@pytest.mark.parametrize("b,ds,level,c,e,s", MMA_STAGE2)
+def test_stage2_mma_launch_takes_every_voxel_and_hidden_row(b, ds, level, c,
+                                                            e, s):
+    cp, hp = port.stage2_mma_widths(c, e * c)
+    assert (cp, hp) == (c, e * c)
+    for hsplit in (0, 1, 2, 4):
+        if hsplit and hp % (16 * hsplit):
+            continue
+        try:
+            lw = port.stage2_mma_launch(b, cp, hp, s, MMA_SMS, hsplit)
+        except ValueError:  # a forced split whose partials do not fit
+            assert hsplit > 1
+            continue
+        assert lw.smem_bytes <= 232448
+        assert lw.smem_bytes == port._k5f_mma_smem_bytes(
+            cp, hp, lw.vt, lw.hsplit)
+        assert lw.tiles * lw.vt >= b * s > (lw.tiles - 1) * lw.vt
+        assert _takes_once(lw.tile_ranges(), lw.tiles)
+        assert all(lo < hi for lo, hi in lw.tile_ranges())
+        work = lw.warp_work(hp)
+        voxels = sorted({v for v, _ in work})
+        assert _takes_once(voxels, lw.vt)
+        for slot in voxels:  # each slot's warps split the hidden rows
+            assert _takes_once(sorted(h for v, h in work if v == slot), hp)
+        assert all((h1 - h0) % 16 == 0 for _, (h0, h1) in work)
+
+
+def test_stage2_mma_widths_pad_to_the_built_channels():
+    assert port.stage2_mma_widths(12, 36) == (16, 48)
+    assert port.stage2_mma_widths(6, 18) == (16, 32)
+    assert port.stage2_mma_widths(100, 200) == (128, 208)
+    with pytest.raises(ValueError, match="C up to 128"):
+        port.stage2_mma_widths(144, 288)
+
+
+@pytest.mark.parametrize("c,e,hsplit", [(16, 3, 1), (32, 3, 2), (64, 2, 4),
+                                        (128, 2, 4), (12, 3, 1)])
+def test_stage2_mma_split_matches_the_plain_version(c, e, hsplit):
+    """K5f's bf16 form adds its hidden parts' fp32 products before b2 and
+    rounds where the plain version rounds (:func:`jlc_stage2_mma_plain`
+    against :func:`jlc_stage2_plain`), at padded widths too."""
+    b, shape = 2, (3, 4, 5)
+    hid = e * c
+    bf = torch.bfloat16
+    x = torch.from_numpy(normal((b, c) + shape, 41, 1.5)).to(bf)
+    w1 = torch.from_numpy(normal((hid, c, 1, 1, 1), 42, (2.0 / c) ** 0.5)
+                          ).to(bf)
+    b1 = torch.from_numpy(normal((hid,), 43, 0.1)).to(bf)
+    w2 = torch.from_numpy(normal((c, hid, 1, 1, 1), 44, (2.0 / hid) ** 0.5)
+                          ).to(bf)
+    b2 = torch.from_numpy(normal((c,), 45, 0.1)).to(bf)
+    ref = port.jlc_stage2_plain(x, w1, b1, w2, b2)
+    ins = port.pad_stage2_fwd(x, w1.reshape(hid, c), b1, w2.reshape(c, hid),
+                              b2, widths=port.stage2_mma_widths)
+    got = port.jlc_stage2_mma_plain(*ins, hsplit)[:, :c]
+    assert_bf16_match(got, ref, f"K5f split C={c} hsplit={hsplit}")

@@ -735,6 +735,40 @@ def test_long_train_attention_bf16_forms_match_plain(b, h, n, c_qk, c_v, l,
         assert torch.equal(a, a2)
 
 
+# K3f's bf16 form (one pass over each window on the tensor cores) at the
+# flagship's L = 1024 (B = 2) and at a ragged L = 729 (9³, staged by plain
+# loads): out against the plain version and against the kernel's own split
+# of its products (hi·V, and out32 = hi·V + lo·V); out, out32 and lse
+# repeat bit for bit
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,n,l", [(2, 2, 9, 1024), (1, 2, 3, 729)])
+def test_long_train_attention_bf16_form_repeats(b, h, n, l, p):
+    dev = cuda_or_skip()
+    pa = pwa_attention
+    q, k, v, bias, _ = _train_inputs(dev, b, h, n, 8, 8, l, seed=23)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    seed = torch.tensor([77, 5], dtype=torch.int32, device=dev)
+    scale = 1.0 / np.sqrt(8)
+    f0 = pa.window_attention_train_fwd_long.launches_bf16
+    got = pa.window_attention_train_fwd_long(q, k, v, bias, seed, scale, p)
+    again = pa.window_attention_train_fwd_long(q, k, v, bias, seed, scale, p)
+    torch.cuda.synchronize()
+    assert pa.window_attention_train_fwd_long.launches_bf16 == f0 + 2
+    ref, ref32 = pa.window_attention_train_fwd_long_plain(q, k, v, bias,
+                                                          seed, scale, p)
+    assert_bf16_match(got[0], ref, "K3f out")
+    torch.testing.assert_close(got[2], ref32, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got[1], pa.train_lse_plain(q, k, bias, scale),
+                               rtol=1e-5, atol=1e-5)
+    mo, m32 = pa.window_attention_train_fwd_long_mma_plain(q, k, v, bias,
+                                                           seed, scale, p)
+    assert_bf16_match(got[0], mo, "K3f out against its split")
+    # the tensor cores' fp32 sums round toward zero: ~5e-6 at 1024 columns
+    torch.testing.assert_close(got[2], m32, rtol=1e-5, atol=1e-5)
+    for a, a2 in zip(got, again):
+        assert torch.equal(a, a2)
+
+
 @pytest.mark.parametrize("c,groups,expansion,s", JLC_LEVELS)
 def test_jlc_stage1_bf16_forms_match_plain(c, groups, expansion, s):
     dev = cuda_or_skip()
@@ -808,7 +842,7 @@ def _stage2_inputs(dev, b, c, e, shape, dtype, seed):
 
 
 # K5f's bf16 form at the speed CLI's four JLC levels (B = 16, AutoPET-II
-# 96³: 24³ to 3³), with two hidden slices (B = 2 at L0) and padded widths
+# 96³: 24³ to 3³), at B = 2's L0 and at padded widths
 K5_BF16 = [(16, 16 * 2 ** i, e, (24 // 2 ** i,) * 3)
            for i, e in enumerate((3, 3, 2, 2))] + [
     (2, 16, 3, (24, 24, 24)), (2, 12, 3, (5, 5, 5)), (3, 6, 3, (3, 5, 7))]
@@ -837,6 +871,36 @@ def test_jlc_stage2_bf16_form_matches_plain(b, c, e, shape):
     torch.testing.assert_close(rstd, r.reshape(-1), rtol=1e-5, atol=1e-6)
     for a, a2 in zip((out, mean, rstd), again):
         assert torch.equal(a, a2)
+
+
+# K5f's bf16 form at the bf16 B = 2 step's four levels (conv_drop 0) with
+# every split of the hidden rows among a block's warps that the widths take
+K5F_SPLITS = [(b, c, e, shape, hs) for b, c, e, shape in K5B_BF16[:4]
+              for hs in (1, 2, 4) if (e * c) % (16 * hs) == 0]
+
+
+@pytest.mark.parametrize("b,c,e,shape,hsplit", K5F_SPLITS)
+def test_jlc_stage2_bf16_form_at_every_split(b, c, e, shape, hsplit):
+    dev = cuda_or_skip()
+    x, _, w1, b1, w2, b2 = _stage2_inputs(dev, b, c, e, shape,
+                                          torch.bfloat16, 71)
+    lw = fused_jlc.stage2_mma_launch(
+        b, c, e * c, int(np.prod(shape)),
+        torch.cuda.get_device_properties(dev).multi_processor_count, hsplit)
+    with torch.no_grad():
+        out, mean, rstd = fused_jlc._jlc_stage2_fwd_mma(x, w1, b1, w2, b2,
+                                                        launch=lw)
+        again = fused_jlc._jlc_stage2_fwd_mma(x, w1, b1, w2, b2, launch=lw)
+        chosen = fused_jlc._jlc_stage2_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert_bf16_match(out, fused_jlc.jlc_stage2_plain(x, w1, b1, w2, b2),
+                      "K5f out")
+    assert_bf16_match(out, fused_jlc.jlc_stage2_mma_plain(
+        x, w1, b1, w2, b2, hsplit), "K5f out against its split")
+    for a, a2 in zip((out, mean, rstd), again):
+        assert torch.equal(a, a2)
+    # the statistics do not depend on the split
+    assert torch.equal(mean, chosen[1]) and torch.equal(rstd, chosen[2])
 
 
 @pytest.mark.parametrize("b,c,e,shape", K5B_BF16)

@@ -5,7 +5,9 @@ interpret mode and against ``_train_xla`` and its VJP, at L = 1024 (the
 128³ flagship's level 1). The CUDA kernels against the plain versions are
 in ``test_torch_kernels.py``. The bf16 plain versions (K3's bf16
 forms' twins) are held against the same Pallas kernels on bf16 operands by
-``torch_port_helpers.assert_bf16_match``."""
+``torch_port_helpers.assert_bf16_match``. K3f's bf16 form on the tensor
+cores: its launch geometry at the flagship's and ragged windows, and its
+split of the products (out32 = hi·V + lo·V) against the plain version."""
 
 import jax
 import jax.numpy as jnp
@@ -191,3 +193,61 @@ def test_long_bf16_twins_match_pallas(p):
     assert grads[3].dtype == db.dtype == torch.float32
     torch.testing.assert_close(grads[3], db, rtol=1e-4,
                                atol=1e-4 * float(db.abs().max()))
+
+
+# K3f's bf16 form on the tensor cores (csrc/pwa_attention_long_mma.cu): its
+# launch geometry at the flagship's level 1 (h 2, 9 windows, L = 1024) at
+# the batches the trainer and bench.py run and at ragged windows (9³ = 729,
+# the card tests' 1000 and 600): every row, column and window taken once,
+# the shared memory within a block's 232,448 bytes
+MMA_SMS = 132
+MMA_LONG = [(b, 2, 9, 1024) for b in (1, 2, 4, 16)] + [
+    (1, 2, 3, 729), (1, 1, 3, 1000), (2, 1, 2, 600)]
+
+
+def _takes_once(ranges, n):
+    """Whether ``[lo, hi)`` ranges, in order, take 0..n-1 once each."""
+    return [i for lo, hi in ranges for i in range(lo, hi)] == list(range(n))
+
+
+@pytest.mark.parametrize("b,h,n,l", MMA_LONG)
+def test_long_mma_launch_takes_every_row_column_and_window(b, h, n, l):
+    lw = port.long_mma_launch(b, h, n, l, MMA_SMS)
+    assert lw.row_blocks * 16 >= l > (lw.row_blocks - 1) * 16
+    assert lw.warps <= 16 and lw.warps * 64 >= l > (lw.warps - 1) * 64
+    assert _takes_once([(lo, hi) for lo, hi in lw.column_ranges(l)
+                        if lo < hi], l)
+    assert _takes_once(lw.window_ranges(b * n), b * n)
+    assert all(lo < hi for lo, hi in lw.window_ranges(b * n))
+    assert lw.smem_bytes == port._k3f_mma_smem_bytes(lw.warps) <= 232448
+    # one block an SM: no more blocks than the card holds at once where the
+    # windows allow it
+    assert lw.row_blocks * h * lw.chunks <= max(MMA_SMS, lw.row_blocks * h)
+
+
+def test_long_mma_launch_refuses_longer_windows():
+    with pytest.raises(ValueError, match="at most 1024"):
+        port.long_mma_launch(1, 1, 1, 1025, MMA_SMS)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("l", [600, 729])
+def test_long_mma_split_matches_the_plain_version(l, p):
+    """K3f's bf16 form splits its products as
+    :func:`window_attention_train_fwd_long_mma_plain` does: out from
+    bf16(W)·V as the plain version forms it, out32 = hi·V + lo·V within
+    the tolerance the card holds out32 to."""
+    q, k, v = (torch.from_numpy(normal((1, 1, 2, 8, l), 31 + i))
+               .to(torch.bfloat16) for i in range(3))
+    bias = torch.from_numpy(normal((1, l, l), 34, 0.5))
+    seed = torch.tensor([91, 2], dtype=torch.int32)
+    scale = 1.0 / np.sqrt(8)
+    out, out32 = port.window_attention_train_fwd_long_plain(
+        q, k, v, bias, seed, scale, p)
+    mo, m32 = port.window_attention_train_fwd_long_mma_plain(
+        q, k, v, bias, seed, scale, p)
+    assert torch.equal(mo, out)
+    torch.testing.assert_close(m32, out32, rtol=1e-4, atol=1e-5)
+    # lo carries what hi leaves: without it out32 would be the rounded
+    # weights' product
+    assert float((m32 - out.float()).abs().max()) > 1e-3

@@ -56,6 +56,7 @@ def micro(tmp_path, monkeypatch):
     monkeypatch.setitem(speed_main.INPUT_SIZE, "AutoPETII", SHAPE)
     monkeypatch.setattr(speed_main, "T_TIMED", 0.3)
     monkeypatch.setattr(speed_main, "MAX_BS", 2)
+    monkeypatch.setattr(speed_main, "PROBE_ITERS", 1)
     return str(path)
 
 

@@ -4,7 +4,7 @@ port: K2b and K2f (train attention, L <= 512), K5f (JLC stage-2 forward),
 K5b (its backward), K3b and K3f (long-window train attention).
 
     python3 tools/bench_train_bwd.py [--root DIR] [--tag NAME] [--out DIR]
-                                     [--sweep]
+                                     [--sweep | --bf16]
 
 ``--root`` is the checkout whose ``veloxseg_torch`` is timed (default: this
 one), so that an older commit unpacked beside it can be timed in the same
@@ -37,6 +37,18 @@ each of its shapes under every launch geometry its model considers, each
 with the model's cost, so that
 the model can be checked against the card; it writes
 ``<out>/sweep_train_fwd_<tag>.json``.
+
+``--bf16`` times instead the bf16 forms of K3f and K5f, each beside its
+fp32 form on the same values: K3f at the flagship's level 1 (B = 16 and 2)
+beside ``scaled_dot_product_attention`` in bf16 (its default backend, the
+bias a bf16 float mask, ``dropout_p`` 0.1), and K5f at the speed CLI's four
+JLC levels (B = 16, AutoPET-II 96³: 24³ to 3³) and at the bf16 B = 2 train
+step's (``conv_drop`` 0), with a SHA-256 of the plane statistics it writes
+(K5b takes them: two checkouts' must agree bit for bit). Where the checkout
+has ``fused_jlc.stage2_mma_launch`` it also times K5f's bf16 form under
+every hidden split the widths take (``sweep``: [hsplit, vt, device ms]).
+Writes
+``<out>/bench_bf16_<tag>.json``.
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ def main() -> int:
     ap.add_argument("--tag", default="tree")
     ap.add_argument("--out", default=os.path.join(HERE, "runs"))
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args()
     import torch
     import torch.nn.functional as F
@@ -72,6 +85,7 @@ def main() -> int:
     print(f"card: {name} | root {os.path.abspath(args.root)}", flush=True)
     _cuda.build_all()
     dev = torch.device("cuda")
+    warm_up(dev)
     gen = torch.Generator().manual_seed(0)
 
     def randn(*shape, scale=1.0, grad=False):
@@ -109,6 +123,8 @@ def main() -> int:
                  ("train_flagship", 2, 16, 2, 9, 8, 16, 128),
                  ("train_flagship", 3, 16, 4, 1, 16, 32, 128),
                  ("hecktor", 1, 2, 2, 9, 8, 8, 512))
+    if args.bf16:
+        return bf16_forms(args, name, dev, randn, p, seed, ms)
     if args.sweep:
         return sweep(args, name, dev, randn, p, seed, k2_shapes + (
             ("train_flagship", 1, 16, 2, 9, 8, 8, 1024),
@@ -201,6 +217,110 @@ def main() -> int:
         torch.cuda.empty_cache()
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"bench_train_bwd_{args.tag}.json"),
+              "w") as f:
+        json.dump(rows, f, indent=1)
+    return 0
+
+
+def warm_up(dev, seconds=2.0):
+    """Matrix products for ``seconds``, so that the first kernel timed runs
+    at the card's working clocks and not at its idle ones (a kernel timed
+    first on an idle card measured 1.7× its warm time)."""
+    import time
+
+    import torch
+    a = torch.randn(4096, 4096, device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(10):
+            a = (a @ a) * (1.0 / 64.0)
+        torch.cuda.synchronize()
+
+
+def bf16_forms(args, name, dev, randn, p, seed, ms):
+    """K3f's and K5f's bf16 forms beside their fp32 forms on the same
+    values (and K3f beside SDPA in bf16), by events and device ms."""
+    import hashlib
+
+    import torch
+    import torch.nn.functional as F
+    from veloxseg_torch.ops import _cuda, fused_jlc, pwa_attention as pa
+    from chip_measure import (stage2_fwd_work_bf16,
+                              train_attention_work_bf16)
+    bf = torch.bfloat16
+    rows = []
+
+    def emit(row):
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    h, n, cq, L = 2, 9, 8, 1024
+    for b in (16, 2):
+        q, k, v = (randn(b, h, n, cq, L).to(bf) for _ in range(3))
+        bias = randn(h, L, L, scale=0.5)
+        scale = 1.0 / cq ** 0.5
+        work = train_attention_work_bf16(b, h, n, cq, cq, L)[0]
+        row = dict(tag=args.tag, card=name, kernel="K3f", path=(
+            "train_flagship_bf16"), level=1, shape=[b, h, n, cq, L], p=p,
+                   bound_ms=bound(*work)[0])
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        q4, k4, v4 = (t.permute(0, 2, 1, 4, 3).reshape(b * n, h, L, -1)
+                      .contiguous() for t in (q, k, v))
+        mask = bias.to(bf)[None]
+        with torch.no_grad():
+            ms(row, "bf16", lambda: pa.window_attention_train_fwd_long(
+                q, k, v, bias, seed, scale, p))
+            ms(row, "fp32", lambda: pa.window_attention_train_fwd_long(
+                q32, k32, v32, bias, seed, scale, p))
+            ms(row, "sdpa_bf16", lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, mask, dropout_p=p, scale=scale))
+        emit(row)
+        del q, k, v, q32, k32, v32, q4, k4, v4, mask, bias
+        torch.cuda.empty_cache()
+    sms = _cuda.sm_count(dev)
+    sweepable = hasattr(fused_jlc, "stage2_mma_launch")
+    for path, b, s0 in (("speed_autopet", 16, 24), ("train_96_bf16", 2, 24)):
+        for i, e in enumerate((3, 3, 2, 2)):
+            c, s = 16 * 2 ** i, s0 // 2 ** i
+            x = randn(b, c, s, s, s, scale=1.5).to(bf)
+            w1 = randn(e * c, c, 1, 1, 1, scale=(2.0 / c) ** 0.5).to(bf)
+            b1 = randn(e * c, scale=0.1).to(bf)
+            w2 = randn(c, e * c, 1, 1, 1, scale=(2.0 / (e * c)) ** 0.5).to(bf)
+            b2 = randn(c, scale=0.1).to(bf)
+            ins = (x, w1, b1, w2, b2)
+            f32 = [t.float() for t in ins]
+            work = stage2_fwd_work_bf16(b, c, e, s ** 3)
+            row = dict(tag=args.tag, card=name, kernel="K5f", path=path,
+                       level=i, shape=[b, c, s, s, s], hid=e * c,
+                       bound_ms=bound(work[0], work[1], work[2])[0])
+            with torch.no_grad():
+                _, mean, rstd = fused_jlc._jlc_stage2_fwd(*ins)
+                torch.cuda.synchronize()
+                row["stats_sha256"] = hashlib.sha256(
+                    mean.cpu().numpy().tobytes()
+                    + rstd.cpu().numpy().tobytes()).hexdigest()[:16]
+                ms(row, "bf16", lambda: fused_jlc.jlc_stage2(*ins))
+                ms(row, "fp32", lambda: fused_jlc.jlc_stage2(*f32))
+                if sweepable:
+                    chosen = fused_jlc.stage2_mma_launch(b, c, e * c, s ** 3,
+                                                         sms)
+                    row["chosen"] = [chosen.hsplit, chosen.vt]
+                    row["sweep"] = []
+                    for hs in (1, 2, 4):
+                        if (e * c) % (16 * hs):
+                            continue
+                        try:
+                            lw = fused_jlc.stage2_mma_launch(
+                                b, c, e * c, s ** 3, sms, hs)
+                        except ValueError:  # its shared memory does not fit
+                            continue
+                        row["sweep"].append([hs, lw.vt, device_ms(
+                            lambda lw=lw: fused_jlc._jlc_stage2_fwd_mma(
+                                *ins, launch=lw))])
+            emit(row)
+            del x, ins, f32
+            torch.cuda.empty_cache()
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, f"bench_bf16_{args.tag}.json"),
               "w") as f:
         json.dump(rows, f, indent=1)
     return 0

@@ -35,6 +35,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -181,19 +182,29 @@ def jax_reference(path: str) -> None:
     models = {
         "veloxseg": (JaxVeloxSeg(jcfg), vparams, veloxseg_input()),
         "urwkv": (jurwkv.URWKV(num_classes=2), nest(uflat), urwkv_input())}
+    def stage2(case):
+        return {"k5/{}_{}_{}/{}".format(*case, k): a
+                for k, a in jax_stage2(*case).items()}
+
+    def forward(name, dname, dt):
+        model, params, x = models[name]
+        y = jax.jit(lambda p, v: model.apply({"params": p}, v, train=False))(
+            cast(params, dt), jnp.asarray(x, dt))
+        return {f"{name}/{dname}": np.asarray(y.astype(jnp.float32))}
+
     out = {f"urwkv_params/{k}": a for k, a in uflat.items()}
-    for case in STAGE2_CASES:
-        for k, a in jax_stage2(*case).items():
-            out["k5/{}_{}_{}/{}".format(*case, k)] = a
     jpa.set_force_interpret(True)
     jjlc.set_force_interpret(True)
     try:
-        for name, (model, params, x) in models.items():
-            apply = jax.jit(lambda p, v, m=model: m.apply(
-                {"params": p}, v, train=False))
-            for dname, dt in zip(DTYPES, (jnp.bfloat16, jnp.float32)):
-                y = apply(cast(params, dt), jnp.asarray(x, dt))
-                out[f"{name}/{dname}"] = np.asarray(y.astype(jnp.float32))
+        # every case and forward side by side (XLA compiles without the
+        # GIL); the stage-2 cases name interpret mode themselves
+        with ThreadPoolExecutor() as pool:
+            parts = [pool.submit(stage2, case) for case in STAGE2_CASES]
+            parts += [pool.submit(forward, name, dname, dt)
+                      for name in models for dname, dt in
+                      zip(DTYPES, (jnp.bfloat16, jnp.float32))]
+            for part in parts:
+                out.update(part.result())
     finally:
         jpa.set_force_interpret(False)
         jjlc.set_force_interpret(False)

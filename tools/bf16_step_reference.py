@@ -30,6 +30,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -93,19 +94,25 @@ def jax_reference(path: str) -> None:
     state = jts.create_train_state(JaxVeloxSeg(jcfg), params,
                                    optax.adamw(1e-3))
     loss_obj = jloss.CompositeLoss("VeloxSeg", TRAIN_CFG)
+    def steps(name, dt):
+        out = {}
+        lg = jax.jit(jts._loss_grads_fn(loss_obj, dt))
+        for i, seed in enumerate(BATCH_SEEDS):
+            x, y = batch(seed)
+            loss, _, grads = lg(state, jnp.asarray(x), jnp.asarray(y),
+                                jax.random.PRNGKey(0))
+            out[f"{name}/{i}/loss"] = np.float64(loss)
+            for k, g in state_dict_from_jax(jax.device_get(grads)).items():
+                out[f"{name}/{i}/{k}"] = g.numpy()
+        return out
+
     out = {}
     jpa.set_force_interpret(True)
     try:
-        for name, dt in zip(DTYPES, (jnp.bfloat16, None)):
-            lg = jax.jit(jts._loss_grads_fn(loss_obj, dt))
-            for i, seed in enumerate(BATCH_SEEDS):
-                x, y = batch(seed)
-                loss, _, grads = lg(state, jnp.asarray(x), jnp.asarray(y),
-                                    jax.random.PRNGKey(0))
-                out[f"{name}/{i}/loss"] = np.float64(loss)
-                for k, g in state_dict_from_jax(
-                        jax.device_get(grads)).items():
-                    out[f"{name}/{i}/{k}"] = g.numpy()
+        # the two dtypes side by side (XLA compiles without the GIL)
+        with ThreadPoolExecutor(len(DTYPES)) as pool:
+            for part in pool.map(steps, DTYPES, (jnp.bfloat16, None)):
+                out.update(part)
     finally:
         jpa.set_force_interpret(False)
     np.savez(path, **out)

@@ -47,7 +47,8 @@ PORT_KERNELS = ("pwa_train_fwd", "pwa_bwd_",
                 "pwa_long_", "wkv_kernel", "jlc_branch_conv", "jlc_conv_stats",
                 "jlc_branch_wgrad", "jlc_wgrad_reduce", "plane_stats_kernel",
                 "jlc_stage1_apply", "jlc_stage1_bwd_planes",
-                "jlc_stage2_mlp", "jlc_stage2_sum", "jlc_mlp_bwd_tiles",
+                "jlc_stage2_mlp", "jlc_stage2_sum", "jlc_stage2_mma",
+                "jlc_mlp_bwd_tiles",
                 "jlc_stage2_bwd_planes")
 
 # the port's profiler ranges (record_function), reported by device span
@@ -57,13 +58,13 @@ RANGES = ("selective_scan",)
 # own kernels come before the library families, whose substrings ("conv",
 # "wgrad", "reduce") their names also hold
 FAMILIES = (
-    # K1 is the train forward's instance <T, Cqk, Cv, DROP, LSE, LDG,
-    # ROUND> with neither dropout nor lse (a key of several substrings
-    # needs them all)
+    # K1 is the train forward's instance <T, Cqk, Cv, DROP, LSE, LDG> with
+    # neither dropout nor lse (a key of several substrings needs them all)
     ("K1 eval attention (pwa_train_fwd, no dropout, no lse)",
-     (("pwa_train_fwd", "false, false, true, false>"),
-      ("pwa_train_fwd", "false, false, false, false>"))),
+     (("pwa_train_fwd", "false, false, true>"),
+      ("pwa_train_fwd", "false, false, false>"))),
     ("K2f/K3f train attention forward", ("pwa_train_fwd",)),
+    ("K3f bf16 train attention forward (mma)", ("pwa_long_fwd_mma",)),
     ("K2b attention backward", ("pwa_bwd_",)),
     ("K3b long-window attention backward", ("pwa_long_bwd",)),
     ("K6 WKV recurrence", ("wkv_kernel",)),
@@ -74,7 +75,7 @@ FAMILIES = (
                                        "jlc_conv_stats")),
     ("K4f apply", ("jlc_stage1_apply",)),
     ("K4b planes", ("jlc_stage1_bwd_planes",)),
-    ("K5f MLP", ("jlc_stage2_mlp", "jlc_stage2_sum")),
+    ("K5f MLP", ("jlc_stage2_mlp", "jlc_stage2_sum", "jlc_stage2_mma")),
     ("K5b", ("jlc_mlp_bwd_tiles", "jlc_stage2_bwd_planes")),
     ("optimizer (foreach AdamW)", ("multi_tensor", "foreach")),
     ("cuDNN convolutions", ("conv", "cudnn", "implicit", "fprop", "dgrad",

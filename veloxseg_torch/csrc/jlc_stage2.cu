@@ -66,15 +66,13 @@
 // Bound: ~10·C·E·C FLOP per voxel (E = 2..3) for the five products; in HBM
 // out1, g, dx once (dz adds a round trip).
 //
-// The bf16 forms (T = bf16: out1, g, the weights, out, dx and the weight
-// gradients; the statistics and every scratch buffer stay fp32) are the
-// same kernels, staging bf16 by plain loads (cp.async cannot widen) into
-// the fp32 shared-memory tiles, and rounding where the Pallas kernels
-// round. K5f (_k2_kernel, 177-191): the statistics of the bf16 out1 in
-// fp32, z = bf16((x − μ)·r), z1 = bf16(W1·z + b1) (fp32 sums),
-// h = gelu_in<bf16>(z1) = bf16(z1·bf16(Φ(z1))), z2 = bf16(W2·h + b2)
-// (with slices: the fp32 partials summed first, then b2, then the
-// rounding), out = bf16(x + z2). K5b (_k2_bwd_kernel, 194-243): z =
+// K5f's bf16 form is its own kernel on the bf16 tensor cores
+// (jlc_stage2_mma.cu); vs_jlc_stage2 is built for fp32 alone. K5b's bf16
+// form (T = bf16: out1, g, the weights, dx and the weight gradients; the
+// statistics and every scratch buffer stay fp32) is the same kernels,
+// staging bf16 by plain loads (cp.async cannot widen) into the fp32
+// shared-memory tiles, and rounding where the Pallas kernel rounds
+// (_k2_bwd_kernel, 194-243): z =
 // bf16(ŷ), z1pb = bf16(W1·z + b1), z1 = gelu_in<bf16>(z1pb), dz1 =
 // (W2ᵀg)·GELU'(z1pb) in fp32 (db1 sums it), dz1b = bf16(dz1) feeds dW1 =
 // Σ dz1b·zᵀ and dz = W1ᵀ·dz1b; the IN backward takes the unrounded ŷ; dx
@@ -295,6 +293,7 @@ __global__ void jlc_stage2_sum(const T* __restrict__ x,
   }
 }
 
+#ifndef VS_BF16
 // K5f. x = out1: (B, C, D, H, W); w1: (HID, C); b1: (HID,); w2: (C, HID);
 // b2: (C,); out: like x (all Elem); mean, rstd: B·C floats (written; K5b
 // takes them); part: slices·B·C·S floats of scratch (slices > 1). The
@@ -334,6 +333,7 @@ extern "C" int vs_jlc_stage2(const Elem* x, const Elem* w1, const Elem* b1,
                          256, 0, stream>>>(x, part, b2, out, C, S, n, nsl);
   return cudaGetLastError();
 }
+#endif
 
 constexpr int kBwdThreads = 256;
 constexpr int kVT = 64;          // voxels per K5b tile

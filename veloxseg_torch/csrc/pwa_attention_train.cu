@@ -65,20 +65,9 @@
 // rounded before ·V (window_attention_xla rounds them; the Pallas kernel
 // does not), the output rounded once; it writes no out32.
 //
-// K3f's bf16 form (ROUND, the instance behind vs_pwa_attention_long_train
-// in the bf16 build) is _train_fwd_rb_kernel on bf16 operands
-// (434-447): it rounds the normalized kept weights W = M·P/(1 − p) to
-// bf16 before ·V and accumulates the product in fp32. A weight can be
-// rounded only once the row's max and sum are known (bf16(e·c) is not
-// bf16(e)·c), so each window takes two passes over its tiles: the first
-// forms the logits and the online max and sum (no V), the lanes merge
-// them and write lse; the second forms the logits again, W = 2^(logit −
-// max)·((1/(1 − p))/sum) under the mask, and adds bf16(W)·V to the output
-// and W·V to out32 (fp32 sums both). So out32 is the output of the
-// unrounded weights, not the output before its rounding: K3b forms D =
-// rowsum(dO ⊙ out32), which is the Pallas kernel's Σ_m P·dP (511-517: P
-// and dP unrounded); D from the rounded output differs from it by the
-// weights' rounding. Twice the logits of the fp32 form.
+// K3f's bf16 form is its own kernel (pwa_attention_long_mma.cu): one pass
+// over each window on the bf16 tensor cores; vs_pwa_attention_long_train
+// is built for fp32 alone.
 #include "common.cuh"
 
 constexpr int kStep = 32;      // columns of one online-softmax step
@@ -140,8 +129,7 @@ __device__ __forceinline__ void copy_row(float* dst, const float* src, int n,
   }
 }
 
-template <typename T, int CQK, int CV, bool DROP, bool LSE, bool LDG,
-          bool ROUND>
+template <typename T, int CQK, int CV, bool DROP, bool LSE, bool LDG>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
 pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v,
@@ -152,8 +140,6 @@ pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int S, int W, int per, float scale, uint32_t thresh,
                      float inv_keep) {
   constexpr int RM = rows_per_lane(CQK, CV);
-  constexpr int kPasses = ROUND ? 2 : 1;  // passes over a window's tiles
-  static_assert(!ROUND || LSE, "the rounding form is K3f's");
   extern __shared__ __align__(16) float smem[];
   const int rows = S * kTY * RM, bst = LDG ? 0 : bias_stride(L, RM);
   const int wf = window_floats(rows, CQK, CV);
@@ -179,15 +165,14 @@ pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int b = j / N, n = j - b * N;
     return (static_cast<int64_t>(b) * H + h) * N + n;
   };
-  const int tiles = lb / kTile, wstages = kPasses * tiles;
-  const int nstage = (j1 - j0 + W - 1) / W * wstages;
-  // Issue the copies of stage `it` (batch it / wstages of W windows; pass
-  // and tile of the rest) that this warp's window slot needs: its window's
+  const int tiles = lb / kTile;
+  const int nstage = (j1 - j0 + W - 1) / W * tiles;
+  // Issue the copies of stage `it` (batch it / tiles of W windows, tile
+  // it % tiles) that this warp's window slot needs: its window's
   // K and V columns of the tile as [C][64] and, with the window's first
   // stage, its q rows as [Cqk][rows], shared by the slot's S warps.
   auto stage_copy = [&](int it) {
-    const int bt = it / wstages, ws = it - bt * wstages;
-    const int t = ws % tiles, m0 = t * kTile;
+    const int bt = it / tiles, t = it - bt * tiles, m0 = t * kTile;
     const int j = j0 + bt * W + wl;
     if (j >= j1) return;
     const int64_t w = window(j);
@@ -205,7 +190,7 @@ pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       else
         stage1<T>(buf + r * kTile + col, src + (ok ? col : 0), ok);
     }
-    if (ws != 0) return;
+    if (t != 0) return;
     const T* qw = q + w * CQK * L + l0;
     float* qb = buf + kTile * (CQK + CV);
     const int qvalid = min(rows, L - l0), qrow = wide ? rows / 4 : rows;
@@ -226,15 +211,9 @@ pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t off = DROP ? static_cast<uint32_t>(seed[1]) : 0u;
   const float keep_scale = DROP ? inv_keep : 1.f;
   float qr[RM][CQK], acc[RM][CV], mx[RM], sum[RM];
-  // ROUND: the unrounded weights' product with V (out32), and per row
-  // (1/(1 − p))/sum once the first pass has merged the sums
-  float acc32[ROUND ? RM : 1][ROUND ? CV : 1], wscale[RM];
   uint32_t hb[RM];
   for (int it = 0; it < nstage; ++it) {
-    const int bt = it / wstages, ws = it - bt * wstages;
-    const int ps = ws / tiles, t = ws - ps * tiles;  // pass, tile
-    // the first pass of a rounding form forms only the max and the sum
-    const bool stats_pass = ROUND && ps == 0;
+    const int bt = it / tiles, t = it - bt * tiles;
     const int j = j0 + bt * W + wl;  // this warp's window (none past j1)
     cp_async_wait_all();
     __syncthreads();  // this stage is in; the last one is done with the
@@ -242,7 +221,7 @@ pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (it + 1 < nstage) stage_copy(it + 1);
     const float* ks = stage + ((it & 1) * W + wl) * wf;
     const float* vs = ks + kTile * CQK;
-    if (ws == 0) {  // a new window: its q rows, fresh statistics
+    if (t == 0) {  // a new window: its q rows, fresh statistics
       const float* qs = ks + kTile * (CQK + CV) + r0;
 #pragma unroll
       for (int i = 0; i < RM; ++i) {
@@ -250,10 +229,6 @@ pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < CQK; ++c) qr[i][c] = qs[c * rows + i] * sc2;
 #pragma unroll
         for (int c = 0; c < CV; ++c) acc[i][c] = 0.f;
-        if constexpr (ROUND) {
-#pragma unroll
-          for (int c = 0; c < CV; ++c) acc32[i][c] = 0.f;
-        }
         mx[i] = kNoMax;
         sum[i] = 0.f;
       }
@@ -309,28 +284,20 @@ pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           s[i][jj] = fmaf(bj[jj], kLog2e, s[i][jj]);
           if (ragged && c0 + (jj < 4 ? jj : 12 + jj) >= L) s[i][jj] = -INFINITY;
         }
-        if (ROUND && !stats_pass) {  // the normalized weights, 0 past L
+        const float tmax = fmaxf(
+            fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])),
+            fmaxf(fmaxf(s[i][4], s[i][5]), fmaxf(s[i][6], s[i][7])));
+        const float mn = fmaxf(mx[i], tmax);
+        const float f = fast_exp2(mx[i] - mn);  // 0 at the first tile
+        mx[i] = mn;
 #pragma unroll
-          for (int jj = 0; jj < 8; ++jj)
-            s[i][jj] = fast_exp2(s[i][jj] - mx[i]) * wscale[i];
-        } else {
-          const float tmax = fmaxf(
-              fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3])),
-              fmaxf(fmaxf(s[i][4], s[i][5]), fmaxf(s[i][6], s[i][7])));
-          const float mn = fmaxf(mx[i], tmax);
-          const float f = fast_exp2(mx[i] - mn);  // 0 at the first tile
-          mx[i] = mn;
-          if (!ROUND) {
+        for (int c = 0; c < CV; ++c) acc[i][c] *= f;
 #pragma unroll
-            for (int c = 0; c < CV; ++c) acc[i][c] *= f;
-          }
-#pragma unroll
-          for (int jj = 0; jj < 8; ++jj) s[i][jj] = fast_exp2(s[i][jj] - mn);
-          sum[i] = fmaf(sum[i], f,  // the weights; 0 past L
-                        ((s[i][0] + s[i][1]) + (s[i][2] + s[i][3])) +
-                            ((s[i][4] + s[i][5]) + (s[i][6] + s[i][7])));
-        }
-        if (DROP && !stats_pass) {  // the kept weights
+        for (int jj = 0; jj < 8; ++jj) s[i][jj] = fast_exp2(s[i][jj] - mn);
+        sum[i] = fmaf(sum[i], f,  // the weights; 0 past L
+                      ((s[i][0] + s[i][1]) + (s[i][2] + s[i][3])) +
+                          ((s[i][4] + s[i][5]) + (s[i][6] + s[i][7])));
+        if (DROP) {  // the kept weights
           const uint32_t xb = hb[i] + static_cast<uint32_t>(c0) * kHashGid;
 #pragma unroll
           for (int jj = 0; jj < 8; ++jj) {
@@ -338,28 +305,6 @@ pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             if (hash_avalanche(xb + col * kHashGid) < thresh) s[i][jj] = 0.f;
           }
         }
-      }
-      if (stats_pass) continue;
-      if constexpr (ROUND) {  // bf16(W)·V to out, W·V to out32
-#pragma unroll
-        for (int c = 0; c < CV; ++c) {
-          const float4 va = lds4(vs + c * kTile + ct);
-          const float4 vb = lds4(vs + c * kTile + 16 + ct);
-          const float vc[8] = {va.x, va.y, va.z, va.w,
-                               vb.x, vb.y, vb.z, vb.w};
-#pragma unroll
-          for (int i = 0; i < RM; ++i) {
-            float a = acc[i][c], a32 = acc32[i][c];
-#pragma unroll
-            for (int jj = 0; jj < 8; ++jj) {
-              a = fmaf(round_to<T>(s[i][jj]), vc[jj], a);
-              a32 = fmaf(s[i][jj], vc[jj], a32);
-            }
-            acc[i][c] = a;
-            acc32[i][c] = a32;
-          }
-        }
-        continue;
       }
 #pragma unroll
       for (int c = 0; c < CV; ++c) {
@@ -380,52 +325,6 @@ pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if (t + 1 < tiles) continue;
-    if (stats_pass) {
-      // the first pass is done: merge the 4 column lanes' max and sum of
-      // each row (xor 1, then 2), write lse, and keep the row's max and
-      // (1/(1 − p))/sum for the second pass
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        float m = mx[i];
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-        float tot = sum[i] * fast_exp2(mx[i] - m);
-        tot += __shfl_xor_sync(0xffffffffu, tot, 1);
-        tot += __shfl_xor_sync(0xffffffffu, tot, 2);
-        mx[i] = m;
-        wscale[i] = keep_scale / tot;
-        const int l = l0 + r0 + i;
-        if (j < j1 && l < L && tx == 0)
-          lse[window(j) * L + l] = (m + log2f(tot)) * kLn2;
-      }
-      continue;
-    }
-    if constexpr (ROUND) {
-      // the second pass is done: add the 4 column lanes' products
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-#pragma unroll
-        for (int c = 0; c < CV; ++c) {
-          float a = acc[i][c], a32 = acc32[i][c];
-          a += __shfl_xor_sync(0xffffffffu, a, 1);
-          a += __shfl_xor_sync(0xffffffffu, a, 2);
-          a32 += __shfl_xor_sync(0xffffffffu, a32, 1);
-          a32 += __shfl_xor_sync(0xffffffffu, a32, 2);
-          acc[i][c] = a;
-          acc32[i][c] = a32;
-        }
-        const int l = l0 + r0 + i;
-        if (j >= j1 || l >= L) continue;
-        const int64_t w = window(j);
-#pragma unroll
-        for (int c = 0; c < CV; ++c) {
-          if ((c & (kTX - 1)) != tx) continue;
-          out[(w * CV + c) * L + l] = from_f32<T>(acc[i][c]);
-          out32[(w * CV + c) * L + l] = acc32[i][c];
-        }
-      }
-      continue;
-    }
     // the window is done: merge the 4 column lanes of each row (xor 1,
     // then 2), then out = acc·(1/(1 − p))/sum and lse in base e
 #pragma unroll
@@ -460,15 +359,14 @@ pwa_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int CQK, int CV, bool DROP, bool LSE, bool LDG,
-          bool ROUND = false>
+template <typename T, int CQK, int CV, bool DROP, bool LSE, bool LDG>
 static cudaError_t launch(const T* q, const T* k, const T* v,
                           const float* bias, const int* seed, T* out,
                           float* out32, float* lse, int B, int H, int N,
                           int L, int S, int W, int chunks, int per,
                           float scale, uint32_t thresh, float inv_keep,
                           cudaStream_t stream) {
-  auto kernel = pwa_train_fwd_kernel<T, CQK, CV, DROP, LSE, LDG, ROUND>;
+  auto kernel = pwa_train_fwd_kernel<T, CQK, CV, DROP, LSE, LDG>;
   const size_t smem = fwd_smem_floats(S, W, L, CQK, CV, LDG) * sizeof(float);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
@@ -481,16 +379,15 @@ static cudaError_t launch(const T* q, const T* k, const T* v,
   return cudaGetLastError();
 }
 
-#define VS_CASE_R(CQ, CVV, ROUND)                                           \
+#define VS_CASE(CQ, CVV)                                                    \
   if (Cqk == CQ && Cv == CVV)                                               \
     return thresh == 0                                                      \
-               ? launch<Elem, CQ, CVV, false, true, false, ROUND>(          \
+               ? launch<Elem, CQ, CVV, false, true, false>(                 \
                      q, k, v, bias, seed, out, out32, lse, B, H, N, L, S,   \
                      W, chunks, per, scale, thresh, inv_keep, stream)       \
-               : launch<Elem, CQ, CVV, true, true, false, ROUND>(           \
+               : launch<Elem, CQ, CVV, true, true, false>(                  \
                      q, k, v, bias, seed, out, out32, lse, B, H, N, L, S,   \
                      W, chunks, per, scale, thresh, inv_keep, stream);
-#define VS_CASE(CQ, CVV) VS_CASE_R(CQ, CVV, false)
 
 // The checks both entry points share: a launch geometry that covers every
 // row and window once, within a block's threads.
@@ -554,10 +451,10 @@ extern "C" int vs_pwa_attention(const Elem* q, const Elem* k, const Elem* v,
   return cudaErrorInvalidValue;
 }
 
+#ifndef VS_BF16
 // K3f: the same kernel for windows longer than 512 tokens, at the widths
-// K3b is built for (LONG_KERNEL_WIDTHS: (8, 8)). fp32; bf16 the rounding
-// instance (two passes, the kept weights rounded before ·V; out32 the
-// output of the unrounded weights).
+// K3b is built for (LONG_KERNEL_WIDTHS: (8, 8)); fp32 (the bf16 form is
+// pwa_attention_long_mma.cu).
 extern "C" int vs_pwa_attention_long_train(
     const Elem* q, const Elem* k, const Elem* v, const float* bias,
     const int* seed, Elem* out, float* out32, float* lse, int B, int H,
@@ -566,6 +463,7 @@ extern "C" int vs_pwa_attention_long_train(
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (!geometry_ok(B, H, N, L, S, W, chunks, per))
     return cudaErrorInvalidValue;
-  VS_CASE_R(8, 8, !kIsF32<Elem>)
+  VS_CASE(8, 8)
   return cudaErrorInvalidValue;
 }
+#endif

@@ -4,8 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library, loaded with :mod:`ctypes`
 (no PyTorch headers, so a build takes seconds). The sources of the bf16
 forms (``BF16_SOURCES``) are compiled once more with ``-DVS_BF16`` into
-``<name>_bf16``: the same kernels and entry points for bf16 elements
-(``csrc/common.cuh:Elem``). All libraries build in parallel, one ``nvcc``
+``<name>_bf16``: the same kernels for bf16 elements
+(``csrc/common.cuh:Elem``). The bf16 forms written for the tensor cores
+(``BF16_ONLY``: K3f's and K5f's) are built for bf16 alone, and the bf16
+builds of the sources they replace leave those entry points out. All
+libraries build in parallel, one ``nvcc``
 process each, at first use, into ``_build/`` beside this package's
 sources. A library's file name carries a hash of its sources and flags, so
 an edited source is never served by a stale build.
@@ -36,9 +39,11 @@ SOURCES = ("pwa_attention_train", "pwa_attention_bwd", "pwa_attention_long",
            "jlc_stage1", "jlc_stage2", "wkv")
 BF16_SOURCES = ("pwa_attention_train", "pwa_attention_bwd",
                 "pwa_attention_long", "jlc_stage1", "jlc_stage2")
+BF16_ONLY = ("pwa_attention_long_mma", "jlc_stage2_mma")
 # library name -> (source, extra nvcc flags)
 LIBRARIES = {**{n: (n, ()) for n in SOURCES},
-             **{f"{n}_bf16": (n, ("-DVS_BF16",)) for n in BF16_SOURCES}}
+             **{f"{n}_bf16": (n, ("-DVS_BF16",))
+                for n in BF16_SOURCES + BF16_ONLY}}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -67,8 +72,17 @@ SIGNATURES = {
     "wkv": {"vs_wkv": [_P] * 5 + [_I] * 5 + [_P],
             "vs_wkv_bwd": [_P] * 9 + [_I] * 4 + [_P]},
 }
-# the bf16 builds export the same entry points
-SIGNATURES.update({f"{n}_bf16": SIGNATURES[n] for n in BF16_SOURCES})
+# the bf16 builds export the same entry points, but K3f's and K5f's, whose
+# bf16 forms are the BF16_ONLY kernels
+SIGNATURES.update({f"{n}_bf16": dict(SIGNATURES[n]) for n in BF16_SOURCES})
+del SIGNATURES["pwa_attention_train_bf16"]["vs_pwa_attention_long_train"]
+del SIGNATURES["jlc_stage2_bf16"]["vs_jlc_stage2"]
+SIGNATURES.update({
+    "pwa_attention_long_mma_bf16": {
+        "vs_pwa_attention_long_train_mma": [_P] * 8 + [_I] * 8
+        + [_F, _U, _F, _P]},
+    "jlc_stage2_mma_bf16": {"vs_jlc_stage2_mma": [_P] * 8 + [_I] * 8 + [_P]},
+})
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -126,11 +140,11 @@ def build_all() -> float:
 
 def lib(name: str, dtype: torch.dtype = torch.float32) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` built for ``dtype``
-    elements (float32, or bfloat16 for ``BF16_SOURCES``), built on first
-    use."""
-    if dtype == torch.bfloat16 and name in BF16_SOURCES:
+    elements (float32, or bfloat16 for ``BF16_SOURCES`` and ``BF16_ONLY``),
+    built on first use."""
+    if dtype == torch.bfloat16 and name in BF16_SOURCES + BF16_ONLY:
         name = f"{name}_bf16"
-    elif dtype != torch.float32:
+    elif dtype != torch.float32 or name in BF16_ONLY:
         raise ValueError(f"{name}: no kernel library for {dtype}")
     handle = _LIBS.get(name)
     if handle is None:

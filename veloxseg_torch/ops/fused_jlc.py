@@ -9,7 +9,8 @@ not carried over.
 
 - stage 1: ``out1 = x + Σ_k GELU(IN(gconv_k(x)))`` (``csrc/jlc_stage1.cu``)
 - stage 2: ``out = out1 + W2·GELU(W1·IN(out1) + b1) + b2``
-  (``csrc/jlc_stage2.cu``)
+  (``csrc/jlc_stage2.cu``; K5f's bf16 form ``csrc/jlc_stage2_mma.cu``, the
+  channel MLP on the bf16 tensor cores)
 
 IN is the affine-free InstanceNorm (eps 1e-5, ``max(var, 0)``); GELU is
 exact (erf). Each stage is a ``torch.autograd.Function`` that saves only
@@ -568,13 +569,14 @@ def _pad_weights(w1m, b1, w2m, cp: int, hp: int):
             F.pad(w2m, (0, dh, 0, dc)))
 
 
-def pad_stage2_fwd(out1, w1m, b1, w2m, b2):
-    """K5f's inputs widened to :func:`stage2_widths` with zero channels and
+def pad_stage2_fwd(out1, w1m, b1, w2m, b2, widths=stage2_widths):
+    """K5f's inputs widened to ``widths`` (:func:`stage2_widths`, or
+    :func:`stage2_mma_widths` for the bf16 form) with zero channels and
     hidden rows. A zero plane normalizes to ẑ = 0; a zero hidden row has
     W1·ẑ + b1 = 0, GELU(0) = 0 and no weight to the outputs; a zero channel
     of W2 and b2 leaves its output plane 0. The real channels see the same
     sums."""
-    cp, hp = stage2_widths(out1.shape[1], w1m.shape[0])
+    cp, hp = widths(out1.shape[1], w1m.shape[0])
     return (_pad_planes(out1, cp), *_pad_weights(w1m, b1, w2m, cp, hp),
             F.pad(b2, (0, cp - b2.shape[0])))
 
@@ -588,10 +590,12 @@ def _jlc_stage2_fwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     (:func:`pad_stage2_fwd`)."""
     if runs_plain(out1):
         return jlc_stage2_plain(out1, w1, b1, w2, b2), None, None
+    if out1.dtype == torch.bfloat16:
+        return _jlc_stage2_fwd_mma(out1, w1, b1, w2, b2)
     b, c, d, h, w = out1.shape
     s = d * h * w
     w1m, w2m, hid = _stage2_mats(out1, w1, w2)
-    _check_cuda(out1, w1m, b1, w2m, b2, dtypes=_DTYPES)
+    _check_cuda(out1, w1m, b1, w2m, b2)
     if b1.shape != (hid,) or b2.shape != (c,):
         raise ValueError(f"K5f bias shapes {tuple(b1.shape)}, "
                          f"{tuple(b2.shape)} do not match C={c}")
@@ -613,6 +617,165 @@ def _jlc_stage2_fwd(out1: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             out.data_ptr(), part.data_ptr(), b, cp, hp, s, lw.hs, lw.vt,
             lw.chunks, lw.per, _cuda.stream_ptr(dev))
     _cuda.check(lib, err, "jlc_stage2")
+    _cuda.count_launch(jlc_stage2, out1.dtype)
+    add_kernel_flops(jlc_stage2_flops(out1, w1))
+    if cp != c:
+        out = out[:, :c].contiguous()
+        mean, rstd = (t.reshape(b, cp)[:, :c].reshape(-1).contiguous()
+                      for t in (mean, rstd))
+    return out, mean, rstd
+
+
+# K5f's bf16 form (csrc/jlc_stage2_mma.cu): the channel widths it is built
+# for, the warps of a block, the most voxels of a tile
+_K5F_MMA_WIDTHS = (16, 32, 64, 128)
+_K5F_MMA_WARPS = 4
+_K5F_MMA_MAX_VT = 256
+
+
+def stage2_mma_widths(c: int, hid: int) -> Tuple[int, int]:
+    """The widths K5f's bf16 form runs at: C up to 16, 32, 64 or 128 and
+    E·C up to a multiple of 16 (the k16 steps of its two products)."""
+    cp = next((w for w in _K5F_MMA_WIDTHS if w >= c), None)
+    if cp is None:
+        raise ValueError(f"K5f's bf16 form takes C up to "
+                         f"{_K5F_MMA_WIDTHS[-1]}, got {c}")
+    return cp, -(-hid // 16) * 16
+
+
+def _k5f_mma_smem_bytes(c: int, hid: int, vt: int, hsplit: int) -> int:
+    """Shared memory of a K5f bf16 block (``mma_stage2_smem_bytes``): W1
+    and W2 in bf16 at row strides C + 8 and E·C + 8, two stages of x and
+    the ẑ/z2 buffer at a row stride of VT + 8, b1 and b2 in fp32, and with
+    ``hsplit`` > 1 the fp32 partials of each hidden part."""
+    return (2 * (hid * (c + 8) + c * (hid + 8) + 3 * c * (vt + 8))
+            + 4 * (hid + c) + (4 * hsplit * vt * c if hsplit > 1 else 0))
+
+
+class Stage2MmaLaunch(NamedTuple):
+    """K5f's bf16 geometry for one shape (``csrc/jlc_stage2_mma.cu``
+    checks it): tiles of ``vt`` voxels of the flattened (b, voxel) index,
+    chunks of ``per`` tiles a block walks, and ``hsplit`` warps of a block
+    sharing 16 voxels, each over E·C/hsplit hidden rows."""
+    vt: int
+    hsplit: int
+    tiles: int
+    chunks: int
+    per: int
+    smem_bytes: int
+
+    def tile_ranges(self) -> List[Tuple[int, int]]:
+        """The tiles ``[lo, hi)`` of each chunk; tile ``i`` holds the
+        flattened voxels ``[i·vt, (i + 1)·vt)``."""
+        return [(i * self.per, min(self.tiles, (i + 1) * self.per))
+                for i in range(self.chunks)]
+
+    def warp_work(self, hid: int) -> List[Tuple[Tuple[int, int],
+                                                 Tuple[int, int]]]:
+        """Per warp of a block, the voxels ``[lo, hi)`` of a tile and the
+        hidden rows ``[lo, hi)`` it computes (the kernel's arithmetic):
+        slot ``w // hsplit`` takes consecutive m16 tiles, part
+        ``w % hsplit`` a slice of the hidden rows."""
+        slots = _K5F_MMA_WARPS // self.hsplit
+        mt, hp = self.vt // (16 * slots), hid // self.hsplit
+        return [(((w // self.hsplit) * mt * 16,
+                  (w // self.hsplit + 1) * mt * 16),
+                 ((w % self.hsplit) * hp, (w % self.hsplit + 1) * hp))
+                for w in range(_K5F_MMA_WARPS)]
+
+
+@functools.lru_cache(maxsize=None)
+def stage2_mma_launch(b: int, c: int, hid: int, s: int, sms: int,
+                      hsplit: int = 0) -> Stage2MmaLaunch:
+    """K5f's bf16 geometry at widths :func:`stage2_mma_widths` returns.
+    ``hsplit`` (0: chosen): the fewest warps sharing 16 voxels (1, 2 or 4,
+    each a whole number of 16 hidden rows) that give the card 4 warps an
+    SM, else the most; with more than one, a tile is the block's 16·4 /
+    hsplit voxels. With one, tiles of up to 4096 / C voxels (from 64 to
+    256), halved while they are fewer than 3 an SM (``tools/
+    bench_train_bwd.py --bf16``'s sweep: at 12³, B = 16, tiles of 64
+    voxels took 0.89× the device time of 128). As many blocks as fit
+    the SMs' shared memory walk the tiles, none of them empty (fewer, each
+    walking more tiles, took 1.2-1.45× the time at 24³ and 12³)."""
+    if c not in _K5F_MMA_WIDTHS or hid % 16:
+        raise ValueError(f"K5f's bf16 form takes C in {_K5F_MMA_WIDTHS} "
+                         f"and E·C a multiple of 16; got C={c}, E·C={hid}")
+    m16 = -(-b * s // 16)
+    valid = [h for h in (1, 2, 4) if hid % (16 * h) == 0]
+    if hsplit:
+        if hsplit not in valid:
+            raise ValueError(f"hsplit {hsplit} does not divide E·C={hid} "
+                             f"in 16-row slices")
+    else:
+        hsplit = next((h for h in valid if m16 * h >= 4 * sms), valid[-1])
+    if hsplit > 1:
+        vt = 16 * (_K5F_MMA_WARPS // hsplit)
+    else:
+        vt = max(64, min(_K5F_MMA_MAX_VT, 4096 // c))
+        while vt > 64 and -(-b * s // vt) < 3 * sms:
+            vt //= 2
+    tiles = -(-b * s // vt)
+    smem = _k5f_mma_smem_bytes(c, hid, vt, hsplit)
+    if smem > 4 * _SMEM_FLOATS:
+        raise ValueError(f"K5f's bf16 form: {smem} bytes of shared memory "
+                         f"at C={c}, E·C={hid}")
+    fit = min(16, 4 * _SMEM_FLOATS // smem)
+    per = -(-tiles // min(tiles, fit * sms))
+    return Stage2MmaLaunch(vt, hsplit, tiles, -(-tiles // per), per, smem)
+
+
+def jlc_stage2_mma_plain(out1, w1, b1, w2, b2, hsplit: int):
+    """K5f's bf16 form as the kernel splits its sums, in torch ops on the
+    padded widths: ẑ = bf16((x − μ)·r); per hidden part, z1 = bf16(W1·ẑ +
+    b1), h = the bf16 GELU, and the part's W2·h in fp32; the parts added in
+    order, then b2, rounded; out = bf16(x + z2)."""
+    dt = out1.dtype
+    b, c = out1.shape[:2]
+    hid = w1.shape[0]
+    x = out1.float()
+    mean, rstd = _plane_stats(x)
+    z = ((x - mean) * rstd).to(dt).float().reshape(b, c, -1)
+    w1m, w2m = w1.float().reshape(hid, c), w2.float().reshape(c, hid)
+    acc = None
+    hp = hid // hsplit
+    for e0 in range(0, hid, hp):
+        z1 = torch.einsum("ec,bcs->bes", w1m[e0:e0 + hp], z) \
+            + b1.float()[e0:e0 + hp, None]
+        h = _gelu_as(z1, dt).float()
+        y = torch.einsum("ce,bes->bcs", w2m[:, e0:e0 + hp], h)
+        acc = y if acc is None else acc + y
+    z2 = (acc + b2.float()[:, None]).to(dt).float()
+    return (x + z2.reshape(out1.shape)).to(dt)
+
+
+def _jlc_stage2_fwd_mma(out1, w1, b1, w2, b2, launch=None):
+    """K5f's bf16 form on CUDA tensors: ``(out, mean, rstd)`` as
+    :func:`_jlc_stage2_fwd` returns them; other widths run padded to
+    :func:`stage2_mma_widths`. ``launch``: a :class:`Stage2MmaLaunch` in
+    place of :func:`stage2_mma_launch`'s (the card tests)."""
+    b, c, d, h, w = out1.shape
+    s = d * h * w
+    w1m, w2m, hid = _stage2_mats(out1, w1, w2)
+    _check_cuda(out1, w1m, b1, w2m, b2, dtypes=(torch.bfloat16,))
+    if b1.shape != (hid,) or b2.shape != (c,):
+        raise ValueError(f"K5f bias shapes {tuple(b1.shape)}, "
+                         f"{tuple(b2.shape)} do not match C={c}")
+    ins = (out1, w1m, b1, w2m, b2)
+    cp, hp = stage2_mma_widths(c, hid)
+    if (cp, hp) != (c, hid):
+        ins = pad_stage2_fwd(*ins, widths=stage2_mma_widths)
+    dev = out1.device
+    lw = launch or stage2_mma_launch(b, cp, hp, s, _cuda.sm_count(dev))
+    mean = torch.empty((b * cp,), device=dev)
+    rstd = torch.empty_like(mean)
+    out = torch.empty((b, cp, d, h, w), device=dev, dtype=out1.dtype)
+    lib = _cuda.lib("jlc_stage2_mma", out1.dtype)
+    with torch.cuda.device(dev):
+        err = lib.vs_jlc_stage2_mma(
+            *(t.data_ptr() for t in ins), mean.data_ptr(), rstd.data_ptr(),
+            out.data_ptr(), b, cp, hp, s, lw.vt, lw.hsplit, lw.chunks,
+            lw.per, _cuda.stream_ptr(dev))
+    _cuda.check(lib, err, "jlc_stage2_mma")
     _cuda.count_launch(jlc_stage2, out1.dtype)
     add_kernel_flops(jlc_stage2_flops(out1, w1))
     if cp != c:

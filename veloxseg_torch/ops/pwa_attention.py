@@ -9,7 +9,8 @@ their row-blocked forms ``_train_fwd_rb_kernel`` and
 (batch, head, window), q/k are ``(Cqk, L)`` and v ``(Cv, L)``; the bias
 is ``(h, L, L)``. The CUDA kernels are ``csrc/pwa_attention_train.cu``
 (K1, K2f and K3f: one forward for every window length, K1 its instance
-without dropout and lse), ``csrc/pwa_attention_bwd.cu`` (K2b) and
+without dropout and lse), ``csrc/pwa_attention_long_mma.cu`` (K3f's bf16
+form, on the tensor cores), ``csrc/pwa_attention_bwd.cu`` (K2b) and
 ``csrc/pwa_attention_long.cu`` (K3b); :func:`uses_long_kernel` picks K2
 or K3.
 
@@ -760,24 +761,125 @@ def window_attention_train_fwd_long_plain(q, k, v, bias, seed, scale: float,
     return out.to(v.dtype), out32
 
 
+def window_attention_train_fwd_long_mma_plain(q, k, v, bias, seed,
+                                              scale: float, p: float):
+    """K3f's bf16 form as the kernel splits its products, in torch ops:
+    the kept weights W of :func:`window_attention_train_fwd_plain`, hi =
+    bf16(W) and lo = bf16(W − hi); out = bf16(hi·V) and out32 = hi·V +
+    lo·V (the unrounded weights' product to 2^-17 of each weight; the
+    kernel runs both products on the tensor cores). Returns (out, out32)
+    as :func:`window_attention_train_fwd_long_plain` does."""
+    weights = _train_weights(q, k, bias, seed, scale, p)
+    hi = weights.to(torch.bfloat16).float()
+    lo = (weights - hi).to(torch.bfloat16).float()
+    v32 = v.float()
+    out_hi = torch.einsum("bhnlm,bhncm->bhncl", hi, v32)
+    return (out_hi.to(torch.bfloat16),
+            out_hi + torch.einsum("bhnlm,bhncm->bhncl", lo, v32))
+
+
+# csrc/pwa_attention_long_mma.cu: query rows of a block, columns of a warp,
+# the most warps a block has
+_K3F_MMA_ROWS, _K3F_MMA_COLS, _K3F_MMA_WARPS = 16, 64, 16
+
+
+def _k3f_mma_smem_bytes(warps: int) -> int:
+    """Shared memory of a K3f bf16 block (``long_mma_smem_bytes``): the
+    bias rows in fp32 and two stages of K, V (bf16) at a row stride of
+    64·warps + 8, two stages of q, the row max and sum slots of 16 warps,
+    and the warps' partial products (hi and lo) of two windows."""
+    st = warps * _K3F_MMA_COLS + 8
+    rows, c = _K3F_MMA_ROWS, 8
+    return (4 * rows * st + 2 * (2 * 2 * c * st + 2 * c * rows)
+            + 4 * 2 * rows * _K3F_MMA_WARPS + 4 * 4 * warps * rows * c)
+
+
+class LongMmaLaunch(NamedTuple):
+    """K3f's bf16 geometry (``csrc/pwa_attention_long_mma.cu`` checks it):
+    ``row_blocks`` blocks of 16 query rows of each head, each of
+    ``warps`` warps owning 64 columns of the window, walking chunks of
+    ``per`` of the head's windows (``chunks`` chunks)."""
+    warps: int
+    row_blocks: int
+    chunks: int
+    per: int
+    smem_bytes: int
+
+    def window_ranges(self, bn: int) -> List[Tuple[int, int]]:
+        return _chunk_ranges(bn, self.chunks, self.per)
+
+    def column_ranges(self, l: int) -> List[Tuple[int, int]]:
+        """The columns ``[lo, hi)`` inside L of each warp."""
+        return [(w * _K3F_MMA_COLS, min(l, (w + 1) * _K3F_MMA_COLS))
+                for w in range(self.warps)]
+
+
+@functools.lru_cache(maxsize=None)
+def long_mma_launch(b: int, h: int, n: int, l: int,
+                    sms: int) -> LongMmaLaunch:
+    """K3f's bf16 geometry: one warp per 64 columns (a row of 1024 logits
+    lives in the registers of 16 warps), one block per 16 rows of a head,
+    and the head's windows in as many chunks as leave no SM idle (one block
+    an SM: its shared memory). Windows of at most 1024 tokens."""
+    if not 0 < l <= _K3F_MMA_COLS * _K3F_MMA_WARPS:
+        raise ValueError(f"K3f's bf16 form takes windows of at most "
+                         f"{_K3F_MMA_COLS * _K3F_MMA_WARPS} tokens, got {l}")
+    bn = b * n
+    if bn <= 0:
+        raise ValueError("no windows")
+    warps = -(-l // _K3F_MMA_COLS)
+    row_blocks = -(-l // _K3F_MMA_ROWS)
+    chunks = max(1, min(bn, sms // (row_blocks * h)))
+    per = -(-bn // chunks)
+    return LongMmaLaunch(warps, row_blocks, -(-bn // per), per,
+                         _k3f_mma_smem_bytes(warps))
+
+
+def _train_fwd_long_mma(q, k, v, bias, seed, scale: float, p: float):
+    """Launch K3f's bf16 form (``csrc/pwa_attention_long_mma.cu``) on CUDA
+    tensors: (out, lse, out32)."""
+    seed = seed.reshape(-1).contiguous()
+    b, h, n, c_qk, c_v, l = _check(q, k, v, bias, seed=seed,
+                                   widths=LONG_KERNEL_WIDTHS,
+                                   dtypes=(torch.bfloat16,))
+    lw = long_mma_launch(b, h, n, l, _cuda.sm_count(q.device))
+    out = torch.empty_like(v)
+    out32 = torch.empty_like(v, dtype=torch.float32)
+    lse = torch.empty((b, h, n, l), device=q.device)
+    lib = _cuda.lib("pwa_attention_long_mma", q.dtype)
+    with torch.cuda.device(q.device):
+        err = lib.vs_pwa_attention_long_train_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            seed.data_ptr(), out.data_ptr(), out32.data_ptr(),
+            lse.data_ptr(), b, h, n, c_qk, c_v, l, lw.chunks, lw.per,
+            float(scale), drop_threshold(p) if p > 0.0 else 0,
+            1.0 / (1.0 - p), _cuda.stream_ptr(q.device))
+    _cuda.check(lib, err, "pwa_attention_long_train_mma")
+    _cuda.count_launch(window_attention_train_fwd_long, q.dtype)
+    return out, lse, out32
+
+
 def window_attention_train_fwd_long(q, k, v, bias, seed, scale: float,
                                     p: float):
     """K3f: train attention forward for windows longer than 512 tokens, at
-    the widths K3b is built for; the same kernel as K2f, whose on-chip
-    memory grows with L only by its bias rows (32 rows of L at L = 1024).
-    q, k, v fp32 or bf16 (bias fp32); (out, lse, out32) as K2f returns them,
-    which K3b takes. Its bf16 form rounds the kept weights before ·V (two
-    passes over each window) and its out32 is the product of the unrounded
-    weights. Its plain version is :func:`window_attention_train_fwd_long_plain`
-    with :func:`train_lse_plain`."""
+    the widths K3b is built for. q, k, v fp32 or bf16 (bias fp32); (out,
+    lse, out32) as K2f returns them, which K3b takes. fp32: K2f's kernel,
+    whose on-chip memory grows with L only by its bias rows (32 rows of L
+    at L = 1024). bf16: its own kernel, one pass over each window on the
+    tensor cores (windows of at most 1024 tokens), the kept weights rounded
+    before ·V and out32 the product of the unrounded weights. Its plain
+    version is :func:`window_attention_train_fwd_long_plain` with
+    :func:`train_lse_plain`; :func:`window_attention_train_fwd_long_mma_plain`
+    splits the bf16 form's products as the kernel does."""
     if q.device.type == "cpu":
         out, out32 = window_attention_train_fwd_long_plain(q, k, v, bias, seed,
                                                            scale, p)
         return out, train_lse_plain(q, k, bias, scale), out32
+    if q.dtype == torch.bfloat16:
+        return _train_fwd_long_mma(q, k, v, bias, seed, scale, p)
     return _train_fwd_kernel(window_attention_train_fwd_long,
                              "vs_pwa_attention_long_train",
-                             LONG_KERNEL_WIDTHS, q, k, v, bias, seed, scale, p,
-                             dtypes=(torch.float32, torch.bfloat16))
+                             LONG_KERNEL_WIDTHS, q, k, v, bias, seed, scale, p)
 
 
 window_attention_train_fwd_long.launches = 0
